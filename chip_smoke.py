@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds both CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+``nvcc``, then drives the port's filter-bank path through the entry
+points a user calls, each leg with the kernels' launch counts zeroed just
+before it and read just after:
+
+  * serve       — `FilterBankEngine(mode="packed")` over the 256-filter
+                  63-tap spread-lowpass bank, 1 channel, 32 pushes of
+                  4,096 samples (the reference's ``--fir-bank`` serving
+                  defaults); bit-exact against the plain CPU path and the
+                  numpy oracle;
+  * sweep       — `blmac_fir_bank` over the paper's 9,900-filter 127-tap
+                  sweep bank (§3.1), 16-bit po2 quantization, 1 channel ×
+                  16,384 samples; bit-exact against the plain version in
+                  full and the numpy oracle on 64 sampled rows;
+  * specialized — `blmac_fir` on one 127-tap filter over 2**20 samples and
+                  `FilterBankEngine(mode="specialized")` on 8 filters × 2
+                  channels; bit-exact against the numpy oracle.
+
+Then each kernel is held against its plain PyTorch version on the card at
+the main path's shapes (tolerance 0: integer arithmetic modulo 2**32) and
+timed with CUDA events beside its plain version, one PyTorch library call
+computing the same function (`F.conv1d` in float64, exact here) and its
+bound on an H100 SXM.  Prints one JSON object per phase, the
+``{"kernels": [...]}`` line, the card's name and power limit as
+``nvidia-smi`` reports them, and as its last line
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
+before that line; without a CUDA device it exits 2 at once.
+"""
+from __future__ import annotations
+
+import importlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+# H100 SXM peaks the bounds are taken against (NVIDIA's data sheet and the
+# Hopper white paper): HBM3 bandwidth, and the INT32 rate of the CUDA
+# cores — 132 SMs × 64 INT32 lanes × 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+SERVE_FILTERS, SERVE_TAPS, SERVE_CHUNK, SERVE_CHUNKS = 256, 63, 4096, 32
+SWEEP_TAPS, SWEEP_SAMPLES, SWEEP_CHECK_ROWS = 127, 16384, 64
+SPEC_SAMPLES = 1 << 20
+OPS_TILE = 1024  # blmac_fir / blmac_fir_bank default signal tile
+
+
+def check(ok: bool, what: str) -> None:
+    """Fail the run (an exception, so a non-zero exit before the result
+    line) when a phase's check does not hold; unlike ``assert``, never
+    compiled away."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, target_ms: float = 200.0) -> float:
+    """Mean milliseconds of ``fn`` on the device: CUDA events around a
+    run of launches after a warm-up, enough of them to fill
+    ``target_ms``."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    reps = max(3, min(200, int(target_ms / max(start.elapsed_time(end), 1e-3))))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_diff(a, b) -> int:
+    import torch
+
+    if a.shape != b.shape:
+        raise RuntimeError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """Least time on an H100 SXM for ``ops`` int32 operations and
+    ``nbytes`` of device-memory traffic: the larger of the two."""
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def conv1d_ms(x, qbank, n_out: int) -> float:
+    """One PyTorch call computing the same bank output: `F.conv1d` in
+    float64 over the integer taps (exact: every partial sum < 2**31 <
+    2**53), timed as a yardstick; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xf = x.to(torch.float64).reshape(1, 1, -1)
+    w = torch.as_tensor(qbank, dtype=torch.float64, device=x.device)[:, None]
+    y = F.conv1d(xf, w)
+    check(y.shape[-1] == n_out, "conv1d output length")
+    del y
+    return cuda_ms(lambda: F.conv1d(xf, w))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from repro_torch.compiler import compile_bank
+    from repro_torch.core import po2_quantize_batch
+    from repro_torch.filters import (FilterBankEngine, fir_bit_layers_batch,
+                                     spread_lowpass_qbank, sweep_bank)
+    from repro_torch.kernels import blmac_fir, blmac_fir_bank
+    from repro_torch.kernels.build import build_all, library
+
+    # the kernel module, not the same-named function the package exports
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    emit({"phase": "env", "device": kind, "count": count, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # -- build ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    infos = build_all()
+    build_s = time.perf_counter() - t0
+    dynamic_smem = {
+        "blmac_bank_kernel": {
+            t: library("blmac_bank").blmac_bank_smem_bytes(t)
+            for t in (SERVE_TAPS, SWEEP_TAPS)},
+        "blmac_specialized_kernel": {
+            SWEEP_TAPS: library("blmac_specialized")
+            .blmac_specialized_smem_bytes(SWEEP_TAPS)},
+    }
+    emit({"phase": "build", "seconds": build_s,
+          "libraries": {n: {"nvcc_s": i.seconds, "cached": i.cached,
+                            "kernels": i.resources()}
+                        for n, i in infos.items()},
+          "dynamic_smem_bytes_by_taps": dynamic_smem})
+
+    rng = np.random.default_rng(0)
+
+    # -- serve leg -----------------------------------------------------------
+    serve_q = spread_lowpass_qbank(SERVE_FILTERS, SERVE_TAPS)
+    serve_prog = compile_bank(serve_q)
+    stream = rng.integers(-128, 128, (1, SERVE_CHUNK * SERVE_CHUNKS)) \
+        .astype(np.int32)
+    chunks = [stream[:, k * SERVE_CHUNK:(k + 1) * SERVE_CHUNK]
+              for k in range(SERVE_CHUNKS)]
+    eng = FilterBankEngine(serve_prog, channels=1, mode="packed", device=dev)
+    bf.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [eng.push(c) for c in chunks]
+    serve_s = time.perf_counter() - t0
+    serve_launches = bf.bank_call.launches
+    check(serve_launches > 0, "serve leg never launched the bank kernel")
+    cpu_eng = FilterBankEngine(serve_prog, channels=1, mode="packed",
+                               device="cpu")
+    cpu_outs = [cpu_eng.push(c) for c in chunks]
+    check(all(np.array_equal(a, b) for a, b in zip(outs, cpu_outs)),
+          "serve stream differs from the plain CPU path")
+    last = outs[-1]
+    tail_in = stream[:, -(last.shape[2] + SERVE_TAPS - 1):]
+    check(np.array_equal(last, fir_bit_layers_batch(tail_in, serve_q)),
+          "serve tail chunk differs from the numpy oracle")
+    n_serve_out = sum(o.shape[2] for o in outs)
+    emit({"phase": "serve", "filters": SERVE_FILTERS, "taps": SERVE_TAPS,
+          "pushes": SERVE_CHUNKS, "chunk": SERVE_CHUNK,
+          "outputs_per_filter": n_serve_out, "bank_launches": serve_launches,
+          "groups": len(eng.bank_schedule.groups), "wall_s": serve_s,
+          "bit_exact_vs_cpu_and_oracle": True})
+
+    # -- sweep leg -----------------------------------------------------------
+    sweep_q, _ = po2_quantize_batch(sweep_bank(SWEEP_TAPS), 16)
+    sweep_prog = compile_bank(sweep_q)
+    x_sweep = torch.as_tensor(rng.integers(-128, 128, (1, SWEEP_SAMPLES)),
+                              dtype=torch.int32, device=dev)
+    bf.reset_launch_counts()
+    y_sweep = blmac_fir_bank(x_sweep, sweep_q)
+    torch.cuda.synchronize()
+    sweep_launches = bf.bank_call.launches
+    check(sweep_launches > 0, "sweep leg never launched the bank kernel")
+    sched = sweep_prog.schedule()  # the plan blmac_fir_bank used
+    frames, n_sweep = bf.frame_signal_batch(x_sweep, SWEEP_TAPS, OPS_TILE)
+    # plain version over the same groups, assembled like the kernel path
+    plain_parts, diffs = [], []
+    for g in sched.groups:
+        rows = g.packed.shape[0]
+        if not g.sel_layers:
+            plain_parts.append(torch.zeros((rows, 1, frames.shape[1], OPS_TILE),
+                                           dtype=torch.int32, device=dev))
+            continue
+        op = torch.tensor(g.packed.view(np.int32), device=dev)
+        plain = bf.bank_call_plain(frames, op, SWEEP_TAPS, g.schedule,
+                                   g.tail_shift, OPS_TILE)
+        kern = bf.bank_call(frames, op, SWEEP_TAPS, g.schedule, g.tail_shift,
+                            OPS_TILE)
+        diffs.append(max_abs_diff(kern, plain))
+        plain_parts.append(plain)
+        del kern
+    y_plain = torch.cat(plain_parts).reshape(-1, 1, frames.shape[1] * OPS_TILE)
+    y_plain = y_plain.index_select(
+        0, torch.as_tensor(sched.inv, device=dev))[:, :, :n_sweep]
+    del plain_parts
+    sweep_diff = max(diffs + [max_abs_diff(y_sweep, y_plain)])
+    check(sweep_diff == 0, f"bank kernel differs from plain by {sweep_diff}")
+    del y_plain
+    rows = np.sort(rng.choice(len(sweep_q), SWEEP_CHECK_ROWS, replace=False))
+    want = fir_bit_layers_batch(x_sweep.cpu().numpy(), sweep_q[rows])
+    got_rows = y_sweep[torch.as_tensor(rows, device=dev)].cpu().numpy()
+    check(np.array_equal(got_rows, want),
+          "sweep rows differ from the numpy oracle")
+    emit({"phase": "sweep", "filters": len(sweep_q), "taps": SWEEP_TAPS,
+          "samples": SWEEP_SAMPLES, "output_bytes": y_sweep.numel() * 4,
+          "groups": len(sched.groups),
+          "zero_groups": sum(not g.sel_layers for g in sched.groups),
+          "bank_launches": sweep_launches, "max_abs_diff_vs_plain": sweep_diff,
+          "oracle_rows_checked": SWEEP_CHECK_ROWS})
+
+    # -- specialized leg -----------------------------------------------------
+    spec_q = sweep_q[4950]  # a bandpass filter of the sweep bank
+    x_spec = torch.as_tensor(rng.integers(-128, 128, SPEC_SAMPLES),
+                             dtype=torch.int32, device=dev)
+    bank8 = sweep_q[np.linspace(0, len(sweep_q) - 1, 8).astype(int)]
+    x8 = rng.integers(-128, 128, (2, 8 * 4096)).astype(np.int32)
+    bf.reset_launch_counts()
+    y_spec = blmac_fir(x_spec, spec_q)
+    spec_eng = FilterBankEngine(bank8, channels=2, mode="specialized",
+                                device=dev)
+    y8 = np.concatenate([spec_eng.push(x8[:, k * 4096:(k + 1) * 4096])
+                         for k in range(8)], axis=2)
+    torch.cuda.synchronize()
+    spec_launches = bf.specialized_call.launches
+    check(spec_launches > 0, "specialized leg never launched its kernel")
+    want_spec = fir_bit_layers_batch(x_spec.cpu().numpy(), spec_q)[0, 0]
+    check(np.array_equal(y_spec.cpu().numpy(), want_spec),
+          "blmac_fir differs from the numpy oracle")
+    check(np.array_equal(y8, fir_bit_layers_batch(x8, bank8)),
+          "specialized engine differs from the numpy oracle")
+    spec_pulses = compile_bank(spec_q[None]).pulse_schedules()[0]
+    sframes, n_spec = bf.frame_signal(x_spec, SWEEP_TAPS, OPS_TILE)
+    sprog = bf.specialized_program(spec_pulses, SWEEP_TAPS, OPS_TILE, str(dev))
+    spec_diff = max_abs_diff(
+        bf.specialized_call(sframes, sprog),
+        bf.specialized_plain(sframes, spec_pulses, SWEEP_TAPS, OPS_TILE))
+    check(spec_diff == 0, f"specialized kernel differs by {spec_diff}")
+    emit({"phase": "specialized", "taps": SWEEP_TAPS, "samples": SPEC_SAMPLES,
+          "pulses": len(spec_pulses), "engine_filters": 8,
+          "engine_channels": 2, "specialized_launches": spec_launches,
+          "max_abs_diff_vs_plain": spec_diff, "bit_exact_vs_oracle": True})
+
+    # -- kernel timings at the main path's shapes -----------------------------
+    half = SWEEP_TAPS // 2
+    live = [g for g in sched.groups if g.sel_layers]
+    ops_k1 = [torch.tensor(g.packed.view(np.int32), device=dev) for g in live]
+    out_k1 = torch.empty((max(g.packed.shape[0] for g in live), 1,
+                          frames.shape[1], OPS_TILE), dtype=torch.int32,
+                         device=dev)
+
+    def k1():
+        for g, op in zip(live, ops_k1):
+            bf.bank_call(frames, op, SWEEP_TAPS, g.schedule, g.tail_shift,
+                         OPS_TILE, out=out_k1[:g.packed.shape[0]])
+
+    def k1_plain():
+        for g, op in zip(live, ops_k1):
+            bf.bank_call_plain(frames, op, SWEEP_TAPS, g.schedule,
+                               g.tail_shift, OPS_TILE)
+
+    k1_ops = (int(sweep_prog.pulse_counts.sum()) + half) * n_sweep
+    k1_bytes = 4 * (SWEEP_SAMPLES + len(sweep_q) * n_sweep)
+    k1_bound, k1_by = bound(k1_ops, k1_bytes)
+    k1_ms = cuda_ms(k1)
+    k1_plain_ms = cuda_ms(k1_plain)
+    k1_lib_ms = conv1d_ms(x_sweep, sweep_q, n_sweep)
+
+    # serve shape: one push of the engine (32 such pushes per leg)
+    sbuf = torch.as_tensor(stream[:, :SERVE_CHUNK + SERVE_TAPS - 1],
+                           device=dev)
+    spad = -(-sbuf.shape[1] // eng.tile) * eng.tile
+    n_push = sbuf.shape[1] - SERVE_TAPS + 1  # outputs of one push
+    sframes_b, _ = bf.frame_signal_batch(
+        torch.nn.functional.pad(sbuf, (0, spad - sbuf.shape[1])),
+        SERVE_TAPS, eng.tile)
+    sgroups = [(g, op) for g, op in zip(eng.bank_schedule.groups,
+                                        eng._group_ops) if g.sel_layers]
+
+    def k1_serve():
+        for g, op in sgroups:
+            bf.bank_call(sframes_b, op, SERVE_TAPS, g.schedule, g.tail_shift,
+                         eng.tile)
+
+    def k1_serve_plain():
+        for g, op in sgroups:
+            bf.bank_call_plain(sframes_b, op, SERVE_TAPS, g.schedule,
+                               g.tail_shift, eng.tile)
+
+    serve_diff = max(max_abs_diff(
+        bf.bank_call(sframes_b, op, SERVE_TAPS, g.schedule, g.tail_shift,
+                     eng.tile),
+        bf.bank_call_plain(sframes_b, op, SERVE_TAPS, g.schedule,
+                           g.tail_shift, eng.tile)) for g, op in sgroups)
+    check(serve_diff == 0,
+          "bank kernel differs at the serve shape")
+    s_ops = (int(serve_prog.pulse_counts.sum()) + SERVE_TAPS // 2) * n_push
+    s_bytes = 4 * (sbuf.shape[1] + SERVE_FILTERS * n_push)
+    s_bound, s_by = bound(s_ops, s_bytes)
+    serve_shape = {
+        "shape": f"{SERVE_FILTERS} filters x {SERVE_TAPS} taps x 1 channel x "
+                 f"{sbuf.shape[1]} samples (one push), tile {eng.tile}",
+        "max_abs_err": serve_diff, "ms": cuda_ms(k1_serve),
+        "plain_ms": cuda_ms(k1_serve_plain), "bound_ms": s_bound,
+        "bound_by": s_by,
+        "library_ms": conv1d_ms(sbuf[0], serve_q, n_push),
+        "ops": s_ops, "bytes": s_bytes,
+    }
+
+    k2_ops = (len(spec_pulses) + half) * n_spec
+    k2_bytes = 4 * (SPEC_SAMPLES + n_spec)
+    k2_bound, k2_by = bound(k2_ops, k2_bytes)
+    k2_ms = cuda_ms(lambda: bf.specialized_call(sframes, sprog))
+    k2_plain_ms = cuda_ms(lambda: bf.specialized_plain(
+        sframes, spec_pulses, SWEEP_TAPS, OPS_TILE))
+    k2_lib_ms = conv1d_ms(x_spec, spec_q[None], n_spec)
+
+    kernels = [
+        {"name": "blmac_bank_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/blmac_bank.cu",
+         "replaces": "src/repro/kernels/blmac_fir.py:200",
+         "replaces_function": "_fir_kernel_bank",
+         "launches": serve_launches + sweep_launches,
+         "launches_by_leg": {"serve": serve_launches, "sweep": sweep_launches},
+         "shape": f"{len(sweep_q)} filters x {SWEEP_TAPS} taps x 1 channel x "
+                  f"{SWEEP_SAMPLES} samples, tile {OPS_TILE}, "
+                  f"{len(live)} launches",
+         "max_abs_err": sweep_diff, "max_abs_diff": sweep_diff,
+         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms,
+         "ops": k1_ops, "bytes": k1_bytes, "serve_shape": serve_shape},
+        {"name": "blmac_specialized_kernel", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/blmac_specialized.cu",
+         "replaces": "src/repro/kernels/blmac_fir.py:112",
+         "replaces_function": "_fir_kernel_specialized",
+         "launches": spec_launches,
+         "shape": f"1 filter x {SWEEP_TAPS} taps ({len(spec_pulses)} pulses) x "
+                  f"{SPEC_SAMPLES} samples, tile {OPS_TILE}",
+         "max_abs_err": spec_diff, "max_abs_diff": spec_diff,
+         "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
+         "ops": k2_ops, "bytes": k2_bytes},
+    ]
+
+    # -- engine throughput on the serve leg ------------------------------------
+    eng.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_done = sum(eng.push(c).shape[2] for c in chunks)
+    dt = time.perf_counter() - t0
+    emit({"phase": "engine_throughput", "filters": SERVE_FILTERS,
+          "pushes": SERVE_CHUNKS, "wall_s": dt,
+          "filter_samples_per_s": SERVE_FILTERS * n_done / dt,
+          "device": kind, "nvidia_smi": smi})
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""PyTorch/CUDA port of the BLMAC filter-bank system, for one NVIDIA H100.
+
+A second package beside the JAX reference `repro`, which it never
+imports: the compiler (`repro_torch.compiler`) and the numpy oracles
+are its own copies, with the reference's content keys and file formats,
+and the two kernels of the filter-bank path are written by hand in CUDA
+C++ for Hopper (`repro_torch.kernels`, sources under
+``kernels/csrc/``), built with ``nvcc`` at first use.
+
+Layout (mirrors `repro`):
+
+  core/      CSD codec, §3.2 quantizer, durable-file helpers
+  compiler/  compile_bank → BlmacProgram, schedules, TailSnapshot
+  filters/   filter design, sweep bank, oracles, FilterBankEngine
+  kernels/   blmac_fir / blmac_fir_bank, the CUDA kernels and their
+             plain PyTorch versions, the nvcc build
+
+Entry points run on the GPU unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,46 @@
+"""The port's compile pipeline: one `BlmacProgram` per bank.
+
+A numpy copy of the parts of `repro.compiler` the filter-bank path needs
+(no JAX, no import of `repro`), with the reference's content key and
+on-disk formats, so programs and tail snapshots move between the two
+packages unchanged:
+
+  * `compile_bank` / `compile_packed` / `program_from_arrays` —
+    content-addressed compilation,
+  * `BlmacProgram` — the artifact (schedules and pulse tuples memoized
+    on it), `save()` / `load()`,
+  * `plan_bank_schedule` / `BankSchedule` / `superlayer_schedule` — the
+    pack-time scheduler,
+  * `cache_stats` / `clear_caches` — the cache observability point,
+  * `TailSnapshot` — overlap-save stream state, keyed to its program.
+"""
+from .cache import cache_stats, clear_caches
+from .program import (BlmacProgram, CompileSpec, PROGRAM_FORMAT_VERSION,
+                      ProgramFormatError, compile_bank, compile_packed,
+                      program_from_arrays)
+from .schedule import (BankSchedule, MAX_BANK_TILE, MERGE_DEFAULT, TileGroup,
+                       default_bank_tile, plan_bank_schedule,
+                       superlayer_schedule)
+from .state import STATE_FORMAT_VERSION, SnapshotFormatError, TailSnapshot
+
+__all__ = [
+    "BankSchedule",
+    "BlmacProgram",
+    "CompileSpec",
+    "MAX_BANK_TILE",
+    "MERGE_DEFAULT",
+    "PROGRAM_FORMAT_VERSION",
+    "ProgramFormatError",
+    "STATE_FORMAT_VERSION",
+    "SnapshotFormatError",
+    "TailSnapshot",
+    "TileGroup",
+    "cache_stats",
+    "clear_caches",
+    "compile_bank",
+    "compile_packed",
+    "default_bank_tile",
+    "plan_bank_schedule",
+    "program_from_arrays",
+    "superlayer_schedule",
+]

@@ -1,0 +1,447 @@
+"""`compile_bank(coeffs, spec) -> BlmacProgram`: filter compilation as a
+cached, serializable step — the port's copy of `repro.compiler.program`.
+
+A compiled filter bank is quantized taps → CSD bit layers → packed 2-bit
+trit words (the bank kernel's operand) plus the views every backend
+reads: per-filter layer occupancy, occupancy signatures, pulse counts,
+memoized superlayer schedules per ``(bank_tile, merge)`` and per-filter
+MSB-first pulse tuples.
+
+The content address (`BlmacProgram.key`) and the on-disk format
+(`PROGRAM_FORMAT_VERSION`, npz + JSON header) are the reference's, byte
+for byte, so one saved program file serves both packages and a program
+built here from the reference's arrays (`program_from_arrays`) carries
+the reference's key.  What the port leaves out for now: `partition`,
+`select`, `machine_cycles`, the cost-model readers and CSE-optimized
+programs (a file the reference's CSE pass wrote is refused on load).
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..core.csd import (assert_int32_bound, csd_decode, csd_digits,
+                        layer_occupancy, occupancy_signatures, pack_trits,
+                        packed_pulse_counts, require_type1, unpack_trits)
+from ..core.io import atomic_write, check_format_header
+from .cache import PROGRAM_CACHE, _bump
+from .schedule import (BankSchedule, MERGE_DEFAULT, default_bank_tile,
+                       plan_bank_schedule)
+
+__all__ = [
+    "CompileSpec",
+    "BlmacProgram",
+    "ProgramFormatError",
+    "PROGRAM_FORMAT_VERSION",
+    "compile_bank",
+    "compile_packed",
+    "program_from_arrays",
+]
+
+# the reference's on-disk layout version; `load` rejects other versions
+# instead of mis-parsing them
+PROGRAM_FORMAT_VERSION = 1
+
+
+class ProgramFormatError(ValueError):
+    """A saved program file has the wrong version or is corrupted."""
+
+
+@dataclass(frozen=True)
+class CompileSpec:
+    """Compilation parameters — part of the program's content address.
+
+    ``coeff_bits`` is the §3.2 quantization width applied to FLOAT
+    coefficient input (integer banks are taken as already quantized);
+    ``sample_bits`` the input-sample width of the §2.1 int32 accumulator
+    bound, asserted once at compile; ``n_layers`` overrides the CSD digit
+    count (None = minimal for the bank's magnitude range).
+    """
+
+    coeff_bits: int = 16
+    sample_bits: int = 8
+    n_layers: int | None = None
+
+
+def _qbank_key(qbank: np.ndarray, spec: CompileSpec):
+    return (
+        "q", hashlib.sha256(np.ascontiguousarray(qbank)).digest(),
+        qbank.shape, spec.sample_bits, spec.n_layers,
+    )
+
+
+def _packed_key(packed: np.ndarray, taps: int, sample_bits: int):
+    # geometry is folded into the digest itself: the digest doubles as
+    # `BlmacProgram.key`, and identical trit bytes can arise from
+    # different tap counts (zero-padded trailing slots of the last word)
+    h = hashlib.sha256(np.ascontiguousarray(packed))
+    h.update(repr((packed.shape, int(taps), int(sample_bits))).encode())
+    return ("p", h.digest(), packed.shape, int(taps), int(sample_bits))
+
+
+def _memo_put(memo: dict, key, value, cap: int) -> None:
+    """Insert into a bounded FIFO memo (dicts keep insertion order)."""
+    memo[key] = value
+    while len(memo) > cap:
+        del memo[next(iter(memo))]
+
+
+SCHEDULE_MEMO_MAX = 16
+
+
+class BlmacProgram:
+    """One compiled BLMAC filter bank — the artifact every backend executes.
+
+    Read-only by contract (the arrays are flagged unwritable).  Construct
+    via `compile_bank` / `compile_packed` / `program_from_arrays` /
+    `load`, never directly.
+
+    Attributes
+    ----------
+    key : str
+        Hex content digest of the packed trit operand (the reference's
+        digest, stable across ``save``/``load`` and across packages).
+    qbank : (B, taps) int64
+        Quantized coefficients.
+    exponents : (B,) int64
+        Per-filter §3.2 power-of-two scale exponents (zero when compiled
+        from already-quantized integers).
+    packed : (B, n_layers, n_words) uint32
+        Packed 2-bit trit words over the folded half-filter.
+    occupancy : (B, n_layers) bool;  signatures : (B,) uint64
+        Which bit layers hold pulses, and the sort key of the schedule.
+    pulse_counts : (B,) int64
+        Non-zero trits per filter.
+    """
+
+    def __init__(self, *, qbank, exponents, packed, occupancy, signatures,
+                 pulse_counts, spec: CompileSpec, key: str):
+        self.qbank = qbank
+        self.exponents = exponents
+        self.packed = packed
+        self.occupancy = occupancy
+        self.signatures = signatures
+        self.pulse_counts = pulse_counts
+        self.spec = spec
+        self.key = key
+        self.n_filters, self.taps = qbank.shape
+        _, self.n_layers, self.n_words = packed.shape
+        for a in (qbank, exponents, packed, occupancy, signatures,
+                  pulse_counts):
+            a.setflags(write=False)
+        self._schedules: dict = {}
+        self._half_digits = None
+        self._pulse_schedules = None
+
+    def __repr__(self) -> str:
+        return (
+            f"BlmacProgram(B={self.n_filters}, taps={self.taps}, "
+            f"layers={self.n_layers}, key={self.key[:12]}…)"
+        )
+
+    def half_digits(self) -> np.ndarray:
+        """(B, M, n_layers) int8 signed CSD digits of the folded half,
+        LSB-first layers — unpacked from the trit words once, then shared
+        (read-only)."""
+        if self._half_digits is None:
+            half = self.taps // 2
+            d = unpack_trits(self.packed, half + 1)  # (B, L, M)
+            d = np.ascontiguousarray(np.swapaxes(d, 1, 2))
+            d.setflags(write=False)
+            self._half_digits = d
+        return self._half_digits
+
+    def pulse_schedules(self) -> tuple:
+        """Per-filter MSB-first static pulse tuples ``(layer, j, sign)`` —
+        the `specialized_program` input, derived once from the digits."""
+        if self._pulse_schedules is None:
+            digits = self.half_digits()  # (B, M, L)
+            out = []
+            for b in range(self.n_filters):
+                d = digits[b]
+                pulses = []
+                for layer in range(d.shape[1] - 1, -1, -1):
+                    for j in np.nonzero(d[:, layer])[0]:
+                        pulses.append((int(layer), int(j), int(d[j, layer])))
+                out.append(tuple(pulses))
+            self._pulse_schedules = tuple(out)
+        return self._pulse_schedules
+
+    def schedule(
+        self, bank_tile: int | None = None, merge: int | None = None
+    ) -> BankSchedule:
+        """The memoized superlayer schedule for one kernel geometry: one
+        `plan_bank_schedule` per distinct ``(bank_tile, merge)``."""
+        bt = default_bank_tile(self.n_filters) if bank_tile is None \
+            else int(bank_tile)
+        mg = MERGE_DEFAULT if merge is None else int(merge)
+        key = (bt, mg)
+        if key not in self._schedules:
+            _memo_put(
+                self._schedules, key,
+                plan_bank_schedule(self.packed, bt, mg), SCHEDULE_MEMO_MAX,
+            )
+        return self._schedules[key]
+
+    # -- serialization -------------------------------------------------------
+
+    def save(self, path) -> None:
+        """Write the program to ``path``: one npz holding the arrays plus
+        a JSON header (format version, geometry, content key), atomically
+        — the reference's format, so either package loads the file."""
+        header = {
+            "format_version": PROGRAM_FORMAT_VERSION,
+            "kind": "blmac_program",
+            "key": self.key,
+            "n_filters": self.n_filters,
+            "taps": self.taps,
+            "n_layers": self.n_layers,
+            "n_words": self.n_words,
+            "spec": {
+                "coeff_bits": self.spec.coeff_bits,
+                "sample_bits": self.spec.sample_bits,
+                "n_layers": self.spec.n_layers,
+            },
+        }
+        atomic_write(path, lambda f: np.savez(
+            f,
+            header=np.array(json.dumps(header)),
+            qbank=self.qbank,
+            exponents=self.exponents,
+            packed=self.packed,
+        ))
+
+    @classmethod
+    def load(cls, path) -> "BlmacProgram":
+        """Read a program written by `save` (in either package).
+
+        Every way the file can be bad raises `ProgramFormatError`: another
+        format version, an unreadable archive, a header digest that does
+        not match the packed trits, coefficients that do not decode from
+        the trits, or a CSE-optimized program (not ported yet).  The
+        loaded program is registered content-addressed.
+        """
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                header = json.loads(str(z["header"][()]))
+                check_format_header(
+                    header, kind="blmac_program",
+                    version=PROGRAM_FORMAT_VERSION, path=path,
+                    error_cls=ProgramFormatError, label="BLMAC program",
+                )
+                qbank = np.ascontiguousarray(z["qbank"], np.int64)
+                exponents = np.ascontiguousarray(z["exponents"], np.int64)
+                packed = np.ascontiguousarray(z["packed"], np.uint32)
+        except ProgramFormatError:
+            raise
+        except Exception as e:  # truncated zip, missing array, bad JSON …
+            raise ProgramFormatError(f"{path}: unreadable program file: {e}")
+        if "cse" in header:
+            raise ProgramFormatError(
+                f"{path}: CSE-optimized programs are not supported here yet"
+            )
+        spec = CompileSpec(**header["spec"])
+        pkey = _packed_key(packed, int(header["taps"]), spec.sample_bits)
+        if pkey[1].hex() != header.get("key"):
+            raise ProgramFormatError(
+                f"{path}: content digest mismatch (corrupted file?)"
+            )
+        try:
+            return _register(qbank, exponents, packed, spec, pkey)
+        except ValueError as e:
+            raise ProgramFormatError(f"{path}: {e}") from e
+
+
+def _check_decodes(qbank: np.ndarray, packed: np.ndarray) -> None:
+    """The digest covers the packed trits; the stored coefficients must
+    decode from them, or the oracle and the kernels would diverge."""
+    half = qbank.shape[-1] // 2
+    halves = csd_decode(np.swapaxes(unpack_trits(packed, half + 1), 1, 2))
+    if not np.array_equal(
+        qbank, np.concatenate([halves, halves[:, :-1][:, ::-1]], axis=1)
+    ):
+        raise ValueError(
+            "stored coefficients do not decode from the packed trits"
+        )
+
+
+def _from_arrays(
+    qbank: np.ndarray,
+    exponents: np.ndarray,
+    packed: np.ndarray,
+    spec: CompileSpec,
+) -> BlmacProgram:
+    """Assemble a program from its stored arrays — derives only the cheap
+    views (occupancy, signatures, pulse counts read off the packed words),
+    never re-runs CSD encoding."""
+    taps = qbank.shape[-1]
+    require_type1(qbank, "compile_bank")
+    assert_int32_bound(qbank, spec.sample_bits, "compile_bank")
+    occupancy = np.ascontiguousarray(packed.any(axis=-1))
+    return BlmacProgram(
+        qbank=qbank,
+        exponents=np.ascontiguousarray(exponents),
+        packed=packed,
+        occupancy=occupancy,
+        signatures=np.ascontiguousarray(occupancy_signatures(occupancy)),
+        pulse_counts=packed_pulse_counts(packed),
+        spec=spec,
+        key=_packed_key(packed, taps, spec.sample_bits)[1].hex(),
+    )
+
+
+def _register(qbank, exponents, packed, spec, pkey) -> BlmacProgram:
+    """Check stored arrays, then return the cached program for their
+    digest or build and register a new one."""
+    _check_decodes(qbank, packed)
+    cached = PROGRAM_CACHE.get(pkey)
+    if cached is not None:
+        return cached
+    prog = _from_arrays(qbank, exponents, packed, spec)
+    PROGRAM_CACHE.put(prog, pkey, _qbank_key(qbank, spec))
+    return prog
+
+
+def program_from_arrays(
+    qbank, exponents, packed, spec: CompileSpec | None = None
+) -> BlmacProgram:
+    """Build a program from another package's arrays — the reference's
+    ``BlmacProgram.qbank``, ``.exponents`` and ``.packed`` as numpy
+    arrays — without re-running CSD encoding.  The result carries the
+    same content key as the program the arrays came from (pass that
+    program's ``spec`` fields when they differ from the defaults).
+
+    Raises ``ValueError`` when the coefficients do not decode from the
+    packed trits, are not type-I, or break the §2.1 int32 bound.
+    """
+    spec = spec or CompileSpec()
+    qbank = np.ascontiguousarray(np.asarray(qbank), np.int64)
+    packed = np.ascontiguousarray(np.asarray(packed), np.uint32)
+    exponents = np.ascontiguousarray(np.asarray(exponents), np.int64)
+    if qbank.ndim != 2 or packed.ndim != 3 or \
+            packed.shape[0] != qbank.shape[0]:
+        raise ValueError(
+            f"qbank {qbank.shape} and packed {packed.shape} do not describe "
+            f"one bank"
+        )
+    pkey = _packed_key(packed, qbank.shape[-1], spec.sample_bits)
+    return _register(qbank.copy(), exponents.copy(), packed.copy(), spec,
+                     pkey)
+
+
+def compile_bank(coeffs, spec: CompileSpec | None = None) -> BlmacProgram:
+    """Compile a filter bank to a `BlmacProgram`.
+
+    Content-addressed: the same bank compiles once per process; every
+    engine and entry point shares the artifact and its memoized
+    schedules.
+
+    Parameters
+    ----------
+    coeffs : (B, taps) or (taps,) array
+        Odd symmetric type-I coefficients.  Float input is quantized
+        per-row the paper's way (§3.2, `po2_quantize_batch` at
+        ``spec.coeff_bits``); integer input is taken as already quantized.
+    spec : CompileSpec | None
+        Compilation parameters; part of the content address.
+
+    Raises
+    ------
+    ValueError
+        Coefficients are not type-I, or the §2.1 int32 accumulator bound
+        fails at ``spec.sample_bits``.
+    TypeError
+        Coefficient dtype is neither float nor integer.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from repro_torch.compiler import compile_bank
+    >>> bank = np.zeros((2, 15), np.int64)
+    >>> bank[:, 7] = [64, 96]                    # centre-tap scalers
+    >>> prog = compile_bank(bank)
+    >>> prog.n_filters, prog.taps
+    (2, 15)
+    >>> compile_bank(bank) is prog               # content-addressed
+    True
+    """
+    spec = spec or CompileSpec()
+    coeffs = np.atleast_2d(np.asarray(coeffs))
+    if coeffs.ndim != 2:
+        raise ValueError("coeffs must be (n_filters, taps)")
+    if coeffs.dtype.kind == "f":
+        from ..core.quantize import po2_quantize_batch
+
+        qbank, exponents = po2_quantize_batch(coeffs, spec.coeff_bits)
+        exponents = np.ascontiguousarray(exponents, np.int64)
+    elif coeffs.dtype.kind in "iu":
+        qbank = coeffs.astype(np.int64)
+        exponents = np.zeros(qbank.shape[0], np.int64)
+    else:
+        raise TypeError(f"cannot compile coefficients of dtype {coeffs.dtype}")
+    qbank = np.ascontiguousarray(qbank)
+    qkey = _qbank_key(qbank, spec)
+    prog = PROGRAM_CACHE.get(qkey)
+    if prog is not None:
+        return prog
+    require_type1(qbank, "compile_bank")
+    assert_int32_bound(qbank, spec.sample_bits, "compile_bank")
+    _bump("csd_packings")
+    digits = csd_digits(qbank[:, : qbank.shape[-1] // 2 + 1],
+                        n_digits=spec.n_layers)  # (B, M, L) — once
+    packed = pack_trits(np.swapaxes(digits, 1, 2))  # (B, L, n_words)
+    pkey = _packed_key(packed, qbank.shape[-1], spec.sample_bits)
+    # a bank first seen through `compile_packed` is registered under its
+    # packed digest only: adopt that program, index it under this key too
+    existing = PROGRAM_CACHE.get(pkey)
+    if existing is not None:
+        PROGRAM_CACHE.put(existing, qkey)
+        return existing
+    _bump("bank_compiles")
+    occupancy = np.ascontiguousarray(layer_occupancy(digits))
+    prog = BlmacProgram(
+        qbank=qbank,
+        exponents=exponents,
+        packed=packed,
+        occupancy=occupancy,
+        signatures=np.ascontiguousarray(occupancy_signatures(occupancy)),
+        pulse_counts=np.count_nonzero(digits, axis=(1, 2)).astype(np.int64),
+        spec=spec,
+        key=pkey[1].hex(),
+    )
+    prog._half_digits = np.ascontiguousarray(digits)
+    prog._half_digits.setflags(write=False)
+    PROGRAM_CACHE.put(prog, qkey, pkey)
+    return prog
+
+
+def compile_packed(
+    packed: np.ndarray, taps: int, sample_bits: int = 8
+) -> BlmacProgram:
+    """Wrap an existing packed-trit operand as a `BlmacProgram` without
+    re-running CSD encoding: the quantized coefficients are decoded from
+    the trits (exact — the trit words are the weights)."""
+    packed = np.ascontiguousarray(np.asarray(packed, np.uint32))
+    if packed.ndim != 3:
+        raise ValueError("packed must be (n_filters, n_layers, n_words)")
+    pkey = _packed_key(packed, int(taps), sample_bits)
+    prog = PROGRAM_CACHE.get(pkey)
+    if prog is not None:
+        return prog
+    _bump("bank_compiles")
+    # own (and freeze) a copy, never the caller's buffer
+    packed = packed.copy()
+    half = int(taps) // 2
+    halves = csd_decode(np.swapaxes(unpack_trits(packed, half + 1), 1, 2))
+    qbank = np.ascontiguousarray(
+        np.concatenate([halves, halves[:, :-1][:, ::-1]], axis=1)
+    )
+    spec = CompileSpec(sample_bits=sample_bits, n_layers=packed.shape[1])
+    prog = _from_arrays(
+        qbank, np.zeros(qbank.shape[0], np.int64), packed, spec
+    )
+    PROGRAM_CACHE.put(prog, pkey, _qbank_key(qbank, spec))
+    return prog

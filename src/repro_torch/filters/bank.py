@@ -1,0 +1,243 @@
+"""Streaming filter-bank engine: overlap-save BLMAC over B filters × C channels.
+
+The port of `repro.filters.FilterBankEngine`.  Feed it chunks of a
+multi-channel sample stream and it returns, for every filter of the bank,
+the output samples that became computable, carrying the ``taps − 1``
+sample tail between chunks (overlap-save) so consecutive pushes give one
+gapless stream per (filter, channel).
+
+Modes:
+
+  * ``"packed"`` (alias ``"scheduled"``) — the scheduled bank kernel: the
+    filters sorted into occupancy-homogeneous bank tiles at construction
+    (`BlmacProgram.schedule`), one launch per tile group with populated
+    layers, each group's packed operand uploaded to the device once.
+  * ``"specialized"`` — the pulse-specialized kernel per (filter,
+    channel), one cached device pulse table per filter.
+  * ``"auto"`` — the default.  The reference's cost-model autotuner is
+    not ported yet, so this is the rule of `blmac_fir_bank`'s fast path:
+    ``"specialized"`` for banks of at most `FAST_PATH_MAX` (= 1) filters,
+    ``"packed"`` otherwise.
+
+Arithmetic contract: int32 throughout; the §2.1 bound is asserted once,
+inside `compile_bank`.  Every mode agrees with `fir_bit_layers_batch`
+and with the reference engine to the last bit on integer inputs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..compiler import BlmacProgram, MERGE_DEFAULT, TailSnapshot, compile_bank
+from ..kernels.blmac_fir import (FAST_PATH_MAX, bank_schedule_apply,
+                                 blmac_fir_specialized, frame_signal_batch)
+from ..kernels.ops import as_device_tensor
+from ..kernels.runtime import DEFAULT_TILE, resolve_device
+
+__all__ = ["FilterBankEngine", "DEFAULT_TILE"]
+
+
+class FilterBankEngine:
+    """Overlap-save streaming application of a quantized FIR filter bank.
+
+    Parameters
+    ----------
+    qbank : (B, taps) or (taps,) int array, or `BlmacProgram`
+        Quantized odd symmetric (type-I) coefficients, one row per filter,
+        compiled via `compile_bank` (content-addressed); a prebuilt or
+        `load()`ed program skips compilation.
+    channels : int
+        Number of independent input channels C.
+    tile : int | None
+        Output samples per signal tile (None = `DEFAULT_TILE`).
+    mode : {"auto", "packed", "scheduled", "specialized"}
+        See the module docstring; ``"auto"`` takes ``"specialized"`` for
+        B ≤ 1 and ``"packed"`` otherwise.
+    bank_tile : int | None
+        Filters per bank tile of the schedule (None = heuristic).
+    merge : int | None
+        CSD layers fused per superlayer (None = `MERGE_DEFAULT`).
+    device : str | torch.device | None
+        Where the kernels run; None = the GPU (raises without one),
+        ``"cpu"`` = the plain PyTorch versions.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from repro_torch.filters import FilterBankEngine
+    >>> bank = np.zeros((4, 15), np.int64)
+    >>> bank[:, 7] = [64, 96, 160, 224]          # centre-tap scalers
+    >>> eng = FilterBankEngine(bank, channels=1, device="cpu")
+    >>> y = eng.push(np.arange(40, dtype=np.int32)[None, :])
+    >>> y.shape
+    (4, 1, 26)
+    >>> bool((y[1] == 96 * np.arange(7, 33)).all())
+    True
+    """
+
+    def __init__(
+        self,
+        qbank,
+        channels: int = 1,
+        tile: int | None = None,
+        mode: str = "auto",
+        bank_tile: int | None = None,
+        merge: int | None = None,
+        device=None,
+    ):
+        if isinstance(qbank, BlmacProgram):
+            program = qbank
+        else:
+            # float input is truncated, not quantized (the reference
+            # engine's contract): pass floats through `compile_bank`
+            program = compile_bank(np.atleast_2d(np.asarray(qbank, np.int64)))
+        if channels < 1:
+            raise ValueError("channels must be >= 1")
+        if mode == "scheduled":
+            mode = "packed"
+        if mode not in ("auto", "packed", "specialized"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode == "auto":
+            mode = ("specialized" if program.n_filters <= FAST_PATH_MAX
+                    else "packed")
+        self.device = resolve_device(device)
+        self.program = program
+        self.qbank = program.qbank
+        self.n_filters = program.n_filters
+        self.taps = program.taps
+        self.channels = int(channels)
+        self.tile = int(tile) if tile is not None else DEFAULT_TILE
+        self.mode = mode
+        self.merge = merge if merge is not None else MERGE_DEFAULT
+        if mode == "packed":
+            self.bank_schedule = program.schedule(bank_tile, self.merge)
+            self.bank_tile = self.bank_schedule.tile_size
+            # each group's packed operand goes to the device once
+            self._group_ops = [
+                torch.tensor(g.packed.view(np.int32), device=self.device)
+                if g.sel_layers else None
+                for g in self.bank_schedule.groups
+            ]
+            self._schedules = None
+        else:
+            self.bank_schedule = None
+            self.bank_tile = bank_tile
+            self._group_ops = None
+            self._schedules = program.pulse_schedules()
+        self.reset()
+
+    # -- streaming API ------------------------------------------------------
+
+    def push(self, chunk) -> np.ndarray:
+        """Feed (C, n) samples (or (n,) when C == 1), as a numpy array or
+        a tensor; returns the newly computable outputs as numpy int32
+        (B, C, n_out) — n_out is 0 while the engine primes its taps − 1
+        history."""
+        chunk = as_device_tensor(chunk, self.device).to(torch.int32)
+        if chunk.ndim == 1:
+            chunk = chunk[None, :]
+        if chunk.shape[0] != self.channels:
+            raise ValueError(
+                f"expected {self.channels} channels, got {chunk.shape[0]}"
+            )
+        self.samples_in += chunk.shape[1]
+        buf = torch.cat([self._tail, chunk], 1)
+        n = buf.shape[1]
+        if n < self.taps:  # still priming
+            self._tail = buf
+            return np.zeros((self.n_filters, self.channels, 0), np.int32)
+        self._tail = buf[:, n - (self.taps - 1):].clone()
+        y = self._apply(buf)
+        self.samples_out += y.shape[2]
+        return y
+
+    def __call__(self, chunk) -> np.ndarray:
+        return self.push(chunk)
+
+    def reset(self) -> None:
+        """Drop all buffered history (start a new stream)."""
+        self._tail = torch.zeros((self.channels, 0), dtype=torch.int32,
+                                 device=self.device)
+        self.samples_in = 0
+        self.samples_out = 0
+
+    @property
+    def pending(self) -> int:
+        """Samples buffered but not yet old enough to finish a window."""
+        return self._tail.shape[1]
+
+    # -- tail snapshot / restore (content-addressed stream state) -----------
+
+    def snapshot_tail(self, session: str = "") -> TailSnapshot:
+        """Freeze the overlap-save state as a `TailSnapshot` keyed to this
+        engine's program digest — the reference's format, so either
+        package's engine restores it."""
+        return TailSnapshot(
+            program_key=self.program.key, channels=self.channels,
+            samples_in=self.samples_in, samples_out=self.samples_out,
+            tail=self._tail.cpu().numpy().copy(), session=str(session),
+        )
+
+    def restore_tail(self, snapshot) -> None:
+        """Adopt a `TailSnapshot` captured on this program (validated by
+        content key and channel count — a loud error otherwise)."""
+        if snapshot.program_key != self.program.key:
+            raise ValueError(
+                f"snapshot belongs to program {snapshot.program_key[:12]}…, "
+                f"this engine runs {self.program.key[:12]}…"
+            )
+        if int(snapshot.channels) != self.channels:
+            raise ValueError(
+                f"snapshot has {snapshot.channels} channels, "
+                f"engine has {self.channels}"
+            )
+        self._tail = torch.tensor(np.asarray(snapshot.tail, np.int32),
+                                  device=self.device)
+        self.samples_in = int(snapshot.samples_in)
+        self.samples_out = int(snapshot.samples_out)
+
+    # -- one-shot application ----------------------------------------------
+
+    def apply_lanes(self, buf) -> np.ndarray:
+        """Stateless one-shot application over the ``channels`` lanes:
+        (C, n) samples with ``n >= taps`` → (B, C, n − taps + 1) int32,
+        leaving the tail and the counters alone."""
+        buf = as_device_tensor(buf, self.device).to(torch.int32)
+        if buf.ndim != 2 or buf.shape[0] != self.channels:
+            raise ValueError(
+                f"expected ({self.channels}, n) lane buffer, "
+                f"got shape {tuple(buf.shape)}"
+            )
+        if buf.shape[1] < self.taps:
+            raise ValueError(
+                f"lane buffer has {buf.shape[1]} samples, "
+                f"need >= taps ({self.taps})"
+            )
+        return self._apply(buf)
+
+    def _apply(self, buf: torch.Tensor) -> np.ndarray:
+        n = buf.shape[1]
+        n_out = n - self.taps + 1
+        # pad to a tile multiple as the reference does (there to bound its
+        # jit shapes), so both engines frame a push identically; windows
+        # reaching into the padding are dropped
+        n_pad = -(-n // self.tile) * self.tile
+        if n_pad != n:
+            buf = F.pad(buf, (0, n_pad - n))
+        if self.mode == "packed":
+            frames, _ = frame_signal_batch(buf, self.taps, self.tile)
+            y = bank_schedule_apply(
+                frames, self.bank_schedule, self.taps, self.tile,
+                device_groups=self._group_ops,
+            )  # (B, C, n_tiles * tile), caller order restored
+            return y[:, :, :n_out].cpu().numpy()
+        y = torch.stack([
+            torch.stack([
+                blmac_fir_specialized(buf[c], pulses, self.taps,
+                                      self.tile)[:n_out]
+                for c in range(self.channels)
+            ])
+            for pulses in self._schedules
+        ])
+        return y.cpu().numpy()

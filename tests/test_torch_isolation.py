@@ -1,0 +1,74 @@
+"""The port stands alone: no JAX, no `repro`, and no quiet CPU runs.
+
+A fresh interpreter imports `repro_torch`, runs an engine on the CPU and
+must end with neither `jax` nor any `repro` module loaded; no source file
+of the port (nor `chip_smoke.py`) may import them; and an entry point
+called without ``device`` on a host without CUDA raises instead of
+running on the CPU.
+"""
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from _subproc import run_py
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_import_and_engine_leave_jax_and_repro_unloaded():
+    out = run_py(
+        "import sys\n"
+        "import numpy as np\n"
+        "from repro_torch.compiler import compile_bank, cache_stats\n"
+        "from repro_torch.filters import (FilterBankEngine,\n"
+        "    fir_bit_layers_batch, spread_lowpass_qbank)\n"
+        "from repro_torch.kernels import blmac_fir, blmac_fir_bank\n"
+        "q = spread_lowpass_qbank(8, 31)\n"
+        "x = np.random.default_rng(0).integers(-128, 128, (2, 700))\n"
+        "eng = FilterBankEngine(q, channels=2, device='cpu')\n"
+        "y = eng.push(x)\n"
+        "assert np.array_equal(y, fir_bit_layers_batch(x, q))\n"
+        "blmac_fir(x[0], q[0], device='cpu')\n"
+        "cache_stats()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print('LOADED', bad)\n",
+        devices=1, timeout=300,
+    )
+    assert "LOADED []" in out
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)\b(?!_torch))",
+    re.MULTILINE,
+)
+
+
+def test_no_port_source_imports_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
+    assert not offenders
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    from repro_torch.filters import FilterBankEngine
+    from repro_torch.kernels import blmac_fir_bank, resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = np.zeros((2, 15), np.int64)
+    q[:, 7] = [3, 5]
+    x = np.arange(100)
+    for call in (lambda: resolve_device(None),
+                 lambda: resolve_device("cuda"),
+                 lambda: blmac_fir_bank(x, q),
+                 lambda: FilterBankEngine(q)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("meta")
