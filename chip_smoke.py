@@ -19,12 +19,24 @@ before it and read just after:
                   full and the numpy oracle on 64 sampled rows;
   * specialized — `blmac_fir` on one 127-tap filter over 2**20 samples and
                   `FilterBankEngine(mode="specialized")` on 8 filters × 2
-                  channels; bit-exact against the numpy oracle.
+                  channels; bit-exact against the numpy oracle;
+  * pulse_matmul — one qwen2.5-3b decoder layer at its published widths
+                  (d_model 2048, 16 heads × 128, 2 KV heads, d_ff 11,008;
+                  random normal weights, std 0.02, seed 0): `pulse_quantize`
+                  of its seven projections on the card at P = 4 (bit for
+                  bit the CPU quantizer on 64 columns of each and on edge
+                  values), `pulse_matmul_op` on each at M = 4 (decode) and
+                  M = 128 (prefill), each launch within 1e-5 relative of
+                  float64 ``x @ pulse_dequantize`` and of the plain version;
+                  then `quantize_param_tree` over the layer's leaves in the
+                  reference's layout.
 
 Then each kernel is held against its plain PyTorch version on the card at
-the main path's shapes (tolerance 0: integer arithmetic modulo 2**32) and
-timed with CUDA events beside its plain version, one PyTorch library call
-computing the same function (`F.conv1d` in float64, exact here) and its
+the main path's shapes (tolerance 0 for the FIR kernels, integer
+arithmetic modulo 2**32; the reference's 1e-5 relative bound for the
+pulse matmul) and timed with CUDA events beside its plain version, one
+PyTorch library call computing the same function (`F.conv1d` in float64,
+exact here; a float32 `torch.matmul` over the decoded weights) and its
 bound on an H100 SXM.  Prints one JSON object per phase, the
 ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as its last line
@@ -48,11 +60,29 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # cores — 132 SMs × 64 INT32 lanes × 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# dense TF32 tensor-core rate of the H100 SXM, 494.7 TFLOP/s (data sheet),
+# over 3: a 3xTF32 split, the cheapest tensor-core route that keeps float32
+# accuracy — the pulse matmul's bound by operations
+TF32X3_FLOPS_PER_S = 494.7e12 / 3
 
 SERVE_FILTERS, SERVE_TAPS, SERVE_CHUNK, SERVE_CHUNKS = 256, 63, 4096, 32
 SWEEP_TAPS, SWEEP_SAMPLES, SWEEP_CHECK_ROWS = 127, 16384, 64
 SPEC_SAMPLES = 1 << 20
 OPS_TILE = 1024  # blmac_fir / blmac_fir_bank default signal tile
+
+# one qwen2.5-3b decoder layer (src/repro/configs/qwen2_5_3b.py) as x @ W
+# projections, (K, N); P = 4 is `examples/serve_lm.py`'s --planes default,
+# M = 4 and 128 the decode and prefill rows of `launch/serve.py`'s
+# --batch 4 --prompt-len 32 defaults
+D_MODEL, N_HEADS, N_KV, HEAD_DIM, D_FF = 2048, 16, 2, 128, 11008
+LAYER = {
+    "wq": (D_MODEL, N_HEADS * HEAD_DIM), "wk": (D_MODEL, N_KV * HEAD_DIM),
+    "wv": (D_MODEL, N_KV * HEAD_DIM), "wo": (N_HEADS * HEAD_DIM, D_MODEL),
+    "gate": (D_MODEL, D_FF), "up": (D_MODEL, D_FF), "down": (D_FF, D_MODEL),
+}
+PLANES, DECODE_M, PREFILL_M = 4, 4, 128
+REL_TOL = 1e-5  # the reference's bound, tests/test_kernels.py
+CPU_CHECK_COLS = 64
 
 
 def check(ok: bool, what: str) -> None:
@@ -108,10 +138,12 @@ def max_abs_diff(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """Least time on an H100 SXM for ``ops`` int32 operations and
-    ``nbytes`` of device-memory traffic: the larger of the two."""
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+def bound(ops: float, nbytes: float,
+          ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    """Least time on an H100 SXM for ``ops`` operations at ``ops_per_s``
+    (default: int32) and ``nbytes`` of device-memory traffic: the larger
+    of the two."""
+    ops_ms = ops / ops_per_s * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -132,6 +164,180 @@ def conv1d_ms(x, qbank, n_out: int) -> float:
     check(y.shape[-1] == n_out, "conv1d output length")
     del y
     return cuda_ms(lambda: F.conv1d(xf, w))
+
+
+def rel_err(got, want) -> float:
+    """max|got − want| / max|want|, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def edge_weights():
+    """Powers of two, the next float64 above them, sign flips and 1.5×,
+    in row 0 of a group; an all-zero group; a group of 2**-130."""
+    import numpy as np
+
+    vals = []
+    for k in (2, 5, -7, 20, 0, -126, -127, -130, -149):
+        b = 2.0 ** k
+        vals += [b, np.nextafter(b, np.inf), -b, 1.5 * b]
+    w = np.random.default_rng(1).standard_normal((96, len(vals) + 2)) * 0.02
+    w[0, :len(vals)] = vals
+    w[:, -1] = 2.0 ** -130
+    w[:32, -2] = 0.0
+    return w
+
+
+def pulse_matmul_leg(dev, smi: str) -> dict:
+    """The K3 path at qwen2.5-3b's widths (see the module notes); emits
+    its phases and returns the kernel's row of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.serve_quant import quantize_param_tree
+    from repro_torch.kernels import (pulse_dequantize, pulse_matmul_op,
+                                     pulse_quantize)
+    from repro_torch.kernels.ref import pulse_decode_ref, pulse_matmul_ref
+
+    bmm = importlib.import_module("repro_torch.kernels.blmac_matmul")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lrng = np.random.default_rng(0)
+    host = {name: lrng.standard_normal(shape, dtype=np.float32) * 0.02
+            for name, shape in LAYER.items()}
+    weights = {name: torch.as_tensor(w, device=dev) for name, w in host.items()}
+    xs = {(m, name): torch.as_tensor(
+              lrng.standard_normal((m, LAYER[name][0]), dtype=np.float32),
+              device=dev)
+          for m in (DECODE_M, PREFILL_M) for name in LAYER}
+    torch.cuda.synchronize()
+
+    # -- the path: quantize on the card, then 7 launches per M -------------
+    bmm.pulse_matmul.launches = 0
+    t0 = time.perf_counter()
+    quant = {name: pulse_quantize(w, PLANES) for name, w in weights.items()}
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    ys = {(m, name): pulse_matmul_op(x, *quant[name], PLANES)
+          for (m, name), x in xs.items()}
+    torch.cuda.synchronize()
+    launches = bmm.pulse_matmul.launches
+    check(launches == len(xs), f"pulse matmul launched {launches} times, "
+                               f"want {len(xs)}")
+
+    # -- the quantizer against the CPU's ------------------------------------
+    for name, w in host.items():
+        c_cpu, g_cpu = pulse_quantize(w[:, :CPU_CHECK_COLS], PLANES,
+                                      device="cpu")
+        codes, ge = quant[name]
+        check(torch.equal(codes[:, :, :CPU_CHECK_COLS].cpu(), c_cpu)
+              and torch.equal(ge[:, :CPU_CHECK_COLS].cpu(), g_cpu),
+              f"device quantizer differs from the CPU's on {name}")
+    edge = edge_weights()
+    for planes in (1, 2, PLANES):
+        c_gpu, g_gpu = pulse_quantize(edge, planes, device=dev)
+        c_cpu, g_cpu = pulse_quantize(edge, planes, device="cpu")
+        check(torch.equal(c_gpu.cpu(), c_cpu) and torch.equal(g_gpu.cpu(), g_cpu),
+              f"device quantizer differs from the CPU's on edge values, "
+              f"P={planes}")
+    # would the card's own float64 log2 give numpy's exponents?  (the
+    # quantizer takes numpy's; this only records the answer)
+    gmax = torch.as_tensor(np.abs(edge).reshape(3, 32, -1).max(axis=1))
+    gmax = gmax[gmax > 0]
+    log2_mismatch = int((torch.ceil(torch.log2(gmax.to(dev))).cpu().long()
+                         != torch.as_tensor(np.ceil(np.log2(gmax.numpy())))
+                         .long()).sum())
+    emit({"phase": "pulse_quantize", "planes": PLANES,
+          "matrices": {n: list(s) for n, s in LAYER.items()},
+          "weights": sum(w.size for w in host.values()), "seconds": quant_s,
+          "bit_exact_vs_cpu": True, "cpu_checked_columns": CPU_CHECK_COLS,
+          "device_log2_exponent_mismatches_on_edges": log2_mismatch,
+          "edge_groups": int(gmax.numel())})
+
+    # -- every launch against float64 and the plain version -----------------
+    errs = {}
+    for (m, name), y in ys.items():
+        codes, ge = quant[name]
+        x = xs[(m, name)]
+        e64 = rel_err(y, x.double() @ pulse_dequantize(codes, ge))
+        eplain = rel_err(y, pulse_matmul_ref(x, codes, ge))
+        check(e64 < REL_TOL and eplain < REL_TOL,
+              f"pulse matmul {name} at M={m}: relative error {e64} vs "
+              f"float64, {eplain} vs plain")
+        errs[f"{name}@{m}"] = {"vs_float64": e64, "vs_plain": eplain}
+    emit({"phase": "pulse_matmul", "planes": PLANES, "launches": launches,
+          "launches_by_m": {DECODE_M: len(LAYER), PREFILL_M: len(LAYER)},
+          "max_rel_err_vs_float64": max(e["vs_float64"] for e in errs.values()),
+          "max_rel_err_vs_plain": max(e["vs_plain"] for e in errs.values()),
+          "tolerance": REL_TOL, "rel_err": errs})
+
+    # -- quantize_param_tree over the layer, in the reference's layout -----
+    state = {
+        "stage0/slot0/ffn/gate": weights["gate"][None],
+        "stage0/slot0/ffn/up": weights["up"][None],
+        "stage0/slot0/ffn/down": weights["down"][None],
+        "stage0/slot0/mixer/wq":
+            weights["wq"].reshape(1, D_MODEL, N_HEADS, HEAD_DIM),
+        "stage0/slot0/mixer/wk": weights["wk"].reshape(1, D_MODEL, N_KV, HEAD_DIM),
+        "stage0/slot0/mixer/wv": weights["wv"].reshape(1, D_MODEL, N_KV, HEAD_DIM),
+        "stage0/slot0/mixer/wo":
+            weights["wo"].reshape(1, N_HEADS, HEAD_DIM, D_MODEL),
+        "stage0/slot0/mixer/bq": torch.zeros((1, N_HEADS, HEAD_DIM), device=dev),
+        "stage0/slot0/mixer/bk": torch.zeros((1, N_KV, HEAD_DIM), device=dev),
+        "stage0/slot0/mixer/bv": torch.zeros((1, N_KV, HEAD_DIM), device=dev),
+        "stage0/slot0/norm1/scale": torch.ones((1, D_MODEL), device=dev),
+        "stage0/slot0/norm2/scale": torch.ones((1, D_MODEL), device=dev),
+    }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qstate, stats = quantize_param_tree(state, PLANES)
+    torch.cuda.synchronize()
+    tree_s = time.perf_counter() - t0
+    changed = sorted(k for k in state if not torch.equal(qstate[k], state[k]))
+    check(stats["n_quantized"] == 4, f"quantize_param_tree: {stats}")
+    check(torch.equal(qstate["stage0/slot0/ffn/down"][0],
+                      pulse_dequantize(*quant["down"]).float()),
+          "quantize_param_tree's down differs from the K3 path's decode")
+    emit({"phase": "quantize_param_tree", "planes": PLANES, "seconds": tree_s,
+          "leaves": len(state), "quantized": changed, "stats": stats,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+
+    # -- timings ------------------------------------------------------------
+    def timed(m, name, plain=True):
+        codes, ge = quant[name]
+        x = xs[(m, name)]
+        k_dim, n_dim = LAYER[name]
+        w_dec = pulse_decode_ref(codes, ge)
+        nbytes = 4 * m * k_dim + codes.numel() + ge.numel() + 4 * m * n_dim
+        ops = 2 * m * k_dim * n_dim
+        b_ms, b_by = bound(ops, nbytes, TF32X3_FLOPS_PER_S)
+        row = {"shape": f"{name}: x ({m}, {k_dim}) @ W ({k_dim}, {n_dim}), "
+                        f"P={PLANES}",
+               "max_abs_err": float((ys[(m, name)] - pulse_matmul_ref(
+                   x, codes, ge)).abs().max()),
+               "max_rel_err": errs[f"{name}@{m}"]["vs_plain"],
+               "ms": cuda_ms(lambda: bmm.pulse_matmul(x, codes, ge, PLANES)),
+               "library_ms": cuda_ms(lambda: torch.matmul(x, w_dec)),
+               "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+               "bytes": nbytes}
+        if plain:
+            row["plain_ms"] = cuda_ms(lambda: pulse_matmul_ref(x, codes, ge))
+        return row
+
+    prefill = timed(PREFILL_M, "down")
+    decode = timed(DECODE_M, "down")
+    others = {f"{name}@{m}": {k: v for k, v in timed(m, name, plain=False).items()
+                              if k in ("ms", "library_ms", "bound_ms",
+                                       "bound_by")}
+              for m in (DECODE_M, PREFILL_M) for name in LAYER
+              if name != "down"}
+    return {"name": "blmac_pulse_matmul_kernel", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/blmac_pulse_matmul.cu",
+            "replaces": "src/repro/kernels/blmac_matmul.py:95",
+            "replaces_function": "_pulse_matmul_kernel",
+            "launches": launches,
+            "launches_by_m": {DECODE_M: len(LAYER), PREFILL_M: len(LAYER)},
+            **prefill, "kernel_ms": prefill["ms"], "decode_shape": decode,
+            "other_shapes": others}
 
 
 def main() -> int:
@@ -390,6 +596,8 @@ def main() -> int:
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
          "ops": k2_ops, "bytes": k2_bytes},
     ]
+
+    kernels.append(pulse_matmul_leg(dev, smi))
 
     # -- engine throughput on the serve leg ------------------------------------
     eng.reset()

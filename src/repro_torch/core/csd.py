@@ -1,8 +1,8 @@
 """Canonical signed-digit (ternary) weight codec — the heart of BLMAC.
 
-The port's own copy of `repro.core.csd` (numpy only, no JAX): the packed
-trit layout and the digit order must stay identical, because a program
-saved by either package loads in the other.
+The port's own copy of `repro.core.csd` (no JAX): the packed trit layout
+and the digit order must stay identical, because a program saved by
+either package loads in the other.
 
 The paper (§2) represents each integer weight as ``w = Σ_i d_i 2^i`` with
 ``d_i ∈ {-1, 0, +1}`` ("trits"); every non-zero trit is a *pulse* and costs
@@ -11,13 +11,16 @@ the canonical signed-digit recoding, which provably minimizes the number of
 non-zero digits and reproduces the paper's Tab. 3 statistics exactly
 (avg ~2.77 pulses for 7-bit, max ⌈(n+1)/2⌉ pulses for n-bit).
 
-Everything here is vectorized numpy; LSB-first digit order throughout
+Everything here is vectorized numpy, except `csd_digits_tensor` and
+`csd_truncate_tensor`, the same codec on torch tensors for the pulse-code
+quantizer; LSB-first digit order throughout
 (digit ``[..., i]`` weighs ``2**i``) — the right-shift BLMAC processes
 layers in exactly this order.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "csd_digits",
@@ -26,6 +29,8 @@ __all__ = [
     "ntrits_table",
     "max_pulses",
     "csd_truncate",
+    "csd_digits_tensor",
+    "csd_truncate_tensor",
     "pack_trits",
     "unpack_trits",
     "packed_pulse_counts",
@@ -188,6 +193,59 @@ def csd_truncate(w, planes: int, n_digits: int | None = None) -> np.ndarray:
     rank = np.cumsum(nz[..., ::-1], axis=-1)[..., ::-1]
     keep = nz & (rank <= planes)
     return csd_decode(np.where(keep, d, 0))
+
+
+# ---------------------------------------------------------------------------
+# The same codec on tensors, on the device of the input (the pulse-code
+# quantizer runs on the card).  Same digits, same order, same truncation;
+# int32 intermediates and int8 digits keep a full-width weight matrix small.
+# ---------------------------------------------------------------------------
+
+def _work_dtype(w: torch.Tensor) -> torch.dtype:
+    """int32 for inputs of at most 16 bits, whose NAF steps cannot
+    overflow it; int64 for wider ones."""
+    if w.dtype.is_floating_point or w.dtype.is_complex or w.dtype == torch.bool:
+        raise TypeError(f"CSD encoding requires integer input, got {w.dtype}")
+    return torch.int64 if w.element_size() >= 4 else torch.int32
+
+
+def csd_digits_tensor(w: torch.Tensor, n_digits: int | None = None) -> torch.Tensor:
+    """:func:`csd_digits` on an integer tensor: int8 NAF digits of shape
+    ``w.shape + (n_digits,)``, LSB first, on ``w``'s device.  Arithmetic
+    is int32 for 8- and 16-bit inputs, int64 for wider ones."""
+    rem = w.to(_work_dtype(w))
+    if n_digits is None:
+        maxabs = int(rem.abs().max()) if rem.numel() else 0
+        n_digits = max(1, maxabs.bit_length() + 1)
+    digits = torch.empty(rem.shape + (n_digits,), dtype=torch.int8,
+                         device=rem.device)
+    for i in range(n_digits):
+        # for odd rem, d = ±1 so that rem - d ≡ 0 (mod 4): the NAF
+        d = torch.where((rem & 1) == 1, 1 - (rem & 2), 0)
+        digits[..., i] = d
+        rem = (rem - d) >> 1
+    if bool((rem != 0).any()):
+        bad = int(w.to(torch.int64).abs().max())
+        raise ValueError(
+            f"n_digits={n_digits} too small for values up to |{bad}|"
+        )
+    return digits
+
+
+def csd_truncate_tensor(w: torch.Tensor, planes: int,
+                        n_digits: int | None = None) -> torch.Tensor:
+    """:func:`csd_truncate` on an integer tensor: the ``planes``
+    most-significant NAF pulses of each value, MSB first, as integers of
+    the working type of :func:`csd_digits_tensor` on ``w``'s device."""
+    d = csd_digits_tensor(w, n_digits)
+    dtype = _work_dtype(w)
+    out = torch.zeros(d.shape[:-1], dtype=dtype, device=d.device)
+    seen = torch.zeros(d.shape[:-1], dtype=torch.int32, device=d.device)
+    for i in range(d.shape[-1] - 1, -1, -1):
+        di = d[..., i].to(dtype)
+        seen += di != 0
+        out += torch.where(seen <= planes, di, 0) << i
+    return out
 
 
 # ---------------------------------------------------------------------------

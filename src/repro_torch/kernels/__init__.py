@@ -6,15 +6,17 @@
   blmac_fir_bank  — a whole bank: the scheduled CUDA bank kernel
                     (``csrc/blmac_bank.cu``), one launch per occupancy tile
                     group; B = 1 takes the specialized kernel
+  pulse_quantize  — float weights to CSD-P pulse codes + group exponents,
+  pulse_dequantize  on the device, bit for bit the reference's quantizer
+  pulse_matmul_op — float32 x @ W with W rebuilt from the codes inside the
+                    CUDA kernel ``csrc/blmac_pulse_matmul.cu``
   resolve_device  — ``None`` means the GPU (a loud error without one);
                     ``device="cpu"`` runs the plain versions
-
-The CSD-P pulse-code matmul of the reference (`blmac_matmul`) is not
-ported yet.
 """
-from .ops import blmac_fir, blmac_fir_bank
+from .blmac_matmul import pulse_dequantize, pulse_quantize
+from .ops import blmac_fir, blmac_fir_bank, pulse_matmul_op
 from .runtime import DEFAULT_TILE, resolve_device
 from . import ref
 
-__all__ = ["DEFAULT_TILE", "blmac_fir", "blmac_fir_bank", "ref",
-           "resolve_device"]
+__all__ = ["DEFAULT_TILE", "blmac_fir", "blmac_fir_bank", "pulse_dequantize",
+           "pulse_matmul_op", "pulse_quantize", "ref", "resolve_device"]

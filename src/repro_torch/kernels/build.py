@@ -52,6 +52,12 @@ SOURCES = {
         "blmac_specialized_launch": [_P, _L, _P, _I, _I, _P, _I, _I, _I, _P],
         "blmac_specialized_smem_bytes": [_I],  # taps
     }),
+    "blmac_pulse_matmul": ("blmac_pulse_matmul.cu", {
+        # x, codes, group_exp, workspace, out, m, n, k, planes, group, bm,
+        # ktiles_per_split, stream
+        "blmac_pulse_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _P],
+    }),
 }
 
 
@@ -68,9 +74,10 @@ class BuildInfo:
 
     def resources(self) -> dict:
         """Registers, static shared memory (bytes) and spill bytes per
-        kernel, parsed from the ``ptxas -v`` report.  Both kernels take
-        only dynamic shared memory, sized per launch
-        (``*_smem_bytes(taps)`` in each library)."""
+        kernel, parsed from the ``ptxas -v`` report.  The FIR kernels
+        take only dynamic shared memory, sized per launch
+        (``*_smem_bytes(taps)`` in each library); the pulse matmul's tiles
+        are static."""
         out: dict = {}
         kernel = None
         for line in self.ptxas.splitlines():
@@ -94,9 +101,12 @@ class BuildInfo:
 
 
 def _demangled(symbol: str) -> str:
-    for name in ("blmac_bank_kernel", "blmac_specialized_kernel"):
+    for name in ("blmac_bank_kernel", "blmac_specialized_kernel",
+                 "blmac_pulse_matmul_kernel", "blmac_splitk_reduce_kernel"):
         if name in symbol:
-            return name
+            # a template instance: its int argument, mangled as ILi<value>E
+            arg = re.search(r"ILi(\d+)E", symbol)
+            return f"{name}<{arg.group(1)}>" if arg else name
     return symbol
 
 

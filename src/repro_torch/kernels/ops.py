@@ -1,6 +1,6 @@
 """Public entry points of the port's BLMAC kernels.
 
-Both run on the GPU unless the caller passes ``device="cpu"``
+All run on the GPU unless the caller passes ``device="cpu"``
 (`resolve_device`): the input is moved to the device, and the device
 then chooses between the CUDA kernels and their plain versions.
 """
@@ -13,17 +13,11 @@ from ..compiler import compile_bank
 from ..core.csd import require_type1
 from .blmac_fir import (FAST_PATH_MAX, MERGE_DEFAULT, blmac_fir_specialized,
                         blmac_fir_bank as _bank_kernel)
-from .runtime import resolve_device
+from .blmac_matmul import GROUP, pulse_matmul
+from .runtime import as_device_tensor, resolve_device
 
-__all__ = ["blmac_fir", "blmac_fir_bank", "as_device_tensor"]
-
-
-def as_device_tensor(x, device: torch.device) -> torch.Tensor:
-    """Samples (numpy array, tensor or sequence) as a tensor on
-    ``device``."""
-    if not torch.is_tensor(x):
-        x = torch.as_tensor(np.asarray(x))
-    return x.to(device)
+__all__ = ["blmac_fir", "blmac_fir_bank", "as_device_tensor",
+           "pulse_matmul_op"]
 
 
 def blmac_fir(
@@ -74,3 +68,20 @@ def blmac_fir_bank(
         x, prog.packed, prog.taps, tile, fast_path=False,
         schedule=prog.schedule(bank_tile, merge),
     )
+
+
+def pulse_matmul_op(
+    x,
+    codes,
+    group_exp,
+    planes: int,
+    group: int = GROUP,
+    device=None,
+) -> torch.Tensor:
+    """CSD-P pulse-code matmul (see `blmac_matmul.py`): float32 (M, N) =
+    x (M, K) @ W, W rebuilt from uint8 ``codes`` (P, K, N) and int8
+    ``group_exp`` (K / group, N).  The operands (tensors or numpy arrays)
+    are moved to the device; the tile sizes are the kernel's own."""
+    dev = resolve_device(device)
+    return pulse_matmul(as_device_tensor(x, dev), as_device_tensor(codes, dev),
+                        as_device_tensor(group_exp, dev), planes, group)

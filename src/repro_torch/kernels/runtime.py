@@ -13,9 +13,10 @@ documented there.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["DEFAULT_TILE", "resolve_device"]
+__all__ = ["DEFAULT_TILE", "as_device_tensor", "resolve_device"]
 
 # output samples per signal tile of the streaming engine (the reference's
 # default, kept so both engines frame a stream identically)
@@ -43,3 +44,10 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def as_device_tensor(x, device: torch.device) -> torch.Tensor:
+    """``x`` (numpy array, tensor or sequence) as a tensor on ``device``."""
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device)

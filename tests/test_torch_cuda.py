@@ -6,9 +6,13 @@ card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 0 throughout: every path is integer arithmetic modulo 2**32.
-This file imports only the port (the card's machine has no JAX); the
-banks come from the port's own generators and a seeded numpy draw.
+Tolerance 0 for the FIR kernels: integer arithmetic modulo 2**32.  The
+pulse-code matmul sums in another order than its plain version, so it is
+held to the reference's bound, max|y − y_plain| / max|y_plain| < 1e-5;
+its decode is exact, and the device quantizer's codes equal the CPU's bit
+for bit.  This file imports only the port (the card's machine has no
+JAX); the banks and weights come from the port's own generators and
+seeded numpy draws.
 """
 import numpy as np
 import pytest
@@ -18,7 +22,11 @@ from repro_torch.compiler import compile_bank
 from repro_torch.core import po2_quantize_batch
 from repro_torch.filters import (FilterBankEngine, fir_bit_layers_batch,
                                  spread_lowpass_qbank, sweep_bank)
-from repro_torch.kernels import blmac_fir, blmac_fir_bank
+from repro_torch.core.serve_quant import quantize_param_tree
+from repro_torch.kernels import (blmac_fir, blmac_fir_bank, pulse_dequantize,
+                                 pulse_matmul_op, pulse_quantize)
+from repro_torch.kernels.blmac_matmul import pulse_matmul
+from repro_torch.kernels.ref import pulse_decode_ref, pulse_matmul_ref
 from repro_torch.kernels.blmac_fir import (bank_call, bank_call_plain,
                                            bank_schedule_apply,
                                            frame_signal, frame_signal_batch,
@@ -199,5 +207,112 @@ def test_build_reports_kernel_resources(cuda):
 
     infos = build_all()
     res = {k: v for info in infos.values() for k, v in info.resources().items()}
-    assert set(res) == {"blmac_bank_kernel", "blmac_specialized_kernel"}
+    assert set(res) == {"blmac_bank_kernel", "blmac_specialized_kernel",
+                        "blmac_pulse_matmul_kernel<16>",
+                        "blmac_pulse_matmul_kernel<64>",
+                        "blmac_pulse_matmul_kernel<128>",
+                        "blmac_splitk_reduce_kernel"}
     assert all(r["registers"] > 0 for r in res.values())
+
+
+# -- the pulse-code matmul ----------------------------------------------------
+
+def _pulse_weights(k, n, seed, planes):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((k, n)) * np.exp2(rng.integers(-8, 8, (k, n)))
+    codes, ge = pulse_quantize(w, planes, device="cpu")
+    return rng, codes, ge
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("planes", [1, 2, 4])
+@pytest.mark.parametrize("k,n,m", [(128, 128, 8), (512, 256, 16),
+                                   (256, 384, 4), (256, 200, 37),
+                                   (2048, 136, 130)])
+def test_pulse_matmul_kernel_matches_plain(cuda, planes, k, n, m):
+    """The reference's CPU grid, plus odd M and N edges and a K that the
+    launch plan splits."""
+    rng, codes, ge = _pulse_weights(k, n, planes * k + n, planes)
+    x = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32)
+    want = pulse_matmul_ref(x, codes, ge)
+    plain = pulse_matmul_ref(x.to(cuda), codes.to(cuda), ge.to(cuda))
+    got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), planes)
+    torch.cuda.synchronize()
+    assert _rel_err(plain.cpu(), want) < 1e-5
+    assert _rel_err(got.cpu(), want) < 1e-5, (planes, k, n, m)
+    x64 = x.double() @ pulse_dequantize(codes, ge)
+    assert _rel_err(got.cpu().double(), x64) < 1e-5
+
+
+@pytest.mark.parametrize("group", [16, 32, 64])
+def test_pulse_matmul_decode_is_exact(cuda, group):
+    """x = I: every output is one weight plus exact zeros, so the kernel's
+    decode must equal the plain decode bit for bit (denormal weights
+    included)."""
+    w = np.random.default_rng(group).standard_normal((128, 160))
+    w[:, :16] *= 2.0 ** -130  # groups below the exponent clip
+    w[:group, 16:32] = 0.0
+    codes, ge = pulse_quantize(w, 4, group=group, device="cpu")
+    eye = torch.eye(128, dtype=torch.float32, device=cuda)
+    got = pulse_matmul(eye, codes.to(cuda), ge.to(cuda), 4, group=group)
+    want = pulse_decode_ref(codes, ge)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_pulse_matmul_half_inputs(cuda, dtype):
+    rng, codes, ge = _pulse_weights(256, 128, 3, 2)
+    x = torch.as_tensor(rng.standard_normal((8, 256))).to(dtype)
+    got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), 2)
+    want = pulse_matmul_ref(x.float(), codes, ge)
+    assert got.dtype == torch.float32
+    assert _rel_err(got.cpu(), want) < 1e-5
+
+
+def test_pulse_quantize_on_the_card_matches_cpu(cuda):
+    vals = []
+    for k in (2, 5, -7, 20, 0, -126, -130, -149):
+        b = 2.0 ** k
+        vals += [b, np.nextafter(b, np.inf), -b, 1.5 * b]
+    w = np.random.default_rng(5).standard_normal((96, len(vals) + 40)) * 0.02
+    w[0, :len(vals)] = vals
+    w[:, -1] = 2.0 ** -130
+    w[:32, -2] = 0.0
+    for planes in (1, 2, 4):
+        c_cpu, g_cpu = pulse_quantize(w, planes, device="cpu")
+        c_gpu, g_gpu = pulse_quantize(w, planes, device=cuda)
+        assert c_gpu.device.type == "cuda"
+        assert torch.equal(c_gpu.cpu(), c_cpu) and torch.equal(g_gpu.cpu(), g_cpu)
+        assert torch.equal(pulse_dequantize(c_gpu, g_gpu).cpu(),
+                           pulse_dequantize(c_cpu, g_cpu))
+
+
+def test_pulse_entry_points_on_the_card(cuda):
+    rng, codes, ge = _pulse_weights(256, 256, 9, 4)
+    x = rng.standard_normal((4, 256)).astype(np.float32)
+    pulse_matmul.launches = 0
+    y = pulse_matmul_op(x, codes.numpy(), ge.numpy(), 4)
+    torch.cuda.synchronize()
+    assert y.device.type == "cuda" and pulse_matmul.launches == 1
+    want = pulse_matmul_op(x, codes, ge, 4, device="cpu")
+    assert _rel_err(y.cpu(), want) < 1e-5
+    state = {"ffn/down": torch.as_tensor(rng.standard_normal((1, 256, 64)),
+                                         dtype=torch.float32),
+             "norm/scale": torch.ones((64, 64))}
+    got, stats = quantize_param_tree(state, 4)
+    want, want_stats = quantize_param_tree(state, 4, device="cpu")
+    assert stats["n_quantized"] == want_stats["n_quantized"] == 1
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+
+
+def test_pulse_matmul_rejects_mixed_devices(cuda):
+    _, codes, ge = _pulse_weights(64, 32, 1, 1)
+    x = torch.ones((2, 64))
+    with pytest.raises(ValueError):
+        pulse_matmul(x.to(cuda), codes, ge.to(cuda), 1)
+    with pytest.raises(ValueError):
+        pulse_matmul(x, codes.to(cuda), ge.to(cuda), 1)

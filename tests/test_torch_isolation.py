@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no `repro`, and no quiet CPU runs.
 
-A fresh interpreter imports `repro_torch`, runs an engine on the CPU and
-must end with neither `jax` nor any `repro` module loaded; no source file
+A fresh interpreter imports `repro_torch`, runs an engine, the pulse-code
+quantizer, matmul and `quantize_param_tree` on the CPU and must end with
+neither `jax` nor any `repro` module loaded; no source file
 of the port (nor `chip_smoke.py`) may import them; and an entry point
 called without ``device`` on a host without CUDA raises instead of
 running on the CPU.
@@ -33,6 +34,15 @@ def test_import_and_engine_leave_jax_and_repro_unloaded():
         "assert np.array_equal(y, fir_bit_layers_batch(x, q))\n"
         "blmac_fir(x[0], q[0], device='cpu')\n"
         "cache_stats()\n"
+        "from repro_torch.kernels.blmac_matmul import pulse_quantize\n"
+        "from repro_torch.core.serve_quant import quantize_param_tree\n"
+        "from repro_torch.kernels import pulse_matmul_op\n"
+        "w = np.random.default_rng(1).standard_normal((64, 32))\n"
+        "codes, ge = pulse_quantize(w, 2, device='cpu')\n"
+        "pulse_matmul_op(np.ones((2, 64), np.float32), codes, ge, 2,\n"
+        "                device='cpu')\n"
+        "quantize_param_tree({'w': codes[0].double()}, 2, min_size=1,\n"
+        "                    device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print('LOADED', bad)\n",
@@ -72,3 +82,23 @@ def test_default_device_without_cuda_raises(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("entry", ["pulse_matmul_op", "pulse_quantize",
+                                   "quantize_param_tree"])
+def test_pulse_entry_points_default_to_the_gpu(monkeypatch, entry):
+    from repro_torch.core.serve_quant import quantize_param_tree
+    from repro_torch.kernels import pulse_matmul_op, pulse_quantize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = np.ones((32, 4))
+    codes = np.full((1, 32, 4), 15, np.uint8)
+    calls = {
+        "pulse_matmul_op": lambda: pulse_matmul_op(
+            np.ones((2, 32), np.float32), codes, np.zeros((1, 4), np.int8), 1),
+        "pulse_quantize": lambda: pulse_quantize(w, 2),
+        "quantize_param_tree": lambda: quantize_param_tree(
+            {"w": torch.ones((32, 128))}, 2),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
