@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-``nvcc``, then drives the port's filter-bank path through the entry
+Builds the three CUDA libraries from ``src/repro_torch/kernels/csrc`` with
+``nvcc`` (in parallel), then drives the port's paths through the entry
 points a user calls, each leg with the kernels' launch counts zeroed just
 before it and read just after:
 
@@ -29,7 +29,19 @@ before it and read just after:
                   M = 128 (prefill), each launch within 1e-5 relative of
                   float64 ``x @ pulse_dequantize`` and of the plain version;
                   then `quantize_param_tree` over the layer's leaves in the
-                  reference's layout.
+                  reference's layout.  After the leg: the kernel's CUDA-core
+                  route (groups whose exponent is below -112) on an edge
+                  matrix, exact at x = I and within 1e-5 of the plain
+                  version at both M; two launches of ``down`` at each M
+                  compared with `torch.equal`; one decode and one prefill
+                  step (the 7 calls) under `torch.profiler`: count and
+                  device time per kernel (one K3 kernel a call, nothing
+                  else), against the step's unprofiled wall time (the
+                  device's idle share); and each of the 14 launches with
+                  its plan (tile, blocks an SM, stages, splits of K,
+                  blocks), CUDA-event time, device time, library time and
+                  bound, beside the device times of the plan's neighbours
+                  (the next split counts, the other tiles).
 
 Then each kernel is held against its plain PyTorch version on the card at
 the main path's shapes (tolerance 0 for the FIR kernels, integer
@@ -45,6 +57,7 @@ before that line; without a CUDA device it exits 2 at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import os
@@ -82,6 +95,7 @@ LAYER = {
 }
 PLANES, DECODE_M, PREFILL_M = 4, 4, 128
 REL_TOL = 1e-5  # the reference's bound, tests/test_kernels.py
+K3_KERNEL = "blmac_pulse_matmul_kernel"
 CPU_CHECK_COLS = 64
 
 
@@ -185,6 +199,88 @@ def edge_weights():
     w[0, :len(vals)] = vals
     w[:, -1] = 2.0 ** -130
     w[:32, -2] = 0.0
+    return w
+
+
+def cuda_kernels(fn) -> list:
+    """The CUDA kernels that one call of ``fn`` runs, under `torch.profiler`
+    (CPU and CUDA activities), as (start µs, end µs, name) in order on the
+    device.  Fails the run when the profiler sees none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(bool(spans), "the profiler saw no CUDA kernel")
+    return spans
+
+
+def profile_step(fn, reps: int = 20) -> dict:
+    """A model step ``fn`` (several launches): its wall time on the host
+    clock without the profiler (mean of ``reps`` steps, each ended by a
+    synchronise), and one step under `torch.profiler`: device time and
+    count per kernel name, each launch's device time in order, the union
+    of the kernels' intervals (device busy) and the device's idle share of
+    the unprofiled wall time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    by_name: dict = {}
+    busy, reach = 0.0, float("-inf")
+    for start, end, name in cuda_kernels(fn):
+        row = by_name.setdefault(name, {"count": 0, "device_us": 0.0,
+                                        "launch_us": []})
+        row["count"] += 1
+        row["device_us"] += end - start
+        row["launch_us"].append(end - start)
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return {"wall_us": wall_us, "device_busy_us": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_us),
+            "kernels": by_name}
+
+
+def device_us(fns, reps: int = 5) -> list:
+    """Mean device time in µs of the one kernel each of ``fns`` launches,
+    from `torch.profiler` over ``reps`` calls of each (after one warm-up
+    call, which also sizes the split-K workspace)."""
+    for fn in fns:
+        fn()
+
+    def run():
+        for fn in fns:
+            for _ in range(reps):
+                fn()
+
+    spans = cuda_kernels(run)
+    check(len(spans) == reps * len(fns),
+          f"{len(spans)} kernels for {reps * len(fns)} launches")
+    return [sum(e - s for s, e, _ in spans[i * reps:(i + 1) * reps]) / reps
+            for i in range(len(fns))]
+
+
+def subnormal_weights():
+    """A (256, 160) matrix whose columns 0..15 are scaled by 2**-130 and
+    32..47 by 2**-140: their groups' exponents fall below -112, so their
+    steps take the kernel's CUDA-core route (their pulses reach below
+    2**-136, which TF32 cannot hold); the rest std 0.02."""
+    import numpy as np
+
+    w = np.random.default_rng(2).standard_normal((256, 160)) * 0.02
+    w[:, :16] *= 2.0 ** -130
+    w[:, 32:48] *= 2.0 ** -140
     return w
 
 
@@ -301,43 +397,133 @@ def pulse_matmul_leg(dev, smi: str) -> dict:
           "leaves": len(state), "quantized": changed, "stats": stats,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
 
-    # -- timings ------------------------------------------------------------
-    def timed(m, name, plain=True):
-        codes, ge = quant[name]
-        x = xs[(m, name)]
-        k_dim, n_dim = LAYER[name]
-        w_dec = pulse_decode_ref(codes, ge)
-        nbytes = 4 * m * k_dim + codes.numel() + ge.numel() + 4 * m * n_dim
-        ops = 2 * m * k_dim * n_dim
-        b_ms, b_by = bound(ops, nbytes, TF32X3_FLOPS_PER_S)
-        row = {"shape": f"{name}: x ({m}, {k_dim}) @ W ({k_dim}, {n_dim}), "
-                        f"P={PLANES}",
-               "max_abs_err": float((ys[(m, name)] - pulse_matmul_ref(
-                   x, codes, ge)).abs().max()),
-               "max_rel_err": errs[f"{name}@{m}"]["vs_plain"],
-               "ms": cuda_ms(lambda: bmm.pulse_matmul(x, codes, ge, PLANES)),
-               "library_ms": cuda_ms(lambda: torch.matmul(x, w_dec)),
-               "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
-               "bytes": nbytes}
-        if plain:
-            row["plain_ms"] = cuda_ms(lambda: pulse_matmul_ref(x, codes, ge))
-        return row
+    # -- the CUDA-core route: groups below 2**-112, on an edge matrix -------
+    w_sub = subnormal_weights()
+    c_sub, g_sub = pulse_quantize(w_sub, PLANES, device=dev)
+    tiny_groups = int((g_sub < bmm.MIN_TENSOR_EXP).sum())
+    check(tiny_groups > 0, "the edge matrix has no group below -112")
+    dec_sub = pulse_decode_ref(c_sub, g_sub)
+    eye = torch.eye(w_sub.shape[0], dtype=torch.float32, device=dev)
+    sub_err = {}
+    for m in (DECODE_M, PREFILL_M):
+        got = torch.cat([bmm.pulse_matmul(eye[r:r + m], c_sub, g_sub, PLANES)
+                         for r in range(0, w_sub.shape[0], m)])
+        check(torch.equal(got, dec_sub),
+              f"subnormal groups at M={m}: the decode is not exact")
+        x_sub = torch.as_tensor(lrng.standard_normal(
+            (m, w_sub.shape[0]), dtype=np.float32), device=dev)
+        sub_err[m] = rel_err(bmm.pulse_matmul(x_sub, c_sub, g_sub, PLANES),
+                             pulse_matmul_ref(x_sub, c_sub, g_sub))
+        check(sub_err[m] < REL_TOL,
+              f"subnormal groups at M={m}: relative error {sub_err[m]}")
+    subnormal = {"shape": list(w_sub.shape), "groups_below_-112": tiny_groups,
+                 "exact_at_identity": True, "rel_err_vs_plain": sub_err}
 
-    prefill = timed(PREFILL_M, "down")
-    decode = timed(DECODE_M, "down")
-    others = {f"{name}@{m}": {k: v for k, v in timed(m, name, plain=False).items()
-                              if k in ("ms", "library_ms", "bound_ms",
-                                       "bound_by")}
-              for m in (DECODE_M, PREFILL_M) for name in LAYER
-              if name != "down"}
+    # -- two launches of down at each M agree bit for bit ---------------------
+    for m in (DECODE_M, PREFILL_M):
+        codes, ge = quant["down"]
+        first = bmm.pulse_matmul(xs[(m, "down")], codes, ge, PLANES)
+        again = bmm.pulse_matmul(xs[(m, "down")], codes, ge, PLANES)
+        check(torch.equal(first, again),
+              f"two launches of down at M={m} differ")
+
+    # -- each launch: plan, CUDA-event time, library, bound.  Timed before
+    # any profiler runs: after one, the host's time a call grows ---------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, neighbours, plan_runs = {}, {}, {}
+    for m in (DECODE_M, PREFILL_M):
+        for name in LAYER:
+            codes, ge = quant[name]
+            x = xs[(m, name)]
+            k_dim, n_dim = LAYER[name]
+            w_dec = pulse_decode_ref(codes, ge)
+            plain = pulse_matmul_ref(x, codes, ge)
+            nbytes = (4 * m * k_dim + codes.numel() + ge.numel()
+                      + 4 * m * n_dim)
+            ops = 2 * m * k_dim * n_dim
+            b_ms, b_by = bound(ops, nbytes, TF32X3_FLOPS_PER_S)
+            plan = bmm.cuda_launch_plan(m, n_dim, k_dim, PLANES, bmm.GROUP,
+                                        dev)
+            # the plan's neighbours: the next split counts of its tile
+            # either side, and the best of each other tile
+            cands = list(bmm.plan_candidates(m, n_dim, k_dim, sms, PLANES))
+            same = [c for c in cands if c.bm == plan.bm]
+            i = same.index(plan)
+            alt = same[max(0, i - 1):i] + same[i + 1:i + 2] + [
+                min((c for c in cands if c.bm == t), key=lambda c: c.model_us)
+                for t in sorted({c.bm for c in cands} - {plan.bm})]
+            dims = (m, n_dim, k_dim, PLANES, bmm.GROUP)
+            for p in alt:
+                e = rel_err(bmm._launch(x, codes, ge, p, dims), plain)
+                check(e < REL_TOL, f"{name}@{m} under {p}: error {e}")
+            key = f"{name}@{m}"
+            plan_runs[key] = [lambda p=p, x=x, codes=codes, ge=ge, dims=dims:
+                              bmm._launch(x, codes, ge, p, dims)
+                              for p in [plan] + alt]
+            rows[key] = {
+                "shape": f"{name}: x ({m}, {k_dim}) @ W ({k_dim}, {n_dim}), "
+                         f"P={PLANES}",
+                "plan": dataclasses.asdict(plan),
+                "max_abs_err": float((ys[(m, name)] - plain).abs().max()),
+                "max_rel_err": errs[key]["vs_plain"],
+                "ms": cuda_ms(lambda: bmm.pulse_matmul(x, codes, ge, PLANES)),
+                "library_ms": cuda_ms(lambda: torch.matmul(x, w_dec)),
+                "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+                "bytes": nbytes}
+            if name == "down":
+                rows[key]["plain_ms"] = cuda_ms(
+                    lambda: pulse_matmul_ref(x, codes, ge))
+            neighbours[key] = [dataclasses.asdict(p) for p in alt]
+    # -- one step of the layer at each M under the profiler ------------------
+    profiles = {}
+    for m in (DECODE_M, PREFILL_M):
+        prof = profile_step(lambda m=m: [
+            pulse_matmul_op(xs[(m, name)], *quant[name], PLANES)
+            for name in LAYER])
+        k3 = sum(r["count"] for name, r in prof["kernels"].items()
+                 if K3_KERNEL in name)
+        extra = sorted(name for name in prof["kernels"]
+                       if K3_KERNEL not in name)
+        check(k3 == len(LAYER) and not extra,
+              f"a step at M={m} ran {k3} K3 kernels and {extra}")
+        profiles[m] = prof
+
+    # -- device time of each launch's plan and of its neighbours ------------
+    for key, runs in plan_runs.items():
+        us = device_us(runs)
+        rows[key]["device_us"] = us[0]
+        for row, u in zip(neighbours[key], us[1:]):
+            row["device_us"] = u
+    sums = {m: {k: sum(rows[f"{name}@{m}"][k] for name in LAYER)
+                for k in ("ms", "library_ms", "bound_ms")}
+            for m in (DECODE_M, PREFILL_M)}
+    for m in (DECODE_M, PREFILL_M):
+        sums[m]["device_us"] = sum(rows[f"{name}@{m}"]["device_us"]
+                                   for name in LAYER)
+    emit({"phase": "pulse_matmul_profile", "planes": PLANES,
+          "steps": profiles, "launches": {
+              k: {f: r[f] for f in ("plan", "ms", "device_us", "library_ms",
+                                    "bound_ms", "bound_by")}
+              for k, r in rows.items()},
+          "plan_neighbours": neighbours, "seven_launch_sums": sums,
+          "bit_identical_repeat": True, "subnormal_route_ran": True,
+          "subnormal_route": subnormal,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    prefill = rows[f"down@{PREFILL_M}"]
     return {"name": "blmac_pulse_matmul_kernel", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/blmac_pulse_matmul.cu",
             "replaces": "src/repro/kernels/blmac_matmul.py:95",
             "replaces_function": "_pulse_matmul_kernel",
             "launches": launches,
             "launches_by_m": {DECODE_M: len(LAYER), PREFILL_M: len(LAYER)},
-            **prefill, "kernel_ms": prefill["ms"], "decode_shape": decode,
-            "other_shapes": others}
+            **prefill, "kernel_ms": prefill["ms"],
+            "decode_shape": rows[f"down@{DECODE_M}"],
+            "other_shapes": {k: {f: r[f] for f in ("plan", "ms", "device_us",
+                                                   "library_ms", "bound_ms",
+                                                   "bound_by")}
+                             for k, r in rows.items()
+                             if not k.startswith("down")},
+            "seven_launch_sums": sums, "subnormal_route_ran": True}
 
 
 def main() -> int:
@@ -597,9 +783,8 @@ def main() -> int:
          "ops": k2_ops, "bytes": k2_bytes},
     ]
 
-    kernels.append(pulse_matmul_leg(dev, smi))
-
-    # -- engine throughput on the serve leg ------------------------------------
+    # -- engine throughput on the serve leg (before the pulse_matmul leg,
+    # whose profiler phases slow the host's later calls) ---------------------
     eng.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -609,6 +794,8 @@ def main() -> int:
           "pushes": SERVE_CHUNKS, "wall_s": dt,
           "filter_samples_per_s": SERVE_FILTERS * n_done / dt,
           "device": kind, "nvidia_smi": smi})
+
+    kernels.append(pulse_matmul_leg(dev, smi))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -10,8 +10,10 @@ exponent ``e_g`` per group of 32 rows along K:
     back to float64.  Tensor code on the device of the input, bit for bit
     the reference's numpy quantizer.
   * `pulse_matmul` (kernel ``csrc/blmac_pulse_matmul.cu``) — float32
-    ``x @ W`` with W rebuilt from the codes inside the kernel.  Replaces the
-    TPU kernel `_pulse_matmul_kernel`.  A CPU tensor runs the plain version
+    ``x @ W`` with W rebuilt from the codes inside the kernel, on the
+    tensor cores (a 3×TF32 split), one launch a call whose tile, ring and
+    splits of K `launch_plan` picks.  Replaces the TPU kernel
+    `_pulse_matmul_kernel`.  A CPU tensor runs the plain version
     `ref.pulse_matmul_ref`; a CUDA tensor launches the kernel or raises.
     Launches are counted in ``pulse_matmul.launches``.
 
@@ -30,18 +32,24 @@ What the quantizer copies from the reference on purpose, quirks included:
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from ..core.csd import csd_digits_tensor, csd_truncate_tensor
-from .blmac_fir import _raise_on, _stream
+from .blmac_fir import _raise_on
 from .ref import exp2_int, pulse_decode_ref, pulse_matmul_ref
 from .runtime import as_device_tensor, resolve_device
 
 __all__ = [
     "GROUP",
+    "LaunchPlan",
     "NULL_POS",
+    "cuda_launch_plan",
     "launch_plan",
+    "plan_candidates",
     "pulse_dequantize",
     "pulse_matmul",
     "pulse_quantize",
@@ -55,10 +63,40 @@ N_DIGITS = 16
 # and its int32 temporaries (columns of W are independent)
 QUANT_CHUNK = 1 << 23
 
-# the kernel's tile: BN output columns, BK rows of K per step
-BN, BK = 128, 32
-# a split of K covers at least this many steps
-MIN_SPLIT_STEPS = 4
+# the kernel's step: BK rows of K (one ring stage); BN output columns a
+# block; its x tiles' row stride in floats
+BK, BN, X_STRIDE = 32, 128, 36
+# a step (at M <= 16 a warp's 8-row chunk of it) that sees a group exponent
+# below this takes the CUDA cores: TF32 holds no bit below 2**-136, so
+# w_hi + w_lo would not be exact
+MIN_TENSOR_EXP = -112
+# a split of K walks at least this many steps; at most this many splits
+MIN_SPLIT_STEPS, MAX_SPLITS = 2, 64
+# stages of the kernel's ring of shared-memory tiles
+MIN_STAGES, MAX_STAGES = 3, 8
+
+# The launch plan's model of the kernel's device time on an H100 SXM, in µs
+# at P = 4 (a step's work scales with the planes as (P + 2) / 6), fitted to
+# the kernel's device times over every split count at the launches of a
+# qwen2.5-3b layer (`chip_smoke.py` prints each chosen plan's time beside
+# its neighbours'): a swapped 8- or 16-row block alone on its SM takes
+# STEP_US_ALONE a 32-row step, and an SM that two or more share gets
+# through a block-step every STEP_US_SHARED (the decode's instructions
+# bound it); a wgmma block (one an SM) takes STEP_US_WGMMA[bm] a step; a
+# block's prologue and ring filling cost FILL_STEPS steps; a split tile
+# adds SUM_US (the ticket, the last block's start) and its partial tiles
+# read back at SUM_BYTES_PER_US.
+STEP_US_ALONE, STEP_US_SHARED = 1.2, 1.0
+STEP_US_WGMMA = {64: 1.9, 128: 2.6}
+FILL_STEPS = 0.5
+SUM_US, SUM_BYTES_PER_US = 3.0, 70e3
+
+
+def smem_limit(blocks_per_sm: int) -> int:
+    """The dynamic shared memory a block may take on Hopper with
+    ``blocks_per_sm`` blocks an SM (228 KB an SM, 1 KB of it reserved per
+    block, 227 KB at most per block; less the kernel's static words)."""
+    return min(232448, 233472 // blocks_per_sm - 1024) - 256
 
 
 def _group_exponents(gmax: torch.Tensor) -> torch.Tensor:
@@ -142,45 +180,179 @@ def pulse_dequantize(codes: torch.Tensor, group_exp: torch.Tensor,
     return pulse_decode_ref(codes, group_exp, torch.float64)
 
 
-def launch_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
-    """The kernel's block rows ``bm``, steps of K per block and number of
-    K splits for an (m, k) @ (k, n) product on a card with ``sms`` SMs.
+@dataclass(frozen=True)
+class LaunchPlan:
+    """One launch of the kernel: the block's tile (``bm`` rows of M by `BN`
+    columns of N) and blocks an SM, the ring's stages, the steps of K a
+    block walks (``per``) and the splits of K (grid z); ``blocks`` in all;
+    ``model_us``, the plan model's device time for it."""
 
-    ``bm`` is the least of 16, 64, 128 that holds M (the decoded tile is
-    reused by every row of the block).  K is split until the grid holds
-    about four blocks per SM at bm = 16 (decode: the codes' bytes bound it,
-    so many loads must be in flight) or two at the larger tiles, and no
-    split is shorter than `MIN_SPLIT_STEPS` steps."""
-    bm = 16 if m <= 16 else 64 if m <= 64 else 128
-    tiles = -(-n // BN) * -(-m // bm)
+    bm: int
+    blocks_per_sm: int
+    stages: int
+    per: int
+    splits: int
+    blocks: int
+    model_us: float
+
+
+def _stage_bytes(bm: int, planes: int, group: int) -> int:
+    exp_rows = min(BK, (BK - 1) // group + 2)
+    return planes * BK * BN + exp_rows * BN + bm * X_STRIDE * 4
+
+
+def smem_bytes(bm: int, planes: int, group: int, stages: int) -> int:
+    """Dynamic shared memory of one block (the C function
+    ``blmac_pulse_matmul_smem_bytes`` computes the same): at bm > 16 two
+    buffers of the decoded weight tiles (hi and lo) and 1 KB to align them
+    for wgmma; the pulse and 2^e tables; and the ring of (codes, exponent
+    rows, x) stages."""
+    return ((0 if bm <= 16 else 1024 + 4 * BK * BN * 4) + (64 + 256) * 4
+            + stages * _stage_bytes(bm, planes, group))
+
+
+def _ring(bm: int, planes: int, group: int) -> tuple[int, int] | None:
+    """(blocks an SM, stages) of tile ``bm``: the most blocks an SM (four
+    for the swapped tiles, whose warps hide the decode's latency; one for
+    the wgmma tiles) at which a ring of `MIN_STAGES` fits in shared
+    memory, and as many stages as then fit, up to `MAX_STAGES`; None when
+    none fits."""
+    for per_sm in ((4, 3, 2, 1) if bm <= 16 else (1,)):
+        stages = min(MAX_STAGES,
+                     (smem_limit(per_sm) - smem_bytes(bm, planes, group, 0))
+                     // _stage_bytes(bm, planes, group))
+        if stages >= MIN_STAGES:
+            return per_sm, stages
+    return None
+
+
+def plan_candidates(m: int, n: int, k: int, sms: int, planes: int = 4,
+                    group: int = GROUP):
+    """Every launch `launch_plan` weighs for an (m, k) @ (k, n) product at
+    ``planes`` on a card with ``sms`` SMs, each with its model time.
+
+    The tiles are the least that holds M (8 or 16: the swapped small-M
+    tiles; 64: wgmma) and, above 64 rows, both wgmma tiles: at a small N
+    the 64-row tile fills more SMs and halves each split's partial tile.
+    Where no such tile's ring fits (many planes), the swapped 16-row tile
+    serves any M.  Each tile takes every split of K that walks at least
+    `MIN_SPLIT_STEPS` steps, up to `MAX_SPLITS`."""
+    wanted = ((8,) if m <= 8 else (16,) if m <= 16 else (64,) if m <= 64
+              else (128, 64))
+    tiles = [(bm, ring) for bm in wanted
+             if (ring := _ring(bm, planes, group)) is not None]
+    if not tiles:
+        ring = _ring(16, planes, group)
+        if ring is None:
+            raise ValueError(f"planes={planes}, group={group}: no tile of "
+                             f"the pulse matmul fits in shared memory")
+        tiles = [(16, ring)]
     steps = -(-k // BK)
-    target = (4 if bm == 16 else 2) * sms
-    splits = max(1, min(-(-target // tiles), steps // MIN_SPLIT_STEPS))
-    per = -(-steps // splits)
-    return bm, per, -(-steps // per)
+    scale = (planes + 2) / 6
+    for bm, (per_sm, stages) in tiles:
+        tile_count = -(-n // BN) * -(-m // bm)
+        partial_bytes = min(bm, m) * BN * 4
+        for s in range(1, min(MAX_SPLITS, steps) + 1):
+            per = -(-steps // s)
+            if -(-steps // per) != s or (s > 1 and per < MIN_SPLIT_STEPS):
+                continue
+            blocks = tile_count * s
+            share = -(-blocks // sms)  # blocks an SM gets through
+            if bm <= 16:
+                us = ((per + FILL_STEPS) * scale
+                      * max(STEP_US_ALONE, share * STEP_US_SHARED))
+            else:
+                us = share * (per + FILL_STEPS) * scale * STEP_US_WGMMA[bm]
+            if s > 1:
+                us += SUM_US + s * partial_bytes / SUM_BYTES_PER_US
+            yield LaunchPlan(bm, per_sm, stages, per, s, blocks, us)
 
 
-def _check_operands(x, codes, group_exp, planes: int, group: int) -> None:
-    if x.ndim != 2 or codes.ndim != 3 or group_exp.ndim != 2:
+def launch_plan(m: int, n: int, k: int, sms: int, planes: int = 4,
+                group: int = GROUP) -> LaunchPlan:
+    """The kernel's launch for an (m, k) @ (k, n) product at ``planes`` on a
+    card with ``sms`` SMs: of `plan_candidates`, the one with the least
+    model time (the first of equals)."""
+    return min(plan_candidates(m, n, k, sms, planes, group),
+               key=lambda p: p.model_us)
+
+
+@functools.lru_cache(maxsize=1024)
+def cuda_launch_plan(m: int, n: int, k: int, planes: int, group: int,
+                     device: torch.device) -> LaunchPlan:
+    """`launch_plan` for the CUDA device ``device`` and its SM count (cached
+    per shape: the host's time per call counts at decode)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return launch_plan(m, n, k, sms, planes, group)
+
+
+# per (device, stream): the split-K workspace (float32 partial tiles) and
+# the int32 tickets of its sum, zero between launches (a tile's counter
+# wraps back to 0 as its last ticket is drawn).  A stream's launches are
+# ordered, so they may share both; two streams may not.  Each grows to the
+# largest launch seen on its stream and stays for the process's life: a
+# server launches on one stream or a few.  Kept, not allocated per call,
+# for the host's time per call, which bounds the small projections at
+# decode.
+_SPLIT_BUFFERS: dict = {}
+
+
+def _split_buffers(device: torch.device, stream: int, floats: int,
+                   tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream)
+    work, counters = _SPLIT_BUFFERS.get(key, (None, None))
+    if work is None or work.numel() < floats:
+        work = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                           device=device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 1024), dtype=torch.int32,
+                               device=device)
+    _SPLIT_BUFFERS[key] = (work, counters)
+    return work, counters
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_args(x_shape, codes_shape, ge_shape, x_dtype, codes_dtype,
+                 ge_dtype, planes: int, group: int, device: torch.device):
+    """The checked launch of one operand signature on ``device``: its plan
+    and the C call's (m, n, k, planes, group).  Runs the operand checks
+    once per signature (they raise, and nothing is cached, on a bad
+    one)."""
+    _check_shapes(x_shape, codes_shape, ge_shape, x_dtype, codes_dtype,
+                  ge_dtype, planes, group)
+    m, k_dim = x_shape
+    n_dim = codes_shape[2]
+    plan = cuda_launch_plan(m, n_dim, k_dim, planes, group, device)
+    return plan, (m, n_dim, k_dim, planes, group)
+
+
+def _check_shapes(x_shape, codes_shape, ge_shape, x_dtype, codes_dtype,
+                  ge_dtype, planes: int, group: int) -> None:
+    if len(x_shape) != 2 or len(codes_shape) != 3 or len(ge_shape) != 2:
         raise ValueError("need x (M, K), codes (P, K, N), group_exp "
-                         f"(K / group, N); got {tuple(x.shape)}, "
-                         f"{tuple(codes.shape)}, {tuple(group_exp.shape)}")
-    m, k_dim = x.shape
-    p_all, kc, n_dim = codes.shape
+                         f"(K / group, N); got {tuple(x_shape)}, "
+                         f"{tuple(codes_shape)}, {tuple(ge_shape)}")
+    m, k_dim = x_shape
+    p_all, kc, n_dim = codes_shape
     if kc != k_dim:
         raise ValueError(f"x has K={k_dim}, codes K={kc}")
     if k_dim % group:
         raise ValueError(f"K={k_dim} not a multiple of group={group}")
-    if tuple(group_exp.shape) != (k_dim // group, n_dim):
+    if tuple(ge_shape) != (k_dim // group, n_dim):
         raise ValueError(f"group_exp must be {(k_dim // group, n_dim)}, got "
-                         f"{tuple(group_exp.shape)}")
+                         f"{tuple(ge_shape)}")
     if not 1 <= planes <= min(p_all, 16):
         raise ValueError(f"planes={planes} outside 1..{min(p_all, 16)}")
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise TypeError(f"x must be float32, bfloat16 or float16, got {x.dtype}")
-    if codes.dtype != torch.uint8 or group_exp.dtype != torch.int8:
+    if x_dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"x must be float32, bfloat16 or float16, got {x_dtype}")
+    if codes_dtype != torch.uint8 or ge_dtype != torch.int8:
         raise TypeError(f"codes must be uint8 and group_exp int8, got "
-                        f"{codes.dtype} and {group_exp.dtype}")
+                        f"{codes_dtype} and {ge_dtype}")
+
+
+def _check_operands(x, codes, group_exp, planes: int, group: int) -> None:
+    _check_shapes(x.shape, codes.shape, group_exp.shape, x.dtype, codes.dtype,
+                  group_exp.dtype, planes, group)
     if not (x.device == codes.device == group_exp.device):
         raise ValueError(f"operands on {x.device}, {codes.device} and "
                          f"{group_exp.device}")
@@ -191,33 +363,65 @@ def pulse_matmul(x: torch.Tensor, codes: torch.Tensor,
                  group: int = GROUP) -> torch.Tensor:
     """float32 (M, N) = x (M, K) @ W, W decoded from the first ``planes``
     planes of ``codes`` and from ``group_exp``.  The plain version for CPU
-    operands, the CUDA kernel for CUDA operands (no fallback)."""
-    _check_operands(x, codes, group_exp, planes, group)
-    if x.device.type == "cpu":
-        return pulse_matmul_ref(x, codes[:planes], group_exp)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    from .build import library
+    operands, the CUDA kernel for CUDA operands (no fallback).
 
-    x = x.to(torch.float32).contiguous()
-    codes = codes.contiguous()
-    group_exp = group_exp.contiguous()
-    m, k_dim = x.shape
-    n_dim = codes.shape[2]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    bm, per, splits = launch_plan(m, n_dim, k_dim, sms)
-    out = torch.empty((m, n_dim), dtype=torch.float32, device=x.device)
-    work = out if splits == 1 else torch.empty(
-        (splits, m, n_dim), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = library("blmac_pulse_matmul").blmac_pulse_matmul_launch(
-            x.data_ptr(), codes.data_ptr(), group_exp.data_ptr(),
-            work.data_ptr(), out.data_ptr(), m, n_dim, k_dim, planes, group,
-            bm, per, _stream(x.device),
-        )
+    On the GPU the checks, the plan and the constant arguments are looked
+    up per operand signature, and the stream is read raw: at decode the
+    host's time per call is what the small projections cost."""
+    dev = x.device
+    if dev.type != "cuda":
+        _check_operands(x, codes, group_exp, planes, group)
+        if dev.type == "cpu":
+            return pulse_matmul_ref(x, codes[:planes], group_exp)
+        raise ValueError(f"unsupported device {dev}")
+    plan, dims = _launch_args(x.shape, codes.shape, group_exp.shape,
+                              x.dtype, codes.dtype, group_exp.dtype,
+                              planes, group, dev)
+    if codes.get_device() != dev.index or group_exp.get_device() != dev.index:
+        raise ValueError(f"operands on {dev}, {codes.device} and "
+                         f"{group_exp.device}")
+    return _launch(x, codes, group_exp, plan, dims)
+
+
+def _launch(x: torch.Tensor, codes: torch.Tensor, group_exp: torch.Tensor,
+            plan: LaunchPlan, dims: tuple) -> torch.Tensor:
+    """One launch of the kernel under ``plan`` on checked CUDA operands of
+    (m, n, k, planes, group) ``dims``; counted in
+    ``pulse_matmul.launches``.  `pulse_matmul` takes the plan from
+    `launch_plan`; ``chip_smoke.py`` also times the plan's neighbours
+    through here, to check the plan on the card."""
+    if x.dtype != torch.float32:
+        x = x.float()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not codes.is_contiguous():
+        codes = codes.contiguous()
+    if not group_exp.is_contiguous():
+        group_exp = group_exp.contiguous()
+    dev = x.device
+    m, n_dim = dims[0], dims[1]
+    out = torch.empty((m, n_dim), dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    work = counters = None
+    if plan.splits > 1:
+        work, counters = _split_buffers(dev, stream, plan.splits * m * n_dim,
+                                        plan.blocks // plan.splits)
+    err = _launch_fn()(
+        x.data_ptr(), codes.data_ptr(), group_exp.data_ptr(),
+        None if work is None else work.data_ptr(),
+        None if counters is None else counters.data_ptr(), out.data_ptr(),
+        *dims, plan.bm, plan.per, plan.stages, stream, dev.index)
     _raise_on(err, "blmac_pulse_matmul_kernel")
     pulse_matmul.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=1)
+def _launch_fn():
+    """The C launcher, its library built and loaded at the first call."""
+    from .build import library
+
+    return library("blmac_pulse_matmul").blmac_pulse_matmul_launch
 
 
 pulse_matmul.launches = 0

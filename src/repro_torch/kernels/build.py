@@ -53,10 +53,12 @@ SOURCES = {
         "blmac_specialized_smem_bytes": [_I],  # taps
     }),
     "blmac_pulse_matmul": ("blmac_pulse_matmul.cu", {
-        # x, codes, group_exp, workspace, out, m, n, k, planes, group, bm,
-        # ktiles_per_split, stream
-        "blmac_pulse_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _I, _P],
+        # x, codes, group_exp, workspace, counters, out, m, n, k, planes,
+        # group, bm, per, stages, stream, device
+        "blmac_pulse_matmul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _P, _I],
+        # bm, planes, group, stages
+        "blmac_pulse_matmul_smem_bytes": [_I, _I, _I, _I],
     }),
 }
 
@@ -76,8 +78,9 @@ class BuildInfo:
         """Registers, static shared memory (bytes) and spill bytes per
         kernel, parsed from the ``ptxas -v`` report.  The FIR kernels
         take only dynamic shared memory, sized per launch
-        (``*_smem_bytes(taps)`` in each library); the pulse matmul's tiles
-        are static."""
+        (``*_smem_bytes(taps)`` in each library), and so does the pulse
+        matmul (``blmac_pulse_matmul_smem_bytes(bm, planes, group,
+        stages)``)."""
         out: dict = {}
         kernel = None
         for line in self.ptxas.splitlines():
@@ -102,11 +105,13 @@ class BuildInfo:
 
 def _demangled(symbol: str) -> str:
     for name in ("blmac_bank_kernel", "blmac_specialized_kernel",
-                 "blmac_pulse_matmul_kernel", "blmac_splitk_reduce_kernel"):
+                 "blmac_pulse_matmul_kernel"):
         if name in symbol:
-            # a template instance: its int argument, mangled as ILi<value>E
-            arg = re.search(r"ILi(\d+)E", symbol)
-            return f"{name}<{arg.group(1)}>" if arg else name
+            # a template instance: its int and bool arguments, mangled as
+            # Li<value>E and Lb<0 or 1>E
+            args = [v if t == "i" else ("false", "true")[int(v)]
+                    for t, v in re.findall(r"L([ib])(\d+)E", symbol)]
+            return f"{name}<{', '.join(args)}>" if args else name
     return symbol
 
 

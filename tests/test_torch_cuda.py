@@ -25,6 +25,7 @@ from repro_torch.filters import (FilterBankEngine, fir_bit_layers_batch,
 from repro_torch.core.serve_quant import quantize_param_tree
 from repro_torch.kernels import (blmac_fir, blmac_fir_bank, pulse_dequantize,
                                  pulse_matmul_op, pulse_quantize)
+from repro_torch.kernels import blmac_matmul as bmm
 from repro_torch.kernels.blmac_matmul import pulse_matmul
 from repro_torch.kernels.ref import pulse_decode_ref, pulse_matmul_ref
 from repro_torch.kernels.blmac_fir import (bank_call, bank_call_plain,
@@ -207,11 +208,9 @@ def test_build_reports_kernel_resources(cuda):
 
     infos = build_all()
     res = {k: v for info in infos.values() for k, v in info.resources().items()}
-    assert set(res) == {"blmac_bank_kernel", "blmac_specialized_kernel",
-                        "blmac_pulse_matmul_kernel<16>",
-                        "blmac_pulse_matmul_kernel<64>",
-                        "blmac_pulse_matmul_kernel<128>",
-                        "blmac_splitk_reduce_kernel"}
+    assert set(res) == {"blmac_bank_kernel", "blmac_specialized_kernel"} | {
+        f"blmac_pulse_matmul_kernel<{bm}, {std}>"
+        for bm in (8, 16, 64, 128) for std in ("true", "false")}
     assert all(r["registers"] > 0 for r in res.values())
 
 
@@ -228,39 +227,104 @@ def _rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+# (K, N, M): the reference's CPU grid and odd edges, then every tile the
+# launch plan can choose (M of 1 to 200) at N off the 128-column tile, with
+# a K of one split (32) and a K of many (8,192); the 128-row wgmma tile
+# takes a wide N (one split at K = 64, many at K = 4,096).
+# `tests/test_torch_pulse.py` checks on the CPU that these reach every
+# tile with one split and with many.
+PLAN_CASES = [(128, 128, 8), (512, 256, 16), (256, 384, 4), (256, 200, 37),
+              (2048, 136, 130)] + [
+    (k, 200, m) for m in (1, 4, 8, 16, 17, 64, 128, 200) for k in (32, 8192)
+] + [(64, 11000, 128), (64, 11000, 200), (4096, 1000, 128), (4096, 1000, 200)]
+
+
 @pytest.mark.parametrize("planes", [1, 2, 4])
-@pytest.mark.parametrize("k,n,m", [(128, 128, 8), (512, 256, 16),
-                                   (256, 384, 4), (256, 200, 37),
-                                   (2048, 136, 130)])
+@pytest.mark.parametrize("k,n,m", PLAN_CASES)
 def test_pulse_matmul_kernel_matches_plain(cuda, planes, k, n, m):
-    """The reference's CPU grid, plus odd M and N edges and a K that the
-    launch plan splits."""
+    """Every launch plan against the plain version and float64: the
+    swapped 8- and 16-row tiles, the wgmma tiles of 64 and 128 rows and
+    ragged M, N off the tile, one split of K and many."""
     rng, codes, ge = _pulse_weights(k, n, planes * k + n, planes)
     x = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32)
+    plan = bmm.cuda_launch_plan(m, n, k, planes, bmm.GROUP, cuda)
+    if k <= 64:
+        assert plan.splits == 1
+    if k >= 4096:
+        assert plan.splits > 1
     want = pulse_matmul_ref(x, codes, ge)
     plain = pulse_matmul_ref(x.to(cuda), codes.to(cuda), ge.to(cuda))
     got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), planes)
     torch.cuda.synchronize()
     assert _rel_err(plain.cpu(), want) < 1e-5
-    assert _rel_err(got.cpu(), want) < 1e-5, (planes, k, n, m)
+    assert _rel_err(got.cpu(), want) < 1e-5, (planes, k, n, m, plan)
     x64 = x.double() @ pulse_dequantize(codes, ge)
     assert _rel_err(got.cpu().double(), x64) < 1e-5
 
 
+def test_pulse_matmul_counts_one_launch_a_call(cuda):
+    """Each call adds exactly one to ``pulse_matmul.launches``, with one
+    split of K and with many (the split sum runs in the same launch)."""
+    for k in (32, 8192):
+        rng, codes, ge = _pulse_weights(k, 256, k, 4)
+        x = torch.as_tensor(rng.standard_normal((4, k)), dtype=torch.float32,
+                            device=cuda)
+        codes, ge = codes.to(cuda), ge.to(cuda)
+        before = pulse_matmul.launches
+        pulse_matmul(x, codes, ge, 4)
+        assert pulse_matmul.launches == before + 1
+        pulse_matmul_op(x, codes, ge, 4)
+        assert pulse_matmul.launches == before + 2
+
+
 @pytest.mark.parametrize("group", [16, 32, 64])
-def test_pulse_matmul_decode_is_exact(cuda, group):
-    """x = I: every output is one weight plus exact zeros, so the kernel's
-    decode must equal the plain decode bit for bit (denormal weights
-    included)."""
-    w = np.random.default_rng(group).standard_normal((128, 160))
+@pytest.mark.parametrize("m,tile", [(4, 8), (16, 16), (64, 64), (128, 128)])
+def test_pulse_matmul_decode_is_exact(cuda, group, m, tile):
+    """x = rows of I: every output is one weight plus exact zeros, so the
+    kernel's decode must equal the plain decode bit for bit, denormal
+    weights included: groups of 2**-130 (below the exponent clip) and of
+    2**-140 (group exponent below -112, whose pulses TF32 cannot hold)
+    take the CUDA-core route, on every tile (N wide enough that M = 128
+    takes the 128-row one)."""
+    w = np.random.default_rng(group).standard_normal((128, 11000))
     w[:, :16] *= 2.0 ** -130  # groups below the exponent clip
+    w[:, 32:48] *= 2.0 ** -140
     w[:group, 16:32] = 0.0
     codes, ge = pulse_quantize(w, 4, group=group, device="cpu")
+    assert (ge < bmm.MIN_TENSOR_EXP).any()
+    assert bmm.cuda_launch_plan(m, 11000, 128, 4, group, cuda).bm == tile
     eye = torch.eye(128, dtype=torch.float32, device=cuda)
-    got = pulse_matmul(eye, codes.to(cuda), ge.to(cuda), 4, group=group)
     want = pulse_decode_ref(codes, ge)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+    assert (want[:, 32:48] != 0).any()
+    codes, ge = codes.to(cuda), ge.to(cuda)
+    for r0 in range(0, 128, m):
+        got = pulse_matmul(eye[r0:r0 + m], codes, ge, 4, group=group)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want[r0:r0 + m]), r0
+
+
+@pytest.mark.parametrize("group", [4, 12, 20])
+@pytest.mark.parametrize("m", [4, 16, 128])
+def test_pulse_matmul_groups_not_a_multiple_of_8(cuda, group, m):
+    """Groups that split an 8-row chunk of K: each row takes its own
+    group's exponent (x = rows of I gives the plain decode bit for bit) and
+    random x meets the reference's bound."""
+    k, n = 240, 160
+    rng = np.random.default_rng(group * m)
+    w = rng.standard_normal((k, n)) * np.exp2(rng.integers(-12, 12, (k, 1)))
+    codes, ge = pulse_quantize(w, 4, group=group, device="cpu")
+    dec = pulse_decode_ref(codes, ge)
+    eye = torch.eye(k, dtype=torch.float32)
+    for r0 in range(0, k, m):
+        rows = eye[r0:r0 + m].to(cuda)
+        got = pulse_matmul(rows, codes.to(cuda), ge.to(cuda), 4, group=group)
+        assert torch.equal(got.cpu(), dec[r0:r0 + m]), r0
+    x = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32)
+    got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), 4,
+                       group=group)
+    assert _rel_err(got.cpu(), pulse_matmul_ref(x, codes, ge)) < 1e-5
+    x64 = x.double() @ pulse_dequantize(codes, ge, group=group)
+    assert _rel_err(got.cpu().double(), x64) < 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -316,3 +380,119 @@ def test_pulse_matmul_rejects_mixed_devices(cuda):
         pulse_matmul(x.to(cuda), codes, ge.to(cuda), 1)
     with pytest.raises(ValueError):
         pulse_matmul(x, codes.to(cuda), ge.to(cuda), 1)
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 17, 128, 130])
+def test_pulse_matmul_rows_across_tiles(cuda, m):
+    """Every M on both sides of each tile's edge (the swapped 8- and 16-row
+    tiles, 64 and 128), against the plain version and float64."""
+    rng, codes, ge = _pulse_weights(1024, 320, 100 + m, 4)
+    x = torch.as_tensor(rng.standard_normal((m, 1024)), dtype=torch.float32)
+    got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), 4)
+    want = pulse_matmul_ref(x, codes, ge)
+    assert tuple(got.shape) == (m, 320)
+    assert _rel_err(got.cpu(), want) < 1e-5
+    x64 = x.double() @ pulse_dequantize(codes, ge)
+    assert _rel_err(got.cpu().double(), x64) < 1e-5
+
+
+@pytest.mark.parametrize("m", [4, 40])
+@pytest.mark.parametrize("n", [100, 37])
+def test_pulse_matmul_unaligned_columns(cuda, m, n):
+    """N not a multiple of 16: codes and exponents load without cp.async."""
+    rng, codes, ge = _pulse_weights(512, n, n + m, 2)
+    x = torch.as_tensor(rng.standard_normal((m, 512)), dtype=torch.float32)
+    got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), 2)
+    assert _rel_err(got.cpu(), pulse_matmul_ref(x, codes, ge)) < 1e-5
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_pulse_matmul_many_splits_of_k(cuda, m):
+    """A long K over few columns: the plan splits K many times and the last
+    block of each tile adds the partials; K not a multiple of 32."""
+    k, group = 8192 + 16, 16
+    rng = np.random.default_rng(m)
+    w = rng.standard_normal((k, 64)) * np.exp2(rng.integers(-8, 8, (k, 64)))
+    codes, ge = pulse_quantize(w, 4, group=group, device="cpu")
+    x = torch.as_tensor(rng.standard_normal((m, k)), dtype=torch.float32)
+    plan = bmm.cuda_launch_plan(m, 64, k, 4, group, cuda)
+    assert plan.splits >= 8
+    got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), 4,
+                       group=group)
+    x64 = x.double() @ pulse_dequantize(codes, ge, group=group)
+    assert _rel_err(got.cpu().double(), x64) < 1e-5
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_pulse_matmul_is_deterministic(cuda, m):
+    """Two launches on the same operands agree bit for bit: the split-K
+    partials are added in split order whichever block finishes last."""
+    rng, codes, ge = _pulse_weights(4096, 512, 7 * m, 4)
+    x = torch.as_tensor(rng.standard_normal((m, 4096)), dtype=torch.float32,
+                        device=cuda)
+    codes, ge = codes.to(cuda), ge.to(cuda)
+    assert bmm.cuda_launch_plan(m, 512, 4096, 4, bmm.GROUP, cuda).splits > 1
+    first = pulse_matmul(x, codes, ge, 4)
+    for _ in range(3):
+        assert torch.equal(pulse_matmul(x, codes, ge, 4), first)
+
+
+@pytest.mark.parametrize("planes", [1, 2, 4])
+def test_pulse_matmul_subnormal_groups_are_exact(cuda, planes):
+    """Group exponent -127 and weights of 2**-130: such steps take the
+    CUDA-core route, which keeps the decode exact (x = I)."""
+    w = np.random.default_rng(planes).standard_normal((96, 80))
+    w[:, :16] *= 2.0 ** -130
+    w[:32, 16:32] = 2.0 ** -140
+    codes, ge = pulse_quantize(w, planes, device="cpu")
+    assert (ge == -127).any()
+    eye = torch.eye(96, dtype=torch.float32, device=cuda)
+    got = pulse_matmul(eye, codes.to(cuda), ge.to(cuda), planes)
+    assert torch.equal(got.cpu(), pulse_decode_ref(codes, ge))
+    for m in (4, 40):  # both tile shapes, x random
+        x = torch.as_tensor(np.random.default_rng(m).standard_normal((m, 96)),
+                            dtype=torch.float32)
+        got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), planes)
+        want = x.double() @ pulse_dequantize(codes, ge)
+        assert _rel_err(got.cpu().double(), want) < 1e-5
+
+
+def test_pulse_matmul_smem_matches_the_host_plan(cuda):
+    from repro_torch.kernels.build import library
+
+    lib = library("blmac_pulse_matmul")
+    for tile in (8, 16, 64, 128):
+        for planes in (1, 2, 4, 8, 16):
+            for group in (1, 16, 32, 64):
+                for stages in (3, 8):
+                    assert lib.blmac_pulse_matmul_smem_bytes(
+                        tile, planes, group, stages) == bmm.smem_bytes(
+                            tile, planes, group, stages)
+
+
+@pytest.mark.parametrize("m", [4, 40, 130])
+def test_pulse_matmul_sixteen_planes(cuda, m):
+    """16 planes: the ring holds 64 KB of codes a stage; M > 16 falls back
+    to the 16-row tile."""
+    rng = np.random.default_rng(16 + m)
+    codes = torch.as_tensor(rng.integers(0, 256, (16, 256, 128)),
+                            dtype=torch.uint8)
+    ge = torch.as_tensor(rng.integers(-20, 0, (8, 128)), dtype=torch.int8)
+    x = torch.as_tensor(rng.standard_normal((m, 256)), dtype=torch.float32)
+    got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), 16)
+    want = x.double() @ pulse_dequantize(codes, ge)
+    assert _rel_err(got.cpu().double(), want) < 1e-5
+
+
+@pytest.mark.parametrize("m", [4, 16, 128])
+def test_pulse_matmul_model_scale_weights(cuda, m):
+    """Weights of a model's scale (normal, std 0.02): every group exponent
+    is negative, so every 2^e comes from the table's negative half."""
+    rng = np.random.default_rng(20 + m)
+    w = rng.standard_normal((1024, 384)) * 0.02
+    codes, ge = pulse_quantize(w, 4, device="cpu")
+    assert (ge < 0).all()
+    x = torch.as_tensor(rng.standard_normal((m, 1024)), dtype=torch.float32)
+    got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), 4)
+    want = x.double() @ pulse_dequantize(codes, ge)
+    assert _rel_err(got.cpu().double(), want) < 1e-5

@@ -181,15 +181,212 @@ def test_csd_tensor_codec_matches_reference(dtype):
         csd_digits_tensor(t, 4)
 
 
-def test_launch_plan_covers_k_and_fills_the_card():
-    for m, n, k in [(4, 2048, 11008), (128, 2048, 11008), (4, 256, 2048),
-                    (128, 11008, 2048), (1, 5, 32), (40, 300, 96)]:
-        bm_rows, per, splits = bm.launch_plan(m, n, k, 132)
+# the (M, N, K) of every launch of one qwen2.5-3b layer (d_model 2,048, 16
+# heads x 128, 2 KV heads, d_ff 11,008) at decode and prefill, then edges:
+# one row, tile edges in M, N below and off the 128-column tile, K of one
+# group and one step
+QWEN_LAUNCHES = [(m, n, k) for m in (4, 128)
+                 for k, n in ((2048, 2048), (2048, 256), (2048, 256),
+                              (2048, 2048), (2048, 11008), (2048, 11008),
+                              (11008, 2048))]
+EDGE_LAUNCHES = [(1, 5, 32), (40, 300, 96), (17, 100, 4096), (130, 2048, 2048),
+                 (1, 2048, 11008), (8, 200, 64), (16, 129, 8192),
+                 (64, 127, 2048), (65, 4096, 512), (200, 11008, 2048),
+                 (128, 1, 11008), (3, 64, 64)]
+
+
+@pytest.mark.parametrize("planes,group", [(4, 32), (1, 16), (8, 64), (2, 1)])
+def test_launch_plan_covers_k_and_fills_the_card(planes, group):
+    """The plan's blocks cover K with no empty split, its tile holds M (or
+    64 of its rows) unless no wgmma tile fits (the swapped 16-row tile
+    then serves any M), its
+    ring of at least three stages fits in shared memory, and a decode-sized
+    M splits K until every SM has a block; at every launch of a qwen2.5-3b
+    layer and at the edges."""
+    for m, n, k in QWEN_LAUNCHES + EDGE_LAUNCHES:
+        k = -(-k // group) * group  # K is a multiple of the group
+        plan = bm.launch_plan(m, n, k, 132, planes, group)
         steps = -(-k // bm.BK)
-        assert bm_rows >= min(m, 128) and bm_rows in (16, 64, 128)
-        assert (splits - 1) * per < steps <= splits * per
-        assert splits == 1 or per >= bm.MIN_SPLIT_STEPS
-    assert bm.launch_plan(4, 2048, 11008, 132)[2] > 1  # decode splits K
+        assert plan.bm in (8, 16, 64, 128)
+        if plan.bm < min(m, 64):  # only where no wgmma tile fits
+            assert plan.bm == 16 and bm.smem_bytes(
+                64, planes, group, bm.MIN_STAGES) > bm.smem_limit(1)
+        assert bm.MIN_STAGES <= plan.stages <= bm.MAX_STAGES
+        assert bm.smem_bytes(plan.bm, planes, group, plan.stages) \
+            <= bm.smem_limit(plan.blocks_per_sm)
+        assert (plan.splits - 1) * plan.per < steps <= plan.splits * plan.per
+        assert 1 <= plan.splits <= bm.MAX_SPLITS
+        assert plan.splits == 1 or plan.per >= bm.MIN_SPLIT_STEPS
+        assert plan.blocks == (plan.splits * -(-n // bm.BN)
+                               * -(-m // plan.bm))
+    decode = bm.launch_plan(4, 2048, 11008, 132, planes, group)
+    assert decode.bm == 8 and decode.splits > 1 and decode.blocks >= 132
+
+
+# the shapes of `tests/test_torch_cuda.py`'s
+# `test_pulse_matmul_kernel_matches_plain` (K, N, M), which holds every
+# plan against the plain version on the card
+CARD_PLAN_CASES = [(128, 128, 8), (512, 256, 16), (256, 384, 4),
+                   (256, 200, 37), (2048, 136, 130)] + [
+    (k, 200, m) for m in (1, 4, 8, 16, 17, 64, 128, 200) for k in (32, 8192)
+] + [(64, 11000, 128), (64, 11000, 200), (4096, 1000, 128), (4096, 1000, 200)]
+
+
+@pytest.mark.parametrize("planes", [1, 2, 4])
+def test_launch_plan_reaches_every_tile(planes):
+    """On a 132-SM card the card test's shapes reach every tile the plan
+    can choose (8, 16, 64 and 128 rows), each with one split of K and with
+    many, and a small N at prefill takes the 64-row tile (more blocks,
+    half the partial tile)."""
+    seen = {(p.bm, p.splits > 1) for p in (
+        bm.launch_plan(m, n, k, 132, planes) for k, n, m in CARD_PLAN_CASES)}
+    assert seen == {(t, many) for t in (8, 16, 64, 128)
+                    for many in (False, True)}
+    assert bm.launch_plan(128, 256, 2048, 132, planes).bm == 64
+    assert bm.launch_plan(128, 11008, 2048, 132, planes).bm == 128
+
+
+def test_launch_plan_model_prefers_fewer_waves():
+    """The model's choices at the layer's big launches: `gate` at M = 128
+    splits K so that its 86 column tiles fill two waves of 132 SMs, and
+    `down` at M = 128 fills one; a split is never chosen when it adds
+    nothing (K of one step)."""
+    gate = bm.launch_plan(128, 11008, 2048, 132)
+    assert gate.bm == 128 and gate.blocks <= 2 * 132 < gate.blocks + 86
+    down = bm.launch_plan(128, 2048, 11008, 132)
+    assert down.bm == 128 and down.blocks <= 132 < down.blocks + 16
+    assert bm.launch_plan(4, 2048, 32, 132).splits == 1
+
+
+def test_launch_plan_fits_every_plane_count():
+    """Up to 16 planes every M has a tile whose ring of at least three
+    stages fits in shared memory: at many planes the large tiles give way
+    to the swapped 16-row tile, which serves any M."""
+    for planes in (1, 4, 8, 12, 16):
+        for m in (1, 16, 17, 64, 65, 200):
+            plan = bm.launch_plan(m, 2048, 2048, 132, planes)
+            assert plan.stages >= bm.MIN_STAGES
+            assert bm.smem_bytes(plan.bm, planes, bm.GROUP, plan.stages) \
+                <= bm.smem_limit(plan.blocks_per_sm)
+    assert bm.launch_plan(200, 2048, 2048, 132, 16).bm == 16
+
+
+def _rna_tf32(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on float32: keep 10 mantissa bits, rounding
+    ties away from zero, by integer operations on the bit pattern (adding
+    half an ulp of TF32 to the magnitude bits, then clearing 13 bits)."""
+    b = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = ((b + 0x1000) & 0xFFFFE000).to(torch.uint32)
+    return b.view(torch.int32).view(torch.float32)
+
+
+def _matmul_3xtf32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch: x and W split into TF32 hi
+    and lo parts, ``x_hi w_lo + x_lo w_hi + x_hi w_hi`` per 32-row step of
+    K (each product exact in float64), each step added to a float32 sum."""
+    x_hi = _rna_tf32(x)
+    x_lo = _rna_tf32(x - x_hi)
+    w_hi = _rna_tf32(w)
+    w_lo = w - w_hi
+    y = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32)
+    for k0 in range(0, x.shape[1], bm.BK):
+        ks = slice(k0, k0 + bm.BK)
+        step = (x_hi[:, ks].double() @ w_lo[ks].double()
+                + x_lo[:, ks].double() @ w_hi[ks].double()
+                + x_hi[:, ks].double() @ w_hi[ks].double())
+        y += step.float()
+    return y
+
+
+@pytest.mark.parametrize("planes", [1, 2, 4])
+@pytest.mark.parametrize("k,n,m", GRID)
+def test_3xtf32_split_meets_the_reference_bound(planes, k, n, m):
+    """The split's numerics on the reference grid: every decoded weight is
+    w_hi + w_lo exactly with w_lo already a TF32 value; the three-term
+    product is within 1e-5 of `repro`'s Pallas kernel (interpret mode) and
+    of float64; with x = I it gives the plain decode bit for bit."""
+    rng, w = _weights(planes, k, n)
+    codes, ge = ref_quantize(w, planes)
+    wd = pulse_decode_ref(torch.from_numpy(codes), torch.from_numpy(ge))
+    w_hi = _rna_tf32(wd)
+    assert torch.equal(w_hi + (wd - w_hi), wd)
+    assert torch.equal(_rna_tf32(wd - w_hi), wd - w_hi)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    y = _matmul_3xtf32(torch.from_numpy(x), wd)
+    y64 = x.astype(np.float64) @ ref_dequantize(codes, ge)
+    y_pallas = np.asarray(ref_matmul_op(
+        jnp.asarray(x), jnp.asarray(codes), jnp.asarray(ge), planes,
+        bm=max(1, m // 2), bk=128, bn=128))
+    scale = np.abs(y64).max()
+    assert np.abs(y.numpy() - y64).max() / scale < 1e-5
+    assert np.abs(y.numpy() - y_pallas).max() / scale < 1e-5
+    assert torch.equal(_matmul_3xtf32(torch.eye(k), wd), wd)
+
+
+def test_rna_tf32_rounds_ties_away_from_zero():
+    one = 1.0
+    ulp = 2.0 ** -10  # TF32's ulp at 1
+    v = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2**-23,
+                      one + 3 * ulp / 2, 2.0 ** -130, 0.0], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp,
+                         2.0 ** -130, 0.0], dtype=torch.float32)
+    assert torch.equal(_rna_tf32(v), want)
+
+
+def _toward_zero_f32(v: torch.Tensor) -> torch.Tensor:
+    """float64 ``v`` to float32, rounded toward zero: how the tensor cores
+    add into their accumulator (they truncate)."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def test_3xtf32_split_holds_the_bound_at_full_span():
+    """`down`'s K = 11,008 with every weight spanning the full 16 bits of
+    its pulses (±2^15 ± 2^10 ± 2^5 ± 2^0, times its group's 2^(e − 14)).
+    The kernel's arithmetic, emulated in float64: per 32-row step a fresh
+    accumulator takes, per 8-row chunk, x_hi w_lo, x_lo w_hi and x_hi w_hi
+    (each chunk's dot products exact, each addition truncated to float32);
+    the step is then added, rounded to nearest, to the float32 sum.  It
+    stays within 1e-5 of float64; one TF32 pass does not."""
+    k, n, m = 11008, 64, 4
+    rng = np.random.default_rng(k)
+    negative = rng.random((4, k, n)) < 0.5
+    codes = torch.from_numpy(
+        (0x80 | (negative * 0x40)
+         | np.array([15, 10, 5, 0])[:, None, None]).astype(np.uint8))
+    ge = torch.from_numpy(rng.integers(-8, 4, (k // bm.GROUP, n))
+                          .astype(np.int8))
+    w = pulse_decode_ref(codes, ge)
+    q = torch.from_numpy(np.where(negative, -1.0, 1.0)
+                         * np.exp2([15, 10, 5, 0])[:, None, None]).sum(0)
+    scale = torch.exp2(ge.double() - 14).repeat_interleave(bm.GROUP, dim=0)
+    assert torch.equal(w.double(), q * scale)  # every weight spans 16 bits
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    x_hi = _rna_tf32(x)
+    x_lo = _rna_tf32(x - x_hi)
+    w_hi = _rna_tf32(w)
+    w_lo = w - w_hi
+    assert torch.equal(_rna_tf32(w_lo), w_lo)  # w = w_hi + w_lo, both TF32
+
+    def chunks(a, b):  # (chunk, m, n): each 8-row chunk's exact products
+        return torch.einsum("mci,cin->cmn", a.double().reshape(m, -1, 8),
+                            b.double().reshape(-1, 8, n))
+
+    terms = (chunks(x_hi, w_lo), chunks(x_lo, w_hi), chunks(x_hi, w_hi))
+    y = torch.zeros((m, n), dtype=torch.float32)
+    per_step = bm.BK // 8
+    for c0 in range(0, k // 8, per_step):
+        part = torch.zeros((m, n), dtype=torch.float32)
+        for c in range(c0, c0 + per_step):
+            for t in terms:
+                part = _toward_zero_f32(part.double() + t[c])
+        y += part
+    y64 = x.double() @ w.double()
+    scale_y = y64.abs().max()
+    assert (y.double() - y64).abs().max() / scale_y < 1e-5
+    one_pass = x_hi.double() @ w_hi.double()
+    assert (one_pass - y64).abs().max() / scale_y > 1e-5
 
 
 def _flat_arrays(tree):
