@@ -33,15 +33,14 @@ before it and read just after:
                   route (groups whose exponent is below -112) on an edge
                   matrix, exact at x = I and within 1e-5 of the plain
                   version at both M; two launches of ``down`` at each M
-                  compared with `torch.equal`; one decode and one prefill
-                  step (the 7 calls) under `torch.profiler`: count and
-                  device time per kernel (one K3 kernel a call, nothing
-                  else), against the step's unprofiled wall time (the
-                  device's idle share); and each of the 14 launches with
+                  compared with `torch.equal`; decode and prefill steps
+                  (the 7 calls) under `torch.profiler`: count and device
+                  time per kernel (one K3 kernel a call, nothing else) and,
+                  from the same trace, the device's idle share of each
+                  profiled step's span; and each of the 14 launches with
                   its plan (tile, blocks an SM, stages, splits of K,
                   blocks), CUDA-event time, device time, library time and
-                  bound, beside the device times of the plan's neighbours
-                  (the next split counts, the other tiles).
+                  bound.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the main path's shapes (tolerance 0 for the FIR kernels, integer
@@ -96,6 +95,7 @@ LAYER = {
 PLANES, DECODE_M, PREFILL_M = 4, 4, 128
 REL_TOL = 1e-5  # the reference's bound, tests/test_kernels.py
 K3_KERNEL = "blmac_pulse_matmul_kernel"
+STEP_SPAN = "chip_smoke_step"  # record_function name of a profiled step
 CPU_CHECK_COLS = 64
 
 
@@ -221,14 +221,23 @@ def cuda_kernels(fn) -> list:
     return spans
 
 
-def profile_step(fn, reps: int = 20) -> dict:
-    """A model step ``fn`` (several launches): its wall time on the host
-    clock without the profiler (mean of ``reps`` steps, each ended by a
-    synchronise), and one step under `torch.profiler`: device time and
-    count per kernel name, each launch's device time in order, the union
-    of the kernels' intervals (device busy) and the device's idle share of
-    the unprofiled wall time."""
+def profile_step(fn, launches: int, steps: int = 5,
+                 reps: int = 20) -> dict:
+    """A model step ``fn`` of ``launches`` kernel launches.  Its wall time
+    on the host clock without the profiler (mean of ``reps`` steps, each
+    ended by a synchronise), and ``steps`` steps under `torch.profiler`,
+    each in a `record_function` span that ends with a synchronise: from
+    that one trace, per step, the span (its wall time under the profiler),
+    the union of its kernels' intervals (device busy) and the device's
+    idle share of the span; the median step of these, and device time and
+    count per kernel name over the steps.  Fails the run when a step ran
+    another number of kernels or its kernels were busy longer than its
+    span."""
+    import statistics
+
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
@@ -236,19 +245,46 @@ def profile_step(fn, reps: int = 20) -> dict:
     for _ in range(reps):
         fn()
         torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    wall_unprofiled_us = (time.perf_counter() - t0) * 1e6 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            with record_function(f"{STEP_SPAN}{i}"):
+                fn()
+                torch.cuda.synchronize()
+    spans, kernels = {}, []
+    for e in prof.events():
+        if e.name.startswith(STEP_SPAN):
+            if e.device_type == DeviceType.CPU:
+                spans[e.name] = (e.time_range.start, e.time_range.end)
+        elif e.device_type == DeviceType.CUDA:
+            kernels.append((e.time_range.start, e.time_range.end, e.name))
+    kernels.sort()
+    check(len(spans) == steps and len(kernels) == steps * launches,
+          f"{len(kernels)} kernels in {len(spans)} profiled steps, want "
+          f"{launches} in each of {steps}")
     by_name: dict = {}
-    busy, reach = 0.0, float("-inf")
-    for start, end, name in cuda_kernels(fn):
-        row = by_name.setdefault(name, {"count": 0, "device_us": 0.0,
-                                        "launch_us": []})
-        row["count"] += 1
-        row["device_us"] += end - start
-        row["launch_us"].append(end - start)
-        busy += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-    return {"wall_us": wall_us, "device_busy_us": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall_us),
+    per_step = []
+    for i in range(steps):
+        start, end = spans[f"{STEP_SPAN}{i}"]
+        busy, reach = 0.0, float("-inf")
+        for k0, k1, name in kernels[i * launches:(i + 1) * launches]:
+            row = by_name.setdefault(name, {"count": 0, "device_us": 0.0})
+            row["count"] += 1
+            row["device_us"] += k1 - k0
+            busy += max(0.0, k1 - max(k0, reach))
+            reach = max(reach, k1)
+        span = end - start
+        check(busy <= span, f"profiled step {i}: kernels busy {busy} us "
+                            f"in a span of {span} us")
+        per_step.append({"span_us": span, "device_busy_us": busy,
+                         "idle_share": 1.0 - busy / span})
+    mid = sorted(per_step, key=lambda r: r["span_us"])[steps // 2]
+    return {"wall_us_unprofiled": wall_unprofiled_us,
+            "profiled_steps": steps, "median_step": mid,
+            "idle_share_by_step": [r["idle_share"] for r in per_step],
+            "device_busy_us_median": statistics.median(
+                r["device_busy_us"] for r in per_step),
             "kernels": by_name}
 
 
@@ -429,8 +465,7 @@ def pulse_matmul_leg(dev, smi: str) -> dict:
 
     # -- each launch: plan, CUDA-event time, library, bound.  Timed before
     # any profiler runs: after one, the host's time a call grows ---------
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows, neighbours, plan_runs = {}, {}, {}
+    rows, calls = {}, {}
     for m in (DECODE_M, PREFILL_M):
         for name in LAYER:
             codes, ge = quant[name]
@@ -444,71 +479,54 @@ def pulse_matmul_leg(dev, smi: str) -> dict:
             b_ms, b_by = bound(ops, nbytes, TF32X3_FLOPS_PER_S)
             plan = bmm.cuda_launch_plan(m, n_dim, k_dim, PLANES, bmm.GROUP,
                                         dev)
-            # the plan's neighbours: the next split counts of its tile
-            # either side, and the best of each other tile
-            cands = list(bmm.plan_candidates(m, n_dim, k_dim, sms, PLANES))
-            same = [c for c in cands if c.bm == plan.bm]
-            i = same.index(plan)
-            alt = same[max(0, i - 1):i] + same[i + 1:i + 2] + [
-                min((c for c in cands if c.bm == t), key=lambda c: c.model_us)
-                for t in sorted({c.bm for c in cands} - {plan.bm})]
-            dims = (m, n_dim, k_dim, PLANES, bmm.GROUP)
-            for p in alt:
-                e = rel_err(bmm._launch(x, codes, ge, p, dims), plain)
-                check(e < REL_TOL, f"{name}@{m} under {p}: error {e}")
             key = f"{name}@{m}"
-            plan_runs[key] = [lambda p=p, x=x, codes=codes, ge=ge, dims=dims:
-                              bmm._launch(x, codes, ge, p, dims)
-                              for p in [plan] + alt]
+            calls[key] = (lambda x=x, codes=codes, ge=ge:
+                          bmm.pulse_matmul(x, codes, ge, PLANES))
             rows[key] = {
                 "shape": f"{name}: x ({m}, {k_dim}) @ W ({k_dim}, {n_dim}), "
                          f"P={PLANES}",
                 "plan": dataclasses.asdict(plan),
                 "max_abs_err": float((ys[(m, name)] - plain).abs().max()),
                 "max_rel_err": errs[key]["vs_plain"],
-                "ms": cuda_ms(lambda: bmm.pulse_matmul(x, codes, ge, PLANES)),
+                "ms": cuda_ms(calls[key]),
                 "library_ms": cuda_ms(lambda: torch.matmul(x, w_dec)),
                 "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
                 "bytes": nbytes}
             if name == "down":
                 rows[key]["plain_ms"] = cuda_ms(
                     lambda: pulse_matmul_ref(x, codes, ge))
-            neighbours[key] = [dataclasses.asdict(p) for p in alt]
     # -- one step of the layer at each M under the profiler ------------------
     profiles = {}
     for m in (DECODE_M, PREFILL_M):
         prof = profile_step(lambda m=m: [
             pulse_matmul_op(xs[(m, name)], *quant[name], PLANES)
-            for name in LAYER])
+            for name in LAYER], len(LAYER))
         k3 = sum(r["count"] for name, r in prof["kernels"].items()
                  if K3_KERNEL in name)
         extra = sorted(name for name in prof["kernels"]
                        if K3_KERNEL not in name)
-        check(k3 == len(LAYER) and not extra,
+        check(k3 == len(LAYER) * prof["profiled_steps"] and not extra,
               f"a step at M={m} ran {k3} K3 kernels and {extra}")
         profiles[m] = prof
 
-    # -- device time of each launch's plan and of its neighbours ------------
-    for key, runs in plan_runs.items():
-        us = device_us(runs)
-        rows[key]["device_us"] = us[0]
-        for row, u in zip(neighbours[key], us[1:]):
-            row["device_us"] = u
+    # -- device time of each launch -----------------------------------------
+    for key, us in zip(calls, device_us(list(calls.values()))):
+        rows[key]["device_us"] = us
     sums = {m: {k: sum(rows[f"{name}@{m}"][k] for name in LAYER)
-                for k in ("ms", "library_ms", "bound_ms")}
+                for k in ("ms", "library_ms", "bound_ms", "device_us")}
             for m in (DECODE_M, PREFILL_M)}
-    for m in (DECODE_M, PREFILL_M):
-        sums[m]["device_us"] = sum(rows[f"{name}@{m}"]["device_us"]
-                                   for name in LAYER)
     emit({"phase": "pulse_matmul_profile", "planes": PLANES,
           "steps": profiles, "launches": {
               k: {f: r[f] for f in ("plan", "ms", "device_us", "library_ms",
                                     "bound_ms", "bound_by")}
               for k, r in rows.items()},
-          "plan_neighbours": neighbours, "seven_launch_sums": sums,
+          "seven_launch_sums": sums,
           "bit_identical_repeat": True, "subnormal_route_ran": True,
           "subnormal_route": subnormal,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    # the kernels line: measured numbers and the bound (plans stay above)
+    rows = {k: {f: v for f, v in r.items() if f != "plan"}
+            for k, r in rows.items()}
     prefill = rows[f"down@{PREFILL_M}"]
     return {"name": "blmac_pulse_matmul_kernel", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/blmac_pulse_matmul.cu",
@@ -518,7 +536,7 @@ def pulse_matmul_leg(dev, smi: str) -> dict:
             "launches_by_m": {DECODE_M: len(LAYER), PREFILL_M: len(LAYER)},
             **prefill, "kernel_ms": prefill["ms"],
             "decode_shape": rows[f"down@{DECODE_M}"],
-            "other_shapes": {k: {f: r[f] for f in ("plan", "ms", "device_us",
+            "other_shapes": {k: {f: r[f] for f in ("ms", "device_us",
                                                    "library_ms", "bound_ms",
                                                    "bound_by")}
                              for k, r in rows.items()

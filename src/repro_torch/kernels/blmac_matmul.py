@@ -32,6 +32,7 @@ What the quantizer copies from the reference on purpose, quirks included:
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 
@@ -49,10 +50,10 @@ __all__ = [
     "NULL_POS",
     "cuda_launch_plan",
     "launch_plan",
-    "plan_candidates",
     "pulse_dequantize",
     "pulse_matmul",
     "pulse_quantize",
+    "release_split_buffers",
 ]
 
 GROUP = 32
@@ -74,22 +75,14 @@ MIN_TENSOR_EXP = -112
 MIN_SPLIT_STEPS, MAX_SPLITS = 2, 64
 # stages of the kernel's ring of shared-memory tiles
 MIN_STAGES, MAX_STAGES = 3, 8
-
-# The launch plan's model of the kernel's device time on an H100 SXM, in µs
-# at P = 4 (a step's work scales with the planes as (P + 2) / 6), fitted to
-# the kernel's device times over every split count at the launches of a
-# qwen2.5-3b layer (`chip_smoke.py` prints each chosen plan's time beside
-# its neighbours'): a swapped 8- or 16-row block alone on its SM takes
-# STEP_US_ALONE a 32-row step, and an SM that two or more share gets
-# through a block-step every STEP_US_SHARED (the decode's instructions
-# bound it); a wgmma block (one an SM) takes STEP_US_WGMMA[bm] a step; a
-# block's prologue and ring filling cost FILL_STEPS steps; a split tile
-# adds SUM_US (the ticket, the last block's start) and its partial tiles
-# read back at SUM_BYTES_PER_US.
-STEP_US_ALONE, STEP_US_SHARED = 1.2, 1.0
-STEP_US_WGMMA = {64: 1.9, 128: 2.6}
-FILL_STEPS = 0.5
-SUM_US, SUM_BYTES_PER_US = 3.0, 70e3
+# a wgmma tile splits K only while splits × its rows stay within this many
+# times the steps each split walks: the tile's last block adds the splits'
+# partial tiles alone, and that sum must stay short beside the walk
+SUM_ROWS_PER_STEP = 256
+# swapped 8- and 16-row blocks an SM runs to capacity: a third adds no
+# throughput (the decode's instructions bound it), so a wave is two of
+# them an SM; a wgmma block has an SM to itself
+SWAPPED_WAVE_BLOCKS = 2
 
 
 def smem_limit(blocks_per_sm: int) -> int:
@@ -184,8 +177,8 @@ def pulse_dequantize(codes: torch.Tensor, group_exp: torch.Tensor,
 class LaunchPlan:
     """One launch of the kernel: the block's tile (``bm`` rows of M by `BN`
     columns of N) and blocks an SM, the ring's stages, the steps of K a
-    block walks (``per``) and the splits of K (grid z); ``blocks`` in all;
-    ``model_us``, the plan model's device time for it."""
+    block walks (``per``) and the splits of K (grid z); ``blocks`` in
+    all."""
 
     bm: int
     blocks_per_sm: int
@@ -193,7 +186,6 @@ class LaunchPlan:
     per: int
     splits: int
     blocks: int
-    model_us: float
 
 
 def _stage_bytes(bm: int, planes: int, group: int) -> int:
@@ -226,55 +218,59 @@ def _ring(bm: int, planes: int, group: int) -> tuple[int, int] | None:
     return None
 
 
-def plan_candidates(m: int, n: int, k: int, sms: int, planes: int = 4,
-                    group: int = GROUP):
-    """Every launch `launch_plan` weighs for an (m, k) @ (k, n) product at
-    ``planes`` on a card with ``sms`` SMs, each with its model time.
-
-    The tiles are the least that holds M (8 or 16: the swapped small-M
-    tiles; 64: wgmma) and, above 64 rows, both wgmma tiles: at a small N
-    the 64-row tile fills more SMs and halves each split's partial tile.
-    Where no such tile's ring fits (many planes), the swapped 16-row tile
-    serves any M.  Each tile takes every split of K that walks at least
-    `MIN_SPLIT_STEPS` steps, up to `MAX_SPLITS`."""
-    wanted = ((8,) if m <= 8 else (16,) if m <= 16 else (64,) if m <= 64
-              else (128, 64))
-    tiles = [(bm, ring) for bm in wanted
-             if (ring := _ring(bm, planes, group)) is not None]
-    if not tiles:
-        ring = _ring(16, planes, group)
-        if ring is None:
-            raise ValueError(f"planes={planes}, group={group}: no tile of "
-                             f"the pulse matmul fits in shared memory")
-        tiles = [(16, ring)]
-    steps = -(-k // BK)
-    scale = (planes + 2) / 6
-    for bm, (per_sm, stages) in tiles:
-        tile_count = -(-n // BN) * -(-m // bm)
-        partial_bytes = min(bm, m) * BN * 4
-        for s in range(1, min(MAX_SPLITS, steps) + 1):
-            per = -(-steps // s)
-            if -(-steps // per) != s or (s > 1 and per < MIN_SPLIT_STEPS):
-                continue
-            blocks = tile_count * s
-            share = -(-blocks // sms)  # blocks an SM gets through
-            if bm <= 16:
-                us = ((per + FILL_STEPS) * scale
-                      * max(STEP_US_ALONE, share * STEP_US_SHARED))
-            else:
-                us = share * (per + FILL_STEPS) * scale * STEP_US_WGMMA[bm]
-            if s > 1:
-                us += SUM_US + s * partial_bytes / SUM_BYTES_PER_US
-            yield LaunchPlan(bm, per_sm, stages, per, s, blocks, us)
+def _splits(steps: int, bm: int, rows: int):
+    """Every (splits, steps a split walks) of K's ``steps`` for tile ``bm``
+    over ``rows`` rows of M: no split empty, each at least
+    `MIN_SPLIT_STEPS` long, at most `MAX_SPLITS`, and at the wgmma tiles
+    within `SUM_ROWS_PER_STEP`."""
+    for s in range(1, min(MAX_SPLITS, steps) + 1):
+        per = -(-steps // s)
+        if -(-steps // per) != s:
+            continue
+        if s > 1 and (per < MIN_SPLIT_STEPS
+                      or bm > 16 and s * rows > SUM_ROWS_PER_STEP * per):
+            continue
+        yield s, per
 
 
 def launch_plan(m: int, n: int, k: int, sms: int, planes: int = 4,
                 group: int = GROUP) -> LaunchPlan:
     """The kernel's launch for an (m, k) @ (k, n) product at ``planes`` on a
-    card with ``sms`` SMs: of `plan_candidates`, the one with the least
-    model time (the first of equals)."""
-    return min(plan_candidates(m, n, k, sms, planes, group),
-               key=lambda p: p.model_us)
+    card with ``sms`` SMs.
+
+    The tile is the least that holds M: 8 or 16 rows (the swapped
+    ``mma.sync`` tiles), 64 or 128 (``wgmma``).  Above 64 rows the 64-row
+    tile takes over where the 128-row tile, split as far as allowed, would
+    leave SMs without a block while the 64-row tiles still fit one wave (a
+    small N at prefill: ``wk``/``wv``).  Where no such tile's ring fits
+    (many planes), the swapped 16-row tile serves any M.  K is split into
+    the count that fills the card in the fewest block-steps: waves (blocks
+    over `SWAPPED_WAVE_BLOCKS` or one a wgmma block per SM) times the
+    steps a block walks plus one for filling its ring; the fewest splits
+    of equals, for the shortest sum."""
+    steps = -(-k // BK)
+
+    def tiles(bm: int) -> int:
+        return -(-n // BN) * -(-m // bm)
+
+    wanted = ((8,) if m <= 8 else (16,) if m <= 16 else (64,) if m <= 64
+              else (128, 64))
+    fits = [bm for bm in wanted if _ring(bm, planes, group) is not None]
+    if not fits:
+        if _ring(16, planes, group) is None:
+            raise ValueError(f"planes={planes}, group={group}: no tile of "
+                             f"the pulse matmul fits in shared memory")
+        fits = [16]
+    bm = fits[0]
+    if bm == 128 and 64 in fits and tiles(64) <= sms and tiles(128) * max(
+            s for s, _ in _splits(steps, 128, min(128, m))) < sms:
+        bm = 64
+    per_sm, stages = _ring(bm, planes, group)
+    wave = (min(SWAPPED_WAVE_BLOCKS, per_sm) if bm <= 16 else 1) * sms
+    splits, per = min(
+        _splits(steps, bm, min(bm, m)),
+        key=lambda sp: (-(-tiles(bm) * sp[0] // wave) * (sp[1] + 1), sp[0]))
+    return LaunchPlan(bm, per_sm, stages, per, splits, tiles(bm) * splits)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -286,20 +282,29 @@ def cuda_launch_plan(m: int, n: int, k: int, planes: int, group: int,
     return launch_plan(m, n, k, sms, planes, group)
 
 
-# per (device, stream): the split-K workspace (float32 partial tiles) and
-# the int32 tickets of its sum, zero between launches (a tile's counter
-# wraps back to 0 as its last ticket is drawn).  A stream's launches are
-# ordered, so they may share both; two streams may not.  Each grows to the
-# largest launch seen on its stream and stays for the process's life: a
-# server launches on one stream or a few.  Kept, not allocated per call,
-# for the host's time per call, which bounds the small projections at
-# decode.
+# Split-K buffers, per (device, stream): the float32 workspace of partial
+# tiles and the int32 tickets of its sum, zero between launches (a tile's
+# counter wraps back to 0 as its last ticket is drawn).  A stream's
+# launches are ordered, so they may share both; two streams may not.  A
+# stream is known by CUDA's ID for it, which, unlike the handle's value,
+# no later stream of the process takes, so a new stream never meets the
+# tickets of a destroyed one's launches still running.  Each entry grows
+# to the largest launch seen on its stream (the smaller buffers go back
+# to PyTorch's allocator) and lives until `release_split_buffers` or the
+# process's end.  Kept, not allocated per call, for the host's time per
+# call, which bounds the small projections at decode.
 _SPLIT_BUFFERS: dict = {}
+
+
+def release_split_buffers() -> None:
+    """Drop every stream's split-K buffers (to PyTorch's allocator, which
+    reuses their memory only after the launches queued on them)."""
+    _SPLIT_BUFFERS.clear()
 
 
 def _split_buffers(device: torch.device, stream: int, floats: int,
                    tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
-    key = (device.index, stream)
+    key = (device.index, stream != 0, _stream_id(stream))
     work, counters = _SPLIT_BUFFERS.get(key, (None, None))
     if work is None or work.numel() < floats:
         work = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
@@ -309,6 +314,17 @@ def _split_buffers(device: torch.device, stream: int, floats: int,
                                device=device)
     _SPLIT_BUFFERS[key] = (work, counters)
     return work, counters
+
+
+def _stream_id(stream: int) -> int:
+    """CUDA's ID of the stream of handle ``stream`` (0, the legacy default
+    stream of the device, keeps 0)."""
+    if stream == 0:
+        return 0
+    sid = ctypes.c_ulonglong()
+    _raise_on(_library().blmac_stream_id(stream, ctypes.byref(sid)),
+              "cudaStreamGetId")
+    return sid.value
 
 
 @functools.lru_cache(maxsize=1024)
@@ -380,16 +396,6 @@ def pulse_matmul(x: torch.Tensor, codes: torch.Tensor,
     if codes.get_device() != dev.index or group_exp.get_device() != dev.index:
         raise ValueError(f"operands on {dev}, {codes.device} and "
                          f"{group_exp.device}")
-    return _launch(x, codes, group_exp, plan, dims)
-
-
-def _launch(x: torch.Tensor, codes: torch.Tensor, group_exp: torch.Tensor,
-            plan: LaunchPlan, dims: tuple) -> torch.Tensor:
-    """One launch of the kernel under ``plan`` on checked CUDA operands of
-    (m, n, k, planes, group) ``dims``; counted in
-    ``pulse_matmul.launches``.  `pulse_matmul` takes the plan from
-    `launch_plan`; ``chip_smoke.py`` also times the plan's neighbours
-    through here, to check the plan on the card."""
     if x.dtype != torch.float32:
         x = x.float()
     if not x.is_contiguous():
@@ -398,7 +404,6 @@ def _launch(x: torch.Tensor, codes: torch.Tensor, group_exp: torch.Tensor,
         codes = codes.contiguous()
     if not group_exp.is_contiguous():
         group_exp = group_exp.contiguous()
-    dev = x.device
     m, n_dim = dims[0], dims[1]
     out = torch.empty((m, n_dim), dtype=torch.float32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -406,7 +411,7 @@ def _launch(x: torch.Tensor, codes: torch.Tensor, group_exp: torch.Tensor,
     if plan.splits > 1:
         work, counters = _split_buffers(dev, stream, plan.splits * m * n_dim,
                                         plan.blocks // plan.splits)
-    err = _launch_fn()(
+    err = _library().blmac_pulse_matmul_launch(
         x.data_ptr(), codes.data_ptr(), group_exp.data_ptr(),
         None if work is None else work.data_ptr(),
         None if counters is None else counters.data_ptr(), out.data_ptr(),
@@ -417,11 +422,11 @@ def _launch(x: torch.Tensor, codes: torch.Tensor, group_exp: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=1)
-def _launch_fn():
-    """The C launcher, its library built and loaded at the first call."""
+def _library():
+    """The kernel's C library, built and loaded at the first call."""
     from .build import library
 
-    return library("blmac_pulse_matmul").blmac_pulse_matmul_launch
+    return library("blmac_pulse_matmul")
 
 
 pulse_matmul.launches = 0

@@ -59,6 +59,8 @@ SOURCES = {
                                       _I, _I, _I, _I, _P, _I],
         # bm, planes, group, stages
         "blmac_pulse_matmul_smem_bytes": [_I, _I, _I, _I],
+        # stream, unsigned long long* id
+        "blmac_stream_id": [_P, _P],
     }),
 }
 

@@ -1084,6 +1084,14 @@ extern "C" int blmac_pulse_matmul_smem_bytes(int bm, int planes, int group,
   return smem_bytes(bm, planes, group, stages);
 }
 
+// CUDA's ID of `stream` into `*id`, unique among the process's streams
+// (a handle's value may come back for a later stream; the ID does not):
+// the wrapper keys a stream's split-K tickets by it.  Returns the error.
+extern "C" int blmac_stream_id(void* stream, unsigned long long* id) {
+  return static_cast<int>(
+      cudaStreamGetId(static_cast<cudaStream_t>(stream), id));
+}
+
 // Launch y = x @ decode(codes[:planes], gexp) on `stream`, one kernel.
 // `x` float32 (m, k) contiguous; `codes` uint8 (>= planes, k, n) contiguous;
 // `gexp` int8 (k / group, n) contiguous; `out` float32 (m, n).  `bm` (8 or

@@ -437,6 +437,29 @@ def test_pulse_matmul_is_deterministic(cuda, m):
         assert torch.equal(pulse_matmul(x, codes, ge, 4), first)
 
 
+def test_pulse_matmul_streams_keep_their_own_split_buffers(cuda):
+    """A split launch on a side stream draws its tickets from buffers of
+    its own (keyed by CUDA's ID of the stream), and gives the default
+    stream's result bit for bit; released buffers are made anew."""
+    rng, codes, ge = _pulse_weights(4096, 512, 11, 4)
+    x = torch.as_tensor(rng.standard_normal((4, 4096)), dtype=torch.float32,
+                        device=cuda)
+    codes, ge = codes.to(cuda), ge.to(cuda)
+    assert bmm.cuda_launch_plan(4, 512, 4096, 4, bmm.GROUP, cuda).splits > 1
+    bmm.release_split_buffers()
+    first = pulse_matmul(x, codes, ge, 4)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        again = [pulse_matmul(x, codes, ge, 4) for _ in range(3)]
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert len(bmm._SPLIT_BUFFERS) == 2
+    assert all(torch.equal(y, first) for y in again)
+    bmm.release_split_buffers()
+    assert not bmm._SPLIT_BUFFERS
+    assert torch.equal(pulse_matmul(x, codes, ge, 4), first)
+
+
 @pytest.mark.parametrize("planes", [1, 2, 4])
 def test_pulse_matmul_subnormal_groups_are_exact(cuda, planes):
     """Group exponent -127 and weights of 2**-130: such steps take the

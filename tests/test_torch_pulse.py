@@ -197,20 +197,28 @@ EDGE_LAUNCHES = [(1, 5, 32), (40, 300, 96), (17, 100, 4096), (130, 2048, 2048),
 
 @pytest.mark.parametrize("planes,group", [(4, 32), (1, 16), (8, 64), (2, 1)])
 def test_launch_plan_covers_k_and_fills_the_card(planes, group):
-    """The plan's blocks cover K with no empty split, its tile holds M (or
-    64 of its rows) unless no wgmma tile fits (the swapped 16-row tile
-    then serves any M), its
-    ring of at least three stages fits in shared memory, and a decode-sized
-    M splits K until every SM has a block; at every launch of a qwen2.5-3b
-    layer and at the edges."""
+    """The plan's blocks cover K with no empty split and every row of M (a
+    wgmma tile above 16 rows, where one fits; the swapped 16-row tile
+    otherwise serves any M), its ring of at least three stages fits in
+    shared memory, a split wgmma tile keeps its last block's sum within
+    `SUM_ROWS_PER_STEP`, and a decode-sized M splits K until every SM has
+    a block; at every launch of a qwen2.5-3b layer and at the edges."""
     for m, n, k in QWEN_LAUNCHES + EDGE_LAUNCHES:
         k = -(-k // group) * group  # K is a multiple of the group
         plan = bm.launch_plan(m, n, k, 132, planes, group)
         steps = -(-k // bm.BK)
         assert plan.bm in (8, 16, 64, 128)
-        if plan.bm < min(m, 64):  # only where no wgmma tile fits
-            assert plan.bm == 16 and bm.smem_bytes(
-                64, planes, group, bm.MIN_STAGES) > bm.smem_limit(1)
+        wgmma_fits = bm.smem_bytes(64, planes, group,
+                                   bm.MIN_STAGES) <= bm.smem_limit(1)
+        if m <= 16:
+            assert plan.bm == (8 if m <= 8 else 16)
+        elif wgmma_fits:
+            assert plan.bm in (64, 128) and (m > 64 or plan.bm == 64)
+        else:
+            assert plan.bm == 16
+        if plan.bm > 16 and plan.splits > 1:
+            assert (plan.splits * min(plan.bm, m)
+                    <= bm.SUM_ROWS_PER_STEP * plan.per)
         assert bm.MIN_STAGES <= plan.stages <= bm.MAX_STAGES
         assert bm.smem_bytes(plan.bm, planes, group, plan.stages) \
             <= bm.smem_limit(plan.blocks_per_sm)
@@ -247,7 +255,7 @@ def test_launch_plan_reaches_every_tile(planes):
 
 
 def test_launch_plan_model_prefers_fewer_waves():
-    """The model's choices at the layer's big launches: `gate` at M = 128
+    """The plan's choices at the layer's big launches: `gate` at M = 128
     splits K so that its 86 column tiles fill two waves of 132 SMs, and
     `down` at M = 128 fills one; a split is never chosen when it adds
     nothing (K of one step)."""
@@ -256,6 +264,32 @@ def test_launch_plan_model_prefers_fewer_waves():
     down = bm.launch_plan(128, 2048, 11008, 132)
     assert down.bm == 128 and down.blocks <= 132 < down.blocks + 16
     assert bm.launch_plan(4, 2048, 32, 132).splits == 1
+
+
+# the plan of each distinct launch of a qwen2.5-3b layer, (M, N, K) →
+# (tile, stages, steps a split walks, splits, blocks), as `chip_smoke.py`
+# runs them on a 132-SM H100 and PERF.md records their times; pinned, so
+# that a change of the rule shows here first
+MEASURED_PLANS = {
+    (4, 2048, 2048): (8, 3, 4, 16, 256),
+    (4, 256, 2048): (8, 3, 2, 32, 64),
+    (4, 11008, 2048): (8, 3, 22, 3, 258),
+    (4, 2048, 11008): (8, 3, 22, 16, 256),
+    (128, 2048, 2048): (128, 4, 8, 8, 128),
+    (128, 256, 2048): (64, 6, 4, 16, 64),
+    (128, 11008, 2048): (128, 4, 22, 3, 258),
+    (128, 2048, 11008): (128, 4, 43, 8, 128),
+}
+
+
+@pytest.mark.parametrize("m,n,k", sorted(MEASURED_PLANS))
+def test_launch_plan_picks_the_measured_plans(m, n, k):
+    """At every launch of a qwen2.5-3b layer at P = 4 on 132 SMs the plan
+    is the recorded one: the 64-row tile for `wk`/`wv` at prefill, and
+    one wave of blocks but at `gate`/`up`, which fill two."""
+    plan = bm.launch_plan(m, n, k, 132)
+    assert (plan.bm, plan.stages, plan.per, plan.splits,
+            plan.blocks) == MEASURED_PLANS[(m, n, k)]
 
 
 def test_launch_plan_fits_every_plane_count():
