@@ -17,9 +17,13 @@ before it and read just after:
                   sweep bank (§3.1), 16-bit po2 quantization, 1 channel ×
                   16,384 samples; bit-exact against the plain version in
                   full and the numpy oracle on 64 sampled rows;
-  * specialized — `blmac_fir` on one 127-tap filter over 2**20 samples and
+  * specialized — `blmac_fir` on one 127-tap filter over 2**20 samples,
                   `FilterBankEngine(mode="specialized")` on 8 filters × 2
-                  channels; bit-exact against the numpy oracle;
+                  channels and the one-filter `FilterBankEngine` (auto mode)
+                  on 2 channels, 8 pushes of 4,096 samples each; bit-exact
+                  against the numpy oracle, one K2 launch a call and a push;
+                  prints K2's launch geometry, ``ptxas`` resources and the
+                  one-filter engine's push time by host clock;
   * pulse_matmul — one qwen2.5-3b decoder layer at its published widths
                   (d_model 2048, 16 heads × 128, 2 KV heads, d_ff 11,008;
                   random normal weights, std 0.02, seed 0): `pulse_quantize`
@@ -72,6 +76,12 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # cores — 132 SMs × 64 INT32 lanes × 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# K2's bound counts adds, and the integer pipe's IADD3 adds three operands
+# (two adds) in one instruction: the least time for N int32 adds is N / 2
+# IADD3 at 64 lanes an SM a clock, i.e. N adds at twice the INT32 rate.
+# (If a measured K2 ever reads below this, the rate is too low: raise it
+# here and say why.)
+INT32_ADDS_PER_S = 2 * INT32_OPS_PER_S
 # dense TF32 tensor-core rate of the H100 SXM, 494.7 TFLOP/s (data sheet),
 # over 3: a 3xTF32 split, the cheapest tensor-core route that keeps float32
 # accuracy — the pulse matmul's bound by operations
@@ -80,6 +90,7 @@ TF32X3_FLOPS_PER_S = 494.7e12 / 3
 SERVE_FILTERS, SERVE_TAPS, SERVE_CHUNK, SERVE_CHUNKS = 256, 63, 4096, 32
 SWEEP_TAPS, SWEEP_SAMPLES, SWEEP_CHECK_ROWS = 127, 16384, 64
 SPEC_SAMPLES = 1 << 20
+SPEC_CHUNK, SPEC_PUSHES, SPEC_CHANNELS = 4096, 8, 2
 OPS_TILE = 1024  # blmac_fir / blmac_fir_bank default signal tile
 
 # one qwen2.5-3b decoder layer (src/repro/configs/qwen2_5_3b.py) as x @ W
@@ -142,6 +153,26 @@ def cuda_ms(fn, target_ms: float = 200.0) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_us(fn, reps: int = 20, spin_cycles: int = 4_000_000) -> float:
+    """Mean device microseconds of ``fn``'s launches without the host's
+    time a call: CUDA events around ``reps`` calls queued behind a GPU
+    spin (``spin_cycles`` clocks, about 2 ms), so the card runs them back
+    to back however slowly the host enqueues them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps * 1e3
 
 
 def max_abs_diff(a, b) -> int:
@@ -579,10 +610,7 @@ def main() -> int:
         "blmac_bank_kernel": {
             t: library("blmac_bank").blmac_bank_smem_bytes(t)
             for t in (SERVE_TAPS, SWEEP_TAPS)},
-        "blmac_specialized_kernel": {
-            SWEEP_TAPS: library("blmac_specialized")
-            .blmac_specialized_smem_bytes(SWEEP_TAPS)},
-    }
+    }  # K2's depends on its table: see the specialized phase
     emit({"phase": "build", "seconds": build_s,
           "libraries": {n: {"nvcc_s": i.seconds, "cached": i.cached,
                             "kernels": i.resources()}
@@ -673,32 +701,76 @@ def main() -> int:
     x_spec = torch.as_tensor(rng.integers(-128, 128, SPEC_SAMPLES),
                              dtype=torch.int32, device=dev)
     bank8 = sweep_q[np.linspace(0, len(sweep_q) - 1, 8).astype(int)]
-    x8 = rng.integers(-128, 128, (2, 8 * 4096)).astype(np.int32)
+    x8 = rng.integers(-128, 128, (SPEC_CHANNELS, SPEC_PUSHES * SPEC_CHUNK)) \
+        .astype(np.int32)
+    spec_chunks = [x8[:, k * SPEC_CHUNK:(k + 1) * SPEC_CHUNK]
+                   for k in range(SPEC_PUSHES)]
+    spec_eng = FilterBankEngine(bank8, channels=SPEC_CHANNELS,
+                                mode="specialized", device=dev)
+    one_eng = FilterBankEngine(spec_q[None], channels=SPEC_CHANNELS,
+                               device=dev)  # auto mode
+    check(one_eng.mode == "specialized", f"auto mode chose {one_eng.mode}")
     bf.reset_launch_counts()
     y_spec = blmac_fir(x_spec, spec_q)
-    spec_eng = FilterBankEngine(bank8, channels=2, mode="specialized",
-                                device=dev)
-    y8 = np.concatenate([spec_eng.push(x8[:, k * 4096:(k + 1) * 4096])
-                         for k in range(8)], axis=2)
     torch.cuda.synchronize()
+    fir_launches = bf.specialized_call.launches
+    per_push = {"specialized_8x2": [], "auto_1x2": []}
+    push_s = []
+    y_eng = {"specialized_8x2": [], "auto_1x2": []}
+    for chunk in spec_chunks:
+        for name, e in (("specialized_8x2", spec_eng), ("auto_1x2", one_eng)):
+            before = bf.specialized_call.launches
+            t0 = time.perf_counter()
+            y_eng[name].append(e.push(chunk))  # ends in a device-to-host copy
+            if name == "auto_1x2":
+                push_s.append(time.perf_counter() - t0)
+            per_push[name].append(bf.specialized_call.launches - before)
     spec_launches = bf.specialized_call.launches
     check(spec_launches > 0, "specialized leg never launched its kernel")
+    check(fir_launches == 1, f"blmac_fir made {fir_launches} K2 launches")
+    check(all(n == 1 for v in per_push.values() for n in v),
+          f"K2 launches per engine push: {per_push}")
     want_spec = fir_bit_layers_batch(x_spec.cpu().numpy(), spec_q)[0, 0]
     check(np.array_equal(y_spec.cpu().numpy(), want_spec),
           "blmac_fir differs from the numpy oracle")
-    check(np.array_equal(y8, fir_bit_layers_batch(x8, bank8)),
+    check(np.array_equal(np.concatenate(y_eng["specialized_8x2"], axis=2),
+                         fir_bit_layers_batch(x8, bank8)),
           "specialized engine differs from the numpy oracle")
+    check(np.array_equal(np.concatenate(y_eng["auto_1x2"], axis=2),
+                         fir_bit_layers_batch(x8, spec_q[None])),
+          "one-filter engine differs from the numpy oracle")
     spec_pulses = compile_bank(spec_q[None]).pulse_schedules()[0]
     sframes, n_spec = bf.frame_signal(x_spec, SWEEP_TAPS, OPS_TILE)
     sprog = bf.specialized_program(spec_pulses, SWEEP_TAPS, OPS_TILE, str(dev))
-    spec_diff = max_abs_diff(
-        bf.specialized_call(sframes, sprog),
-        bf.specialized_plain(sframes, spec_pulses, SWEEP_TAPS, OPS_TILE))
+    s_plain = bf.specialized_plain(sframes, spec_pulses, SWEEP_TAPS, OPS_TILE)
+    s_walk = bf.pulse_table_walk(sframes.cpu().numpy(),
+                                 *bf.pulse_tables([spec_pulses], SWEEP_TAPS),
+                                 SWEEP_TAPS, OPS_TILE)[0]
+    check(np.array_equal(s_walk, s_plain.cpu().numpy()),
+          "the table walk differs from the plain version")
+    spec_diff = max_abs_diff(bf.specialized_call(sframes, sprog)[0], s_plain)
     check(spec_diff == 0, f"specialized kernel differs by {spec_diff}")
+    threads, cols, tab_pad, k2_smem = sprog.geometry
+    check(library("blmac_specialized").blmac_specialized_smem_bytes(
+              tab_pad, threads, SWEEP_TAPS) == k2_smem,
+          "K2's shared memory differs between the host and the library")
+    k2_resources = infos["blmac_specialized"].resources()
     emit({"phase": "specialized", "taps": SWEEP_TAPS, "samples": SPEC_SAMPLES,
-          "pulses": len(spec_pulses), "engine_filters": 8,
-          "engine_channels": 2, "specialized_launches": spec_launches,
-          "max_abs_diff_vs_plain": spec_diff, "bit_exact_vs_oracle": True})
+          "pulses": len(spec_pulses),
+          "taps_with_pulses": len({j for _, j, _ in spec_pulses}),
+          "engine_filters": len(bank8), "engine_channels": SPEC_CHANNELS,
+          "pushes": SPEC_PUSHES, "chunk": SPEC_CHUNK,
+          "specialized_launches": spec_launches,
+          "blmac_fir_launches": fir_launches,
+          "launches_per_push": per_push,
+          "one_filter_engine_push_ms": [t * 1e3 for t in push_s],
+          "one_filter_engine_push_ms_median": sorted(push_s)[len(push_s) // 2]
+          * 1e3,
+          "max_abs_diff_vs_plain": spec_diff, "bit_exact_vs_oracle": True,
+          "table_walk_bit_exact": True,
+          "geometry": {"threads": threads, "columns": cols,
+                       "table_words": sprog.table_len, "smem_bytes": k2_smem},
+          "ptxas": k2_resources})
 
     # -- kernel timings at the main path's shapes -----------------------------
     half = SWEEP_TAPS // 2
@@ -766,10 +838,15 @@ def main() -> int:
         "ops": s_ops, "bytes": s_bytes,
     }
 
-    k2_ops = (len(spec_pulses) + half) * n_spec
+    # K2's adds: one per pulse and one per fold (a tap other than the
+    # centre that carries pulses) per output, as IADD3 pairs (see
+    # INT32_ADDS_PER_S); bytes: the samples in and the outputs out, once
+    k2_folds = len({j for _, j, _ in spec_pulses if j != half})
+    k2_ops = (len(spec_pulses) + k2_folds) * n_spec
     k2_bytes = 4 * (SPEC_SAMPLES + n_spec)
-    k2_bound, k2_by = bound(k2_ops, k2_bytes)
+    k2_bound, k2_by = bound(k2_ops, k2_bytes, INT32_ADDS_PER_S)
     k2_ms = cuda_ms(lambda: bf.specialized_call(sframes, sprog))
+    k2_device_us = queued_us(lambda: bf.specialized_call(sframes, sprog))
     k2_plain_ms = cuda_ms(lambda: bf.specialized_plain(
         sframes, spec_pulses, SWEEP_TAPS, OPS_TILE))
     k2_lib_ms = conv1d_ms(x_spec, spec_q[None], n_spec)
@@ -798,7 +875,8 @@ def main() -> int:
          "max_abs_err": spec_diff, "max_abs_diff": spec_diff,
          "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
-         "ops": k2_ops, "bytes": k2_bytes},
+         "ops": k2_ops, "bytes": k2_bytes, "device_us": k2_device_us,
+         "launches_by_call": {"blmac_fir": fir_launches, **per_push}},
     ]
 
     # -- engine throughput on the serve leg (before the pulse_matmul leg,

@@ -12,8 +12,9 @@ Modes:
     filters sorted into occupancy-homogeneous bank tiles at construction
     (`BlmacProgram.schedule`), one launch per tile group with populated
     layers, each group's packed operand uploaded to the device once.
-  * ``"specialized"`` — the pulse-specialized kernel per (filter,
-    channel), one cached device pulse table per filter.
+  * ``"specialized"`` — the pulse-specialized kernel: one launch per
+    push for every filter and channel, the filters' pulse tables
+    concatenated and uploaded to the device once, at construction.
   * ``"auto"`` — the default.  The reference's cost-model autotuner is
     not ported yet, so this is the rule of `blmac_fir_bank`'s fast path:
     ``"specialized"`` for banks of at most `FAST_PATH_MAX` (= 1) filters,
@@ -30,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ..compiler import BlmacProgram, MERGE_DEFAULT, TailSnapshot, compile_bank
-from ..kernels.blmac_fir import (FAST_PATH_MAX, bank_schedule_apply,
-                                 blmac_fir_specialized, frame_signal_batch)
+from ..kernels.blmac_fir import (FAST_PATH_MAX, SpecializedProgram,
+                                 bank_schedule_apply, frame_signal_batch,
+                                 specialized_call)
 from ..kernels.ops import as_device_tensor
 from ..kernels.runtime import DEFAULT_TILE, resolve_device
 
@@ -119,12 +121,13 @@ class FilterBankEngine:
                 if g.sel_layers else None
                 for g in self.bank_schedule.groups
             ]
-            self._schedules = None
+            self._spec = None
         else:
             self.bank_schedule = None
             self.bank_tile = bank_tile
             self._group_ops = None
-            self._schedules = program.pulse_schedules()
+            self._spec = SpecializedProgram(program.pulse_schedules(),
+                                            self.taps, self.tile, self.device)
         self.reset()
 
     # -- streaming API ------------------------------------------------------
@@ -225,19 +228,13 @@ class FilterBankEngine:
         n_pad = -(-n // self.tile) * self.tile
         if n_pad != n:
             buf = F.pad(buf, (0, n_pad - n))
+        frames, _ = frame_signal_batch(buf, self.taps, self.tile)
         if self.mode == "packed":
-            frames, _ = frame_signal_batch(buf, self.taps, self.tile)
             y = bank_schedule_apply(
                 frames, self.bank_schedule, self.taps, self.tile,
                 device_groups=self._group_ops,
             )  # (B, C, n_tiles * tile), caller order restored
-            return y[:, :, :n_out].cpu().numpy()
-        y = torch.stack([
-            torch.stack([
-                blmac_fir_specialized(buf[c], pulses, self.taps,
-                                      self.tile)[:n_out]
-                for c in range(self.channels)
-            ])
-            for pulses in self._schedules
-        ])
-        return y.cpu().numpy()
+        else:  # one launch: (B, C, n_tiles, tile)
+            y = specialized_call(frames, self._spec).reshape(
+                self.n_filters, self.channels, -1)
+        return y[:, :, :n_out].cpu().numpy()

@@ -9,9 +9,10 @@ it:
     over framed signal tiles, the superlayer schedule passed as a small
     runtime table.  Replaces the TPU kernel `_fir_kernel_bank`.
   * **specialized** (`specialized_call`, kernel
-    ``csrc/blmac_specialized.cu``) — one filter's MSB-first CSD pulse
-    list, held as a device table in the `specialized_program` LRU.
-    Replaces `_fir_kernel_specialized`.
+    ``csrc/blmac_specialized.cu``) — the filters' CSD pulse lists as
+    tap-major device tables (`pulse_table`), one launch for every filter
+    and channel of a call; one filter's table is cached in the
+    `specialized_program` LRU.  Replaces `_fir_kernel_specialized`.
 
 The tensor's device chooses: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel (or raises — there is no fallback).  Each
@@ -52,10 +53,14 @@ __all__ = [
     "frame_signal",
     "frame_signal_batch",
     "pulses_from_packed",
+    "pulse_table",
+    "pulse_table_walk",
+    "pulse_tables",
     "pulses_msb_first",
     "reset_launch_counts",
     "schedule_table",
     "specialized_call",
+    "specialized_geometry",
     "specialized_plain",
     "specialized_program",
 ]
@@ -130,7 +135,7 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K2: the pulse-specialized single-filter kernel
+# K2: the pulse-specialized kernel
 # ---------------------------------------------------------------------------
 
 def pulses_msb_first(qcoeffs: np.ndarray) -> tuple[tuple[int, int, int], ...]:
@@ -157,36 +162,128 @@ def pulses_from_packed(packed_row: np.ndarray, taps: int):
     return tuple(out)
 
 
-def pulse_table(pulses, taps: int) -> tuple[np.ndarray, int]:
-    """The specialized kernel's operand: int32 (n_pulses, 4) rows
-    ``(shift_before, j, j_mirror or -1 at the centre, sign)`` and the
-    final shift down to layer 0 — the Horner walk of the reference
-    kernel, one row per pulse."""
+def pulse_table(pulses, taps: int) -> np.ndarray:
+    """One filter's table for the specialized kernel K2, tap-major.
+
+    Layout (int32)::
+
+        [n_steps, (n_j, m_1 .. m_n_j) for j = 0 .. n_steps − 1,
+         n_c, m_1 .. m_n_c]
+
+    the taps below the centre in order, up to the last that carries
+    pulses (``n_steps = 0`` when none does), then the centre tap ``c =
+    taps // 2``; each pulse ``(layer, j, sign)`` (MSB first, as in the
+    pulse tuple) is stored as its multiplier ``m = sign · 2**layer``
+    modulo 2**32.  Every add and shift of the reference's Horner walk is
+    kept, regrouped by tap: the kernel walks the taps in order, folds the
+    sample pair ``u_j[t] = x[t+j] + x[t+taps-1-j]`` once per output where
+    ``n_j > 0``, takes the centre's sample ``x[t+c]`` alone, and adds
+    ``u_j · m`` for each of the tap's pulses — the pulse's shift done as
+    a multiply by its signed power of two, never by the collapsed
+    coefficient.  Int32 arithmetic modulo 2**32 is a commutative ring, so
+    this order gives the reference's bits.
+
+    `pulse_table_walk` is the plain walk of this layout (the kernel's
+    loop, tap by tap, in numpy); `pulse_tables` concatenates several
+    filters' tables behind an offset array."""
     half = taps // 2
-    rows = []
-    layer_of = None
+    by_tap: dict = {}
     for layer, j, sign in pulses:
-        shift = 0 if layer_of is None else layer_of - layer
-        layer_of = layer
-        rows.append((shift, j, -1 if j == half else taps - 1 - j, sign))
-    table = np.asarray(rows, np.int32).reshape(len(rows), 4)
-    return table, (layer_of or 0)
+        if not 0 <= j <= half:
+            raise ValueError(f"tap {j} outside the folded half of {taps}")
+        by_tap.setdefault(int(j), []).append(int(sign) << int(layer))
+    n_steps = max([j + 1 for j in by_tap if j < half], default=0)
+    v = [n_steps]
+    for j in [*range(n_steps), half]:
+        v += [len(by_tap.get(j, ())), *by_tap.get(j, ())]
+    words = np.asarray([m & 0xFFFFFFFF for m in v], np.uint32)
+    return words.view(np.int32)
+
+
+def pulse_tables(schedules, taps: int) -> tuple[np.ndarray, np.ndarray]:
+    """Several filters' `pulse_table`s concatenated: the int32 table and
+    its int32 offsets, filter ``f`` at ``table[offsets[f]:offsets[f + 1]]``
+    (the layout one K2 launch reads for all its filters)."""
+    tabs = [pulse_table(p, taps) for p in schedules]
+    offsets = np.cumsum([0] + [t.size for t in tabs]).astype(np.int32)
+    table = np.concatenate(tabs) if tabs else np.zeros(0, np.int32)
+    return table, offsets
+
+
+def pulse_table_walk(frames, table: np.ndarray, offsets: np.ndarray,
+                     taps: int, tile: int) -> np.ndarray:
+    """Plain walk of `pulse_tables`' layout, in numpy uint32 (which wraps
+    modulo 2**32 as the kernel's registers do): (..., n_tiles,
+    frame_len) int32 frames → (F, ..., n_tiles, tile) int32 — the kernel's
+    loop, tap by tap, fold then one multiply-add per pulse."""
+    x = np.asarray(frames, np.int32).view(np.uint32)
+    words = np.asarray(table, np.int32).view(np.uint32)
+    half = taps // 2
+    out = []
+    for f in range(len(offsets) - 1):
+        t = words[offsets[f]:offsets[f + 1]]
+        acc = np.zeros(x.shape[:-1] + (tile,), np.uint32)
+        p = 1
+        for j in [*range(int(t[0])), half]:
+            n = int(t[p])
+            p += 1
+            if n:
+                u = x[..., j:j + tile]
+                if j != half:
+                    u = u + x[..., taps - 1 - j:taps - 1 - j + tile]
+                for m in t[p:p + n]:
+                    acc += u * m
+                p += n
+        out.append(acc.view(np.int32))
+    return np.stack(out) if out else np.zeros(
+        (0,) + x.shape[:-1] + (tile,), np.int32)
+
+
+# K2's launch geometry (``kOuts`` and the block limit in the .cu source):
+# each thread keeps OUTS_PER_THREAD outputs of one tile in registers, and a
+# block has at most SPECIALIZED_MAX_THREADS threads
+OUTS_PER_THREAD = 16
+SPECIALIZED_MAX_THREADS = 256
+SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
+
+
+def specialized_geometry(tile: int, taps: int, table_len: int):
+    """K2's block for one launch: ``(threads, columns, tab_pad,
+    smem_bytes)``.  Enough warps to cover the tile (at most
+    `SPECIALIZED_MAX_THREADS` threads), each thread `OUTS_PER_THREAD`
+    consecutive columns; the shared memory holds the longest filter table
+    (padded to 4 words) and the ``columns + taps − 1`` samples, one pad
+    word every 32.  Raises ``ValueError`` when that does not fit a block
+    (no fallback)."""
+    warps = min(SPECIALIZED_MAX_THREADS // 32,
+                -(-tile // (32 * OUTS_PER_THREAD)))
+    threads = 32 * warps
+    cols = threads * OUTS_PER_THREAD
+    tab_pad = _pad_to(table_len, 4)
+    n_x = cols + taps - 1  # samples, one pad word every 32 in shared memory
+    smem = 4 * (tab_pad + n_x + n_x // 32 + 1)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the specialized kernel needs {smem} bytes of shared "
+                         f"memory, more than a block's {SMEM_LIMIT}")
+    return threads, cols, tab_pad, smem
 
 
 def specialized_plain(
     frames: torch.Tensor, pulses, taps: int, tile: int
 ) -> torch.Tensor:
-    """Plain version of the specialized kernel: (n_tiles, frame_len)
-    int32 frames → (n_tiles, tile) int32, one vector add per pulse and
-    one shift per layer boundary (adds and shifts only, on any device)."""
+    """Plain version of the specialized kernel for one filter: (...,
+    n_tiles, frame_len) int32 frames → (..., n_tiles, tile) int32, one
+    vector add per pulse and one shift per layer boundary (the
+    reference's Horner walk, adds and shifts only, on any device)."""
     half = taps // 2
     u = {}
     for j in sorted({j for (_, j, _) in pulses}):
         if j == half:
-            u[j] = frames[:, half:half + tile]
+            u[j] = frames[..., half:half + tile]
         else:
-            u[j] = frames[:, j:j + tile] + frames[:, taps - 1 - j:taps - 1 - j + tile]
-    acc = torch.zeros((frames.shape[0], tile), dtype=torch.int32,
+            u[j] = (frames[..., j:j + tile]
+                    + frames[..., taps - 1 - j:taps - 1 - j + tile])
+    acc = torch.zeros(frames.shape[:-1] + (tile,), dtype=torch.int32,
                       device=frames.device)
     layer_of = None
     for layer, j, sign in pulses:  # MSB layer first, grouped by layer
@@ -200,21 +297,35 @@ def specialized_plain(
 
 
 class SpecializedProgram:
-    """One filter's compiled BLMAC program: its pulse tuple and, for a
-    CUDA device, the specialized kernel's pulse table resident there."""
+    """Compiled BLMAC programs of one or more filters for K2: their pulse
+    tuples and, on a CUDA device, their concatenated tables (`pulse_tables`)
+    resident there, so every call is one launch for all filters and
+    channels."""
 
-    def __init__(self, pulses, taps: int, tile: int, device: torch.device):
-        self.pulses = pulses
+    def __init__(self, schedules, taps: int, tile: int, device: torch.device):
+        self.schedules = tuple(schedules)
         self.taps = taps
         self.tile = tile
         self.device = device
-        table, self.final_shift = pulse_table(pulses, taps)
+        table, offsets = pulse_tables(self.schedules, taps)
+        self.table_len = int(np.diff(offsets).max(initial=0))
+        self.geometry = specialized_geometry(tile, taps, self.table_len)
         self.table = _on_device(table, device)
+        self.offsets = _on_device(offsets, device)
+
+    @property
+    def n_filters(self) -> int:
+        return len(self.schedules)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """(T,) samples on this program's device → (T − taps + 1,) int32."""
-        frames, n_out = frame_signal(x.to(torch.int32), self.taps, self.tile)
-        return specialized_call(frames, self).reshape(-1)[:n_out]
+        """(T,) or (C, T) samples on this program's device → (F, T − taps
+        + 1) or (F, C, T − taps + 1) int32."""
+        xb = x.to(torch.int32)
+        frames, n_out = frame_signal_batch(xb[None] if x.ndim == 1 else xb,
+                                           self.taps, self.tile)
+        y = specialized_call(frames, self)
+        y = y.reshape(y.shape[0], y.shape[1], -1)[:, :, :n_out]
+        return y[:, 0] if x.ndim == 1 else y
 
 
 @functools.lru_cache(maxsize=1024)
@@ -224,33 +335,51 @@ def specialized_program(pulses, taps: int, tile: int, device: str):
     LRU-cached on ``(pulses, taps, tile, device)``: reprogramming a filter
     seen before is a dict hit and reuses its device-resident pulse table —
     the software analogue of reloading the FPGA weight memory."""
-    return SpecializedProgram(pulses, taps, tile, torch.device(device))
+    return SpecializedProgram((pulses,), taps, tile, torch.device(device))
 
 
 def specialized_call(frames: torch.Tensor, prog: SpecializedProgram):
-    """Run one `SpecializedProgram` over (n_tiles, frame_len) int32
-    frames → (n_tiles, tile) int32: the plain version for CPU frames, the
-    CUDA kernel for CUDA frames."""
-    _check_frames(frames, 2, prog.taps, prog.tile)
-    if frames.device.type == "cpu":
-        return specialized_plain(frames, prog.pulses, prog.taps, prog.tile)
-    if frames.device.type != "cuda" or frames.device != prog.table.device:
-        raise ValueError(f"frames on {frames.device}, program on "
-                         f"{prog.table.device}")
+    """Run every filter of a `SpecializedProgram` over (C, n_tiles,
+    frame_len) int32 frames → (F, C, n_tiles, tile) int32 (2-D frames:
+    no channel axis in or out): the plain version for CPU frames, one
+    CUDA launch for CUDA frames."""
+    if frames.ndim not in (2, 3):
+        raise ValueError(f"frames must have 2 or 3 dims, got "
+                         f"{tuple(frames.shape)}")
+    _check_frames(frames, frames.ndim, prog.taps, prog.tile)
+    dev = frames.device
+    if dev.type == "cpu":
+        f3 = frames[None] if frames.ndim == 2 else frames
+        y = torch.zeros((0,) + f3.shape[:-1] + (prog.tile,), dtype=torch.int32)
+        if prog.n_filters:
+            y = torch.stack([specialized_plain(f3, p, prog.taps, prog.tile)
+                             for p in prog.schedules])
+        return y[:, 0] if frames.ndim == 2 else y
+    if dev.type != "cuda" or dev != prog.table.device:
+        raise ValueError(f"frames on {dev}, program on {prog.table.device}")
+    lead = frames.shape[:-1]  # ([C,] n_tiles): 2-D frames are one channel
+    out = torch.empty((prog.n_filters,) + lead + (prog.tile,),
+                      dtype=torch.int32, device=dev)
+    if prog.n_filters:
+        threads, _, tab_pad, _ = prog.geometry
+        err = _specialized_library().blmac_specialized_launch(
+            frames.data_ptr(), frames.stride(0) if len(lead) == 2 else 0,
+            frames.stride(-2), prog.table.data_ptr(), prog.offsets.data_ptr(),
+            tab_pad, out.data_ptr(), prog.n_filters,
+            lead[0] if len(lead) == 2 else 1, lead[-1], prog.tile, prog.taps,
+            threads, torch._C._cuda_getCurrentRawStream(dev.index), dev.index,
+        )
+        _raise_on(err, "blmac_specialized_kernel")
+        specialized_call.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _specialized_library():
+    """K2's C library, built and loaded at the first launch."""
     from .build import library
 
-    n_tiles = frames.shape[0]
-    out = torch.empty((n_tiles, prog.tile), dtype=torch.int32,
-                      device=frames.device)
-    with torch.cuda.device(frames.device):
-        err = library("blmac_specialized").blmac_specialized_launch(
-            frames.data_ptr(), frames.stride(0), prog.table.data_ptr(),
-            prog.table.shape[0], prog.final_shift, out.data_ptr(), n_tiles,
-            prog.tile, prog.taps, _stream(frames.device),
-        )
-    _raise_on(err, "blmac_specialized_kernel")
-    specialized_call.launches += 1
-    return out
+    return library("blmac_specialized")
 
 
 specialized_call.launches = 0
@@ -259,10 +388,11 @@ specialized_call.launches = 0
 def blmac_fir_specialized(
     x: torch.Tensor, pulses, taps: int, tile: int = 1024
 ) -> torch.Tensor:
-    """Apply one pulse-specialized filter to (T,) samples on ``x``'s
-    device; the program is built at most once per distinct
-    (pulse schedule, taps, tile, device)."""
-    return specialized_program(tuple(pulses), taps, tile, str(x.device))(x)
+    """Apply one pulse-specialized filter to (T,) or (C, T) samples on
+    ``x``'s device → (T − taps + 1,) or (C, T − taps + 1) int32, in one
+    launch; the program is built at most once per distinct (pulse
+    schedule, taps, tile, device)."""
+    return specialized_program(tuple(pulses), taps, tile, str(x.device))(x)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -464,16 +594,11 @@ def blmac_fir_bank(
     n_filters = packed.shape[0]
     xi = x.to(torch.int32)
     if fast_path and schedule is None and n_filters <= FAST_PATH_MAX:
-        n_out = xi.shape[-1] - taps + 1
-        y = torch.stack([
-            torch.stack([
-                blmac_fir_specialized(
-                    xi[c], pulses_from_packed(packed[b], taps), taps, tile
-                )
-                for c in range(xi.shape[0])
-            ])
+        y = torch.stack([  # one launch per filter, all channels
+            blmac_fir_specialized(xi, pulses_from_packed(packed[b], taps),
+                                  taps, tile)
             for b in range(n_filters)
-        ])[:, :, :n_out]
+        ])
         return y[:, 0, :] if squeeze else y
     if schedule is None:
         schedule = plan_bank_schedule(packed, bank_tile, merge)

@@ -47,10 +47,11 @@ SOURCES = {
         "blmac_bank_smem_bytes": [_I],  # taps
     }),
     "blmac_specialized": ("blmac_specialized.cu", {
-        # frames, stride_tile, pulses, n_pulses, final_shift, out, n_tiles,
-        # tile, taps, stream
-        "blmac_specialized_launch": [_P, _L, _P, _I, _I, _P, _I, _I, _I, _P],
-        "blmac_specialized_smem_bytes": [_I],  # taps
+        # frames, stride_c, stride_tile, table, offsets, tab_pad, out,
+        # n_filters, n_chan, n_tiles, tile, taps, threads, stream, device
+        "blmac_specialized_launch": [_P, _L, _L, _P, _P, _I, _P, _I, _I, _I,
+                                     _I, _I, _I, _P, _I],
+        "blmac_specialized_smem_bytes": [_I, _I, _I],  # tab_pad, threads, taps
     }),
     "blmac_pulse_matmul": ("blmac_pulse_matmul.cu", {
         # x, codes, group_exp, workspace, counters, out, m, n, k, planes,
@@ -80,7 +81,8 @@ class BuildInfo:
         """Registers, static shared memory (bytes) and spill bytes per
         kernel, parsed from the ``ptxas -v`` report.  The FIR kernels
         take only dynamic shared memory, sized per launch
-        (``*_smem_bytes(taps)`` in each library), and so does the pulse
+        (``blmac_bank_smem_bytes(taps)``, ``blmac_specialized_smem_bytes(
+        tab_pad, threads, taps)``), and so does the pulse
         matmul (``blmac_pulse_matmul_smem_bytes(bm, planes, group,
         stages)``)."""
         out: dict = {}

@@ -28,12 +28,14 @@ from repro_torch.kernels import (blmac_fir, blmac_fir_bank, pulse_dequantize,
 from repro_torch.kernels import blmac_matmul as bmm
 from repro_torch.kernels.blmac_matmul import pulse_matmul
 from repro_torch.kernels.ref import pulse_decode_ref, pulse_matmul_ref
-from repro_torch.kernels.blmac_fir import (bank_call, bank_call_plain,
+from repro_torch.kernels.blmac_fir import (SpecializedProgram, bank_call,
+                                           bank_call_plain,
                                            bank_schedule_apply,
                                            frame_signal, frame_signal_batch,
                                            pulses_from_packed,
                                            reset_launch_counts,
                                            specialized_call,
+                                           specialized_geometry,
                                            specialized_plain,
                                            specialized_program)
 
@@ -145,25 +147,141 @@ def test_bank_kernel_wraps_modulo_2_32(cuda):
     assert np.array_equal(got.cpu().numpy()[:, :, :n_out], oracle)
 
 
-@pytest.mark.parametrize("taps,tile", [(7, 128), (63, 512), (127, 1024),
-                                       (255, 512)])
-def test_specialized_kernel_matches_plain(cuda, taps, tile):
-    q = _random_bank(5, taps, taps, density=0.5)
-    q[0] = 0  # an empty pulse list still launches and writes zeros
+def _samples(n, kind, seed, channels=None):
+    """Seeded int32 samples: 8-bit, ±2**20 or the whole int32 range
+    (the last two wrap modulo 2**32 in every filter output)."""
+    rng = np.random.default_rng(seed)
+    shape = n if channels is None else (channels, n)
+    lim = {"8bit": 1 << 7, "20bit": 1 << 20, "int32": 1 << 31}[kind]
+    return torch.as_tensor(rng.integers(-lim, lim, shape), dtype=torch.int32)
+
+
+def _special_bank(taps, seed):
+    """Filters of different pulse counts: dense, sparse, empty, centre tap
+    only, all pulses in one layer, and the low layers empty."""
+    half = taps // 2
+    q = _random_bank(6, taps, seed, density=0.5)
+    q[1] = _random_bank(1, taps, seed + 1)[0]
+    q[2] = 0
+    q[3] = 0
+    q[3, half] = -1_000_003
+    q[4] = np.where(q[1] > 0, 64, -64)
+    q[5] = q[5] // 8 * 8
+    return q
+
+
+@pytest.mark.parametrize("samples", ["8bit", "20bit", "int32"])
+@pytest.mark.parametrize("taps", [7, 63, 127, 255])
+def test_specialized_kernel_matches_plain(cuda, taps, samples):
+    q = _special_bank(taps, taps)
     prog = compile_bank(q)
-    x = torch.as_tensor(np.random.default_rng(taps).integers(-128, 128, 3000),
-                        dtype=torch.int32)
-    frames, _ = frame_signal(x, taps, tile)
-    for b in range(prog.n_filters):
-        pulses = pulses_from_packed(prog.packed[b], taps)
-        want = specialized_plain(frames, pulses, taps, tile)
-        plain = specialized_plain(frames.to(cuda), pulses, taps, tile)
-        got = specialized_call(frames.to(cuda),
-                               specialized_program(pulses, taps, tile,
-                                                   str(cuda)))
+    x = _samples(3000, samples, taps)
+    for tile in (128, 512, 1024):
+        frames, _ = frame_signal(x, taps, tile)
+        for b in range(prog.n_filters):
+            pulses = pulses_from_packed(prog.packed[b], taps)
+            want = specialized_plain(frames, pulses, taps, tile)
+            plain = specialized_plain(frames.to(cuda), pulses, taps, tile)
+            got = specialized_call(frames.to(cuda),
+                                   specialized_program(pulses, taps, tile,
+                                                       str(cuda)))
+            torch.cuda.synchronize()
+            assert torch.equal(plain.cpu(), want)
+            assert got.shape == (1,) + want.shape
+            assert torch.equal(got[0].cpu(), want), (b, tile)
+
+
+@pytest.mark.parametrize("samples", ["8bit", "int32"])
+@pytest.mark.parametrize("taps,tile", [(63, 512), (255, 1024)])
+def test_specialized_kernel_many_filters_and_channels(cuda, taps, tile,
+                                                      samples):
+    """Every filter of a bank over every channel in one launch, the
+    frames an overlapping view of the signal on the card, the last tile
+    ragged; against the plain version and the numpy oracle."""
+    q = _special_bank(taps, taps + 3)
+    scheds = compile_bank(q).pulse_schedules()
+    x = _samples(5 * tile + 77, samples, taps, channels=3)
+    frames, n_out = frame_signal_batch(x.to(cuda), taps, tile)
+    prog = SpecializedProgram(scheds, taps, tile, cuda)
+    reset_launch_counts()
+    got = specialized_call(frames, prog)
+    torch.cuda.synchronize()
+    assert specialized_call.launches == 1
+    cpu_frames, _ = frame_signal_batch(x, taps, tile)
+    want = torch.stack([specialized_plain(cpu_frames, p, taps, tile)
+                        for p in scheds])
+    assert torch.equal(got.cpu(), want)
+    oracle = fir_bit_layers_batch(x.numpy().astype(np.int64), q)
+    assert np.array_equal(got.cpu().reshape(len(q), 3, -1)[:, :, :n_out]
+                          .numpy(), oracle.astype(np.int32))
+
+
+def test_specialized_kernel_reads_strided_frames(cuda):
+    """Views with other strides: every other tile, every other channel, a
+    contiguous copy (stride frame_len), one channel's 2-D frames, and
+    frames longer than tile + taps − 1."""
+    taps, tile = 127, 512
+    q = _special_bank(taps, 5)
+    scheds = compile_bank(q).pulse_schedules()
+    prog = SpecializedProgram(scheds, taps, tile, cuda)
+    x = _samples(7 * tile + 300, "20bit", 6, channels=4).to(cuda)
+    frames, _ = frame_signal_batch(x, taps, tile)
+    # frames 1.5 tiles apart, 6 samples longer than tile + taps − 1
+    apart = torch.nn.functional.pad(x, (0, 2 * tile)).unfold(
+        -1, tile + taps + 5, 3 * tile // 2)
+    views = [frames[:, ::2], frames[::2], frames.contiguous(), frames[2],
+             apart]
+    for v in views:
+        got = specialized_call(v, prog)
+        want = torch.stack([specialized_plain(v.cpu(), p, taps, tile)
+                            for p in scheds])
         torch.cuda.synchronize()
-        assert torch.equal(plain.cpu(), want)
-        assert torch.equal(got.cpu(), want), b
+        assert torch.equal(got.cpu(), want), tuple(v.stride())
+
+
+def test_specialized_launches_once_a_call(cuda):
+    """`blmac_fir`, `blmac_fir_bank` with one filter over 3 channels, and
+    every push of a specialized engine (8 filters × 2 channels) and of a
+    one-filter auto engine make exactly one K2 launch."""
+    q = _sweep_rows(63, 8, seed=11)
+    x = np.random.default_rng(12).integers(-128, 128, (3, 5000))
+    reset_launch_counts()
+    y = blmac_fir(x[0], q[0])
+    assert specialized_call.launches == 1
+    assert np.array_equal(y.cpu().numpy(), fir_bit_layers_batch(x[0], q[0])[0, 0])
+    reset_launch_counts()
+    y = blmac_fir_bank(x, q[:1])
+    assert specialized_call.launches == 1 and bank_call.launches == 0
+    assert np.array_equal(y.cpu().numpy(), fir_bit_layers_batch(x, q[:1]))
+    for bank, mode in ((q, "specialized"), (q[:1], "auto")):
+        eng = FilterBankEngine(bank, channels=2, mode=mode)
+        assert eng.mode == "specialized"
+        outs = []
+        for a, b in ((0, 40), (40, 1000), (1000, 1001), (1001, 5000)):
+            reset_launch_counts()
+            outs.append(eng.push(x[:2, a:b]))
+            assert specialized_call.launches == (1 if b > 62 else 0), (a, b)
+        assert np.array_equal(np.concatenate(outs, 2),
+                              fir_bit_layers_batch(x[:2], bank))
+
+
+def test_specialized_kernel_rejects_mixed_devices(cuda):
+    pulses = pulses_from_packed(compile_bank(_random_bank(1, 15, 13)).packed[0],
+                                15)
+    frames, _ = frame_signal(torch.zeros(300, dtype=torch.int32), 15, 128)
+    on_cpu = specialized_program(pulses, 15, 128, "cpu")
+    with pytest.raises(ValueError):
+        specialized_call(frames.to(cuda), on_cpu)
+
+
+def test_specialized_smem_matches_the_host_geometry(cuda):
+    from repro_torch.kernels.build import library
+
+    lib = library("blmac_specialized")
+    for tile, taps, table_len in ((128, 7, 3), (1024, 127, 400),
+                                  (4096, 255, 1500)):
+        threads, _, tab_pad, smem = specialized_geometry(tile, taps, table_len)
+        assert lib.blmac_specialized_smem_bytes(tab_pad, threads, taps) == smem
 
 
 def test_entry_points_on_the_card(cuda):
