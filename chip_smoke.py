@@ -11,12 +11,14 @@ before it and read just after:
   * serve       — `FilterBankEngine(mode="packed")` over the 256-filter
                   63-tap spread-lowpass bank, 1 channel, 32 pushes of
                   4,096 samples (the reference's ``--fir-bank`` serving
-                  defaults); bit-exact against the plain CPU path and the
-                  numpy oracle;
+                  defaults); one K1 launch a push; bit-exact against the
+                  plain CPU path and the numpy oracle;
   * sweep       — `blmac_fir_bank` over the paper's 9,900-filter 127-tap
                   sweep bank (§3.1), 16-bit po2 quantization, 1 channel ×
-                  16,384 samples; bit-exact against the plain version in
-                  full and the numpy oracle on 64 sampled rows;
+                  16,384 samples; one K1 launch, the (B, C, n_out) result
+                  written in the caller's order; bit-exact against the
+                  plain version in full and the numpy oracle on 64
+                  sampled rows;
   * specialized — `blmac_fir` on one 127-tap filter over 2**20 samples,
                   `FilterBankEngine(mode="specialized")` on 8 filters × 2
                   channels and the one-filter `FilterBankEngine` (auto mode)
@@ -38,13 +40,17 @@ before it and read just after:
                   matrix, exact at x = I and within 1e-5 of the plain
                   version at both M; two launches of ``down`` at each M
                   compared with `torch.equal`; decode and prefill steps
-                  (the 7 calls) under `torch.profiler`: count and device
-                  time per kernel (one K3 kernel a call, nothing else) and,
-                  from the same trace, the device's idle share of each
-                  profiled step's span; and each of the 14 launches with
-                  its plan (tile, blocks an SM, stages, splits of K,
-                  blocks), CUDA-event time, device time, library time and
-                  bound.
+                  (the 7 calls) under `torch.profiler`: count per kernel
+                  (one K3 kernel a call, nothing else) and, from the same
+                  trace, the device's idle share of each profiled step's
+                  span; and each of the 14 launches with its plan (tile,
+                  blocks an SM, stages, splits of K, blocks), CUDA-event
+                  time, device time (events around launches queued behind
+                  a GPU spin), library time and bound.
+
+Between them, with the serve leg's engine: its throughput, and one push
+broken down by CUDA events (the chunk's upload, cat/pad/framing, the K1
+launch, the device-to-host copy) against the push's host clock.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the main path's shapes (tolerance 0 for the FIR kernels, integer
@@ -52,7 +58,9 @@ arithmetic modulo 2**32; the reference's 1e-5 relative bound for the
 pulse matmul) and timed with CUDA events beside its plain version, one
 PyTorch library call computing the same function (`F.conv1d` in float64,
 exact here; a float32 `torch.matmul` over the decoded weights) and its
-bound on an H100 SXM.  Prints one JSON object per phase, the
+bound on an H100 SXM (K1's by its output bytes or its adds at the int8
+tensor-core rate, with the CUDA-core bounds it had before beside it); the
+whole sweep call is timed too.  Prints one JSON object per phase, the
 ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -82,6 +90,9 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # (If a measured K2 ever reads below this, the rate is too low: raise it
 # here and say why.)
 INT32_ADDS_PER_S = 2 * INT32_OPS_PER_S
+# dense int8 tensor-core rate of the H100 SXM, 1,979 TOP/s (data sheet): the
+# bank kernel's bound by operations (its adds, done as int8 products)
+INT8_TC_OPS_PER_S = 1979e12
 # dense TF32 tensor-core rate of the H100 SXM, 494.7 TFLOP/s (data sheet),
 # over 3: a 3xTF32 split, the cheapest tensor-core route that keeps float32
 # accuracy — the pulse matmul's bound by operations
@@ -183,6 +194,111 @@ def max_abs_diff(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def plain_groups(frames, sched, taps: int, tile: int) -> list:
+    """The bank kernel's plain version on the frames' device, group by
+    group in the schedule's padded order: (rows, C, n_tiles, tile) each,
+    zeros for an all-zero group."""
+    import numpy as np
+    import torch
+
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+    out = []
+    for g in sched.groups:
+        op = torch.tensor(g.packed.view(np.int32), device=frames.device)
+        out.append(bf.bank_call_plain(frames, op, taps, g.schedule,
+                                      g.tail_shift, tile) if g.sel_layers
+                   else torch.zeros((op.shape[0],) + tuple(frames.shape[:2])
+                                    + (tile,), dtype=torch.int32,
+                                    device=frames.device))
+    return out
+
+
+def bank_plain(frames, sched, taps: int, tile: int):
+    """`plain_groups` reordered as the reference does (``y[inv]``): (B, C,
+    n_tiles · tile) int32 in the caller's filter order."""
+    import torch
+
+    y = torch.cat(plain_groups(frames, sched, taps, tile))
+    y = y.reshape(y.shape[0], frames.shape[0], -1)
+    return y.index_select(0, torch.as_tensor(sched.inv, device=frames.device))
+
+
+def serve_push_breakdown(eng, chunks, bf) -> dict:
+    """Where a packed engine push goes: the steps of `FilterBankEngine.push`
+    (the chunk's copy to the card, cat/tail/pad/framing, the one K1 launch,
+    the output's copy to the host), with CUDA events and the host's clock
+    after each, over ``chunks`` (the first primes the tail); the median of
+    each segment against the whole push by the host's clock, and the real
+    push of the same chunks timed alone.  Fails the run when the steps'
+    output differs from the engine's."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.runtime import as_device_tensor
+
+    names = ("h2d", "cat_pad_frame", "k1", "d2h")
+    eng.reset()
+    want = [eng.push(c) for c in chunks]
+    push_ms = []
+    eng.reset()
+    for c in chunks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.push(c)
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+    eng.reset()
+    ev_ms = {n: [] for n in names}
+    host_ms = {n: [] for n in names}
+    wall_ms = []
+    tail = eng._tail
+    for k, chunk in enumerate(chunks):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        t = [time.perf_counter()]
+        ev[0].record()
+        c = as_device_tensor(chunk, eng.device).to(torch.int32)
+        ev[1].record()
+        t.append(time.perf_counter())
+        buf = torch.cat([tail, c], 1)
+        n = buf.shape[1]
+        tail = buf[:, n - (eng.taps - 1):].clone()
+        n_out = n - eng.taps + 1
+        n_pad = -(-n // eng.tile) * eng.tile
+        frames, _ = bf.frame_signal_batch(F.pad(buf, (0, n_pad - n)),
+                                          eng.taps, eng.tile)
+        ev[2].record()
+        t.append(time.perf_counter())
+        y = bf.bank_schedule_apply(frames, eng.bank_schedule, eng.taps,
+                                   eng.tile, n_out, terms=eng._terms)
+        ev[3].record()
+        t.append(time.perf_counter())
+        host = y.cpu().numpy()
+        ev[4].record()
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        check(np.array_equal(host, want[k]),
+              f"push {k}: the steps differ from the engine's push")
+        if k == 0:
+            continue  # primes the tail: no history yet
+        wall_ms.append((t[-1] - t[0]) * 1e3)
+        for i, name in enumerate(names):
+            ev_ms[name].append(ev[i].elapsed_time(ev[i + 1]))
+            host_ms[name].append((t[i + 1] - t[i]) * 1e3)
+    med = statistics.median
+    wall = med(wall_ms)
+    return {"pushes_timed": len(wall_ms), "chunk": chunks[0].shape[-1],
+            "filters": eng.n_filters, "push_wall_ms_median": wall,
+            "engine_push_ms_median": med(push_ms[1:]),
+            "events_ms_median": {n: med(v) for n, v in ev_ms.items()},
+            "host_ms_median": {n: med(v) for n, v in host_ms.items()},
+            "events_share_of_wall": {n: med(v) / wall
+                                     for n, v in ev_ms.items()},
+            "output_bytes": int(want[-1].nbytes)}
+
+
 def bound(ops: float, nbytes: float,
           ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
     """Least time on an H100 SXM for ``ops`` operations at ``ops_per_s``
@@ -231,25 +347,6 @@ def edge_weights():
     w[:, -1] = 2.0 ** -130
     w[:32, -2] = 0.0
     return w
-
-
-def cuda_kernels(fn) -> list:
-    """The CUDA kernels that one call of ``fn`` runs, under `torch.profiler`
-    (CPU and CUDA activities), as (start µs, end µs, name) in order on the
-    device.  Fails the run when the profiler sees none."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(bool(spans), "the profiler saw no CUDA kernel")
-    return spans
 
 
 def profile_step(fn, launches: int, steps: int = 5,
@@ -317,25 +414,6 @@ def profile_step(fn, launches: int, steps: int = 5,
             "device_busy_us_median": statistics.median(
                 r["device_busy_us"] for r in per_step),
             "kernels": by_name}
-
-
-def device_us(fns, reps: int = 5) -> list:
-    """Mean device time in µs of the one kernel each of ``fns`` launches,
-    from `torch.profiler` over ``reps`` calls of each (after one warm-up
-    call, which also sizes the split-K workspace)."""
-    for fn in fns:
-        fn()
-
-    def run():
-        for fn in fns:
-            for _ in range(reps):
-                fn()
-
-    spans = cuda_kernels(run)
-    check(len(spans) == reps * len(fns),
-          f"{len(spans)} kernels for {reps * len(fns)} launches")
-    return [sum(e - s for s, e, _ in spans[i * reps:(i + 1) * reps]) / reps
-            for i in range(len(fns))]
 
 
 def subnormal_weights():
@@ -540,9 +618,10 @@ def pulse_matmul_leg(dev, smi: str) -> dict:
               f"a step at M={m} ran {k3} K3 kernels and {extra}")
         profiles[m] = prof
 
-    # -- device time of each launch -----------------------------------------
-    for key, us in zip(calls, device_us(list(calls.values()))):
-        rows[key]["device_us"] = us
+    # -- device time of each launch: CUDA events around launches queued
+    # behind a spin (the profiler once missed a kernel of 70) -------------
+    for key, fn in calls.items():
+        rows[key]["device_us"] = queued_us(fn)
     sums = {m: {k: sum(rows[f"{name}@{m}"][k] for name in LAYER)
                 for k in ("ms", "library_ms", "bound_ms", "device_us")}
             for m in (DECODE_M, PREFILL_M)}
@@ -615,7 +694,12 @@ def main() -> int:
           "libraries": {n: {"nvcc_s": i.seconds, "cached": i.cached,
                             "kernels": i.resources()}
                         for n, i in infos.items()},
-          "dynamic_smem_bytes_by_taps": dynamic_smem})
+          "dynamic_smem_bytes_by_taps": dynamic_smem,
+          "blmac_bank_ptxas": [ln.strip() for ln in
+                               infos["blmac_bank"].ptxas.splitlines()
+                               if "registers" in ln or "spill" in ln
+                               or "Compiling entry" in ln
+                               or "Performance Loss" in ln]})
 
     rng = np.random.default_rng(0)
 
@@ -631,8 +715,10 @@ def main() -> int:
     t0 = time.perf_counter()
     outs = [eng.push(c) for c in chunks]
     serve_s = time.perf_counter() - t0
-    serve_launches = bf.bank_call.launches
-    check(serve_launches > 0, "serve leg never launched the bank kernel")
+    serve_launches = bf.bank_apply.launches
+    check(serve_launches == SERVE_CHUNKS,
+          f"serve leg: {serve_launches} bank launches for {SERVE_CHUNKS} "
+          f"pushes, want one a push")
     cpu_eng = FilterBankEngine(serve_prog, channels=1, mode="packed",
                                device="cpu")
     cpu_outs = [cpu_eng.push(c) for c in chunks]
@@ -657,31 +743,16 @@ def main() -> int:
     bf.reset_launch_counts()
     y_sweep = blmac_fir_bank(x_sweep, sweep_q)
     torch.cuda.synchronize()
-    sweep_launches = bf.bank_call.launches
-    check(sweep_launches > 0, "sweep leg never launched the bank kernel")
+    sweep_launches = bf.bank_apply.launches
+    check(sweep_launches == 1,
+          f"blmac_fir_bank made {sweep_launches} bank launches, want 1")
     sched = sweep_prog.schedule()  # the plan blmac_fir_bank used
     frames, n_sweep = bf.frame_signal_batch(x_sweep, SWEEP_TAPS, OPS_TILE)
-    # plain version over the same groups, assembled like the kernel path
-    plain_parts, diffs = [], []
-    for g in sched.groups:
-        rows = g.packed.shape[0]
-        if not g.sel_layers:
-            plain_parts.append(torch.zeros((rows, 1, frames.shape[1], OPS_TILE),
-                                           dtype=torch.int32, device=dev))
-            continue
-        op = torch.tensor(g.packed.view(np.int32), device=dev)
-        plain = bf.bank_call_plain(frames, op, SWEEP_TAPS, g.schedule,
-                                   g.tail_shift, OPS_TILE)
-        kern = bf.bank_call(frames, op, SWEEP_TAPS, g.schedule, g.tail_shift,
-                            OPS_TILE)
-        diffs.append(max_abs_diff(kern, plain))
-        plain_parts.append(plain)
-        del kern
-    y_plain = torch.cat(plain_parts).reshape(-1, 1, frames.shape[1] * OPS_TILE)
-    y_plain = y_plain.index_select(
-        0, torch.as_tensor(sched.inv, device=dev))[:, :, :n_sweep]
-    del plain_parts
-    sweep_diff = max(diffs + [max_abs_diff(y_sweep, y_plain)])
+    check(tuple(y_sweep.shape) == (len(sweep_q), 1, n_sweep)
+          and y_sweep.stride(2) == 1, "sweep output is not (B, C, n_out)")
+    # the plain version per group, reordered and cut like the reference
+    y_plain = bank_plain(frames, sched, SWEEP_TAPS, OPS_TILE)[:, :, :n_sweep]
+    sweep_diff = max_abs_diff(y_sweep, y_plain)
     check(sweep_diff == 0, f"bank kernel differs from plain by {sweep_diff}")
     del y_plain
     rows = np.sort(rng.choice(len(sweep_q), SWEEP_CHECK_ROWS, replace=False))
@@ -772,30 +843,41 @@ def main() -> int:
                        "table_words": sprog.table_len, "smem_bytes": k2_smem},
           "ptxas": k2_resources})
 
-    # -- kernel timings at the main path's shapes -----------------------------
+    # -- K1 at the main path's shapes: the sweep call and one serve push ----
+    # K1's bound: the bytes (samples in, the int32 output out, once each)
+    # over HBM, or its adds (one per pulse and per fold an output, as the
+    # CUDA-core bound counted them) over the int8 tensor-core rate; the
+    # CUDA-core bounds of the earlier design are kept beside it
     half = SWEEP_TAPS // 2
-    live = [g for g in sched.groups if g.sel_layers]
-    ops_k1 = [torch.tensor(g.packed.view(np.int32), device=dev) for g in live]
-    out_k1 = torch.empty((max(g.packed.shape[0] for g in live), 1,
-                          frames.shape[1], OPS_TILE), dtype=torch.int32,
-                         device=dev)
+    terms_k1 = bf.bank_terms(sched, SWEEP_TAPS, dev)  # cached by the leg
+    out_k1 = bf.bank_output(len(sweep_q), 1, n_sweep, dev)
 
     def k1():
-        for g, op in zip(live, ops_k1):
-            bf.bank_call(frames, op, SWEEP_TAPS, g.schedule, g.tail_shift,
-                         OPS_TILE, out=out_k1[:g.packed.shape[0]])
-
-    def k1_plain():
-        for g, op in zip(live, ops_k1):
-            bf.bank_call_plain(frames, op, SWEEP_TAPS, g.schedule,
-                               g.tail_shift, OPS_TILE)
+        bf.bank_apply(frames, terms_k1, OPS_TILE, n_sweep, out=out_k1)
 
     k1_ops = (int(sweep_prog.pulse_counts.sum()) + half) * n_sweep
     k1_bytes = 4 * (SWEEP_SAMPLES + len(sweep_q) * n_sweep)
-    k1_bound, k1_by = bound(k1_ops, k1_bytes)
+    k1_bound, k1_by = bound(k1_ops, k1_bytes, INT8_TC_OPS_PER_S)
     k1_ms = cuda_ms(k1)
-    k1_plain_ms = cuda_ms(k1_plain)
+    k1_device_us = queued_us(k1, reps=10)
+    k1_plain_ms = cuda_ms(lambda: plain_groups(frames, sched, SWEEP_TAPS,
+                                               OPS_TILE))
     k1_lib_ms = conv1d_ms(x_sweep, sweep_q, n_sweep)
+    # the whole call by events, its tables cached: through the ops entry
+    # point (which looks the program up by a digest of the bank), and
+    # through the kernel module with the schedule in hand
+    bf.reset_launch_counts()
+    ops_call_ms = cuda_ms(lambda: blmac_fir_bank(x_sweep, sweep_q))
+    ops_calls = bf.bank_apply.launches
+    bf.reset_launch_counts()
+    module_call_ms = cuda_ms(lambda: bf.blmac_fir_bank(
+        x_sweep, sweep_prog.packed, SWEEP_TAPS, OPS_TILE, fast_path=False,
+        schedule=sched))
+    module_calls = bf.bank_apply.launches
+    sweep_call = {"ops_blmac_fir_bank_ms": ops_call_ms,
+                  "module_blmac_fir_bank_ms": module_call_ms,
+                  "launches_per_call": sweep_launches,
+                  "calls_timed": {"ops": ops_calls, "module": module_calls}}
 
     # serve shape: one push of the engine (32 such pushes per leg)
     sbuf = torch.as_tensor(stream[:, :SERVE_CHUNK + SERVE_TAPS - 1],
@@ -805,37 +887,33 @@ def main() -> int:
     sframes_b, _ = bf.frame_signal_batch(
         torch.nn.functional.pad(sbuf, (0, spad - sbuf.shape[1])),
         SERVE_TAPS, eng.tile)
-    sgroups = [(g, op) for g, op in zip(eng.bank_schedule.groups,
-                                        eng._group_ops) if g.sel_layers]
+    s_out = bf.bank_output(SERVE_FILTERS, 1, n_push, dev)
 
     def k1_serve():
-        for g, op in sgroups:
-            bf.bank_call(sframes_b, op, SERVE_TAPS, g.schedule, g.tail_shift,
-                         eng.tile)
+        bf.bank_apply(sframes_b, eng._terms, eng.tile, n_push, out=s_out)
 
-    def k1_serve_plain():
-        for g, op in sgroups:
-            bf.bank_call_plain(sframes_b, op, SERVE_TAPS, g.schedule,
-                               g.tail_shift, eng.tile)
-
-    serve_diff = max(max_abs_diff(
-        bf.bank_call(sframes_b, op, SERVE_TAPS, g.schedule, g.tail_shift,
-                     eng.tile),
-        bf.bank_call_plain(sframes_b, op, SERVE_TAPS, g.schedule,
-                           g.tail_shift, eng.tile)) for g, op in sgroups)
-    check(serve_diff == 0,
-          "bank kernel differs at the serve shape")
+    serve_diff = max_abs_diff(
+        bf.bank_apply(sframes_b, eng._terms, eng.tile, n_push),
+        bank_plain(sframes_b, eng.bank_schedule, SERVE_TAPS,
+                   eng.tile)[:, :, :n_push])
+    check(serve_diff == 0, "bank kernel differs at the serve shape")
     s_ops = (int(serve_prog.pulse_counts.sum()) + SERVE_TAPS // 2) * n_push
     s_bytes = 4 * (sbuf.shape[1] + SERVE_FILTERS * n_push)
-    s_bound, s_by = bound(s_ops, s_bytes)
+    s_bound, s_by = bound(s_ops, s_bytes, INT8_TC_OPS_PER_S)
+    s_device_us = queued_us(k1_serve)
     serve_shape = {
         "shape": f"{SERVE_FILTERS} filters x {SERVE_TAPS} taps x 1 channel x "
                  f"{sbuf.shape[1]} samples (one push), tile {eng.tile}",
-        "max_abs_err": serve_diff, "ms": cuda_ms(k1_serve),
-        "plain_ms": cuda_ms(k1_serve_plain), "bound_ms": s_bound,
-        "bound_by": s_by,
+        "max_abs_err": serve_diff, "ms": s_device_us / 1e3,
+        "events_ms_back_to_back": cuda_ms(k1_serve),
+        "device_us": s_device_us,
+        "plain_ms": cuda_ms(lambda: plain_groups(
+            sframes_b, eng.bank_schedule, SERVE_TAPS, eng.tile)),
+        "bound_ms": s_bound, "bound_by": s_by,
+        "cuda_core_bound_ms": s_ops / INT32_OPS_PER_S * 1e3,
+        "cuda_core_iadd3_bound_ms": s_ops / INT32_ADDS_PER_S * 1e3,
         "library_ms": conv1d_ms(sbuf[0], serve_q, n_push),
-        "ops": s_ops, "bytes": s_bytes,
+        "ops": s_ops, "bytes": s_bytes, "launches_per_push": 1,
     }
 
     # K2's adds: one per pulse and one per fold (a tap other than the
@@ -860,11 +938,18 @@ def main() -> int:
          "launches_by_leg": {"serve": serve_launches, "sweep": sweep_launches},
          "shape": f"{len(sweep_q)} filters x {SWEEP_TAPS} taps x 1 channel x "
                   f"{SWEEP_SAMPLES} samples, tile {OPS_TILE}, "
-                  f"{len(live)} launches",
+                  f"{len(sched.groups)} groups in 1 launch",
          "max_abs_err": sweep_diff, "max_abs_diff": sweep_diff,
-         "ms": k1_ms, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib_ms,
-         "ops": k1_ops, "bytes": k1_bytes, "serve_shape": serve_shape},
+         "ms": k1_ms, "kernel_ms": k1_ms, "device_us": k1_device_us,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+         "bound_share": k1_bound / k1_ms,
+         "cuda_core_bound_ms": k1_ops / INT32_OPS_PER_S * 1e3,
+         "cuda_core_iadd3_bound_ms": k1_ops / INT32_ADDS_PER_S * 1e3,
+         "library_ms": k1_lib_ms, "ops": k1_ops, "bytes": k1_bytes,
+         "terms": {"row_tiles": terms_k1.n_row_tiles,
+                   "terms_by_group": terms_k1.groups[:, 1].tolist(),
+                   "k": terms_k1.k},
+         "sweep_call": sweep_call, "serve_shape": serve_shape},
         {"name": "blmac_specialized_kernel", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/blmac_specialized.cu",
          "replaces": "src/repro/kernels/blmac_fir.py:112",
@@ -889,6 +974,13 @@ def main() -> int:
     emit({"phase": "engine_throughput", "filters": SERVE_FILTERS,
           "pushes": SERVE_CHUNKS, "wall_s": dt,
           "filter_samples_per_s": SERVE_FILTERS * n_done / dt,
+          "device": kind, "nvidia_smi": smi})
+    bf.reset_launch_counts()
+    breakdown = serve_push_breakdown(eng, chunks, bf)
+    check(bf.bank_apply.launches == 3 * SERVE_CHUNKS,
+          f"serve breakdown: {bf.bank_apply.launches} bank launches for "
+          f"{3 * SERVE_CHUNKS} pushes")
+    emit({"phase": "serve_push_breakdown", **breakdown,
           "device": kind, "nvidia_smi": smi})
 
     kernels.append(pulse_matmul_leg(dev, smi))

@@ -3,8 +3,8 @@
 The port's copy of `repro.compiler.schedule`, unchanged in behaviour:
 `plan_bank_schedule` turns a packed-trit bank into a `BankSchedule` — the
 occupancy-sorted filter permutation plus per-tile-group *superlayer*
-programs that the bank kernel (`repro_torch/kernels/csrc/blmac_bank.cu`)
-reads as a small runtime table.  The tests hold every field of the plan
+programs, from which `repro_torch.kernels.blmac_fir.bank_terms` builds
+the bank kernel's tables (`repro_torch/kernels/csrc/blmac_bank.cu`).  The tests hold every field of the plan
 equal to the reference's, so both packages schedule a bank identically.
 """
 from __future__ import annotations

@@ -10,8 +10,9 @@ Modes:
 
   * ``"packed"`` (alias ``"scheduled"``) — the scheduled bank kernel: the
     filters sorted into occupancy-homogeneous bank tiles at construction
-    (`BlmacProgram.schedule`), one launch per tile group with populated
-    layers, each group's packed operand uploaded to the device once.
+    (`BlmacProgram.schedule`), the kernel's tables for every tile group
+    built and uploaded to the device once (`bank_terms`), one launch per
+    push.
   * ``"specialized"`` — the pulse-specialized kernel: one launch per
     push for every filter and channel, the filters' pulse tables
     concatenated and uploaded to the device once, at construction.
@@ -32,8 +33,8 @@ import torch.nn.functional as F
 
 from ..compiler import BlmacProgram, MERGE_DEFAULT, TailSnapshot, compile_bank
 from ..kernels.blmac_fir import (FAST_PATH_MAX, SpecializedProgram,
-                                 bank_schedule_apply, frame_signal_batch,
-                                 specialized_call)
+                                 bank_schedule_apply, bank_terms,
+                                 frame_signal_batch, specialized_call)
 from ..kernels.ops import as_device_tensor
 from ..kernels.runtime import DEFAULT_TILE, resolve_device
 
@@ -115,17 +116,16 @@ class FilterBankEngine:
         if mode == "packed":
             self.bank_schedule = program.schedule(bank_tile, self.merge)
             self.bank_tile = self.bank_schedule.tile_size
-            # each group's packed operand goes to the device once
-            self._group_ops = [
-                torch.tensor(g.packed.view(np.int32), device=self.device)
-                if g.sel_layers else None
-                for g in self.bank_schedule.groups
-            ]
+            # the kernel's tables go to the device once (the plain CPU
+            # path reads the schedule itself)
+            self._terms = (
+                bank_terms(self.bank_schedule, self.taps, self.device)
+                if self.device.type == "cuda" else None)
             self._spec = None
         else:
             self.bank_schedule = None
             self.bank_tile = bank_tile
-            self._group_ops = None
+            self._terms = None
             self._spec = SpecializedProgram(program.pulse_schedules(),
                                             self.taps, self.tile, self.device)
         self.reset()
@@ -231,10 +231,10 @@ class FilterBankEngine:
         frames, _ = frame_signal_batch(buf, self.taps, self.tile)
         if self.mode == "packed":
             y = bank_schedule_apply(
-                frames, self.bank_schedule, self.taps, self.tile,
-                device_groups=self._group_ops,
-            )  # (B, C, n_tiles * tile), caller order restored
+                frames, self.bank_schedule, self.taps, self.tile, n_out,
+                terms=self._terms,
+            )  # one launch: (B, C, n_out) in the caller's order
         else:  # one launch: (B, C, n_tiles, tile)
             y = specialized_call(frames, self._spec).reshape(
-                self.n_filters, self.channels, -1)
-        return y[:, :, :n_out].cpu().numpy()
+                self.n_filters, self.channels, -1)[:, :, :n_out]
+        return y.cpu().numpy()

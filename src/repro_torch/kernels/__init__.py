@@ -4,8 +4,8 @@
                     CUDA kernel (``csrc/blmac_specialized.cu``) or a
                     one-filter bank launch
   blmac_fir_bank  — a whole bank: the scheduled CUDA bank kernel
-                    (``csrc/blmac_bank.cu``), one launch per occupancy tile
-                    group; B = 1 takes the specialized kernel
+                    (``csrc/blmac_bank.cu``, int8 tensor cores), one launch
+                    for every tile group; B = 1 takes the specialized kernel
   pulse_quantize  — float weights to CSD-P pulse codes + group exponents,
   pulse_dequantize  on the device, bit for bit the reference's quantizer
   pulse_matmul_op — float32 x @ W with W rebuilt from the codes inside the

@@ -4,10 +4,15 @@ The port of `repro.kernels.blmac_fir`.  Two hand-written CUDA kernels
 carry it, each with a plain PyTorch version of the same function beside
 it:
 
-  * **bank** (`bank_call`, kernel ``csrc/blmac_bank.cu``) — one launch
-    per occupancy tile group of a `BankSchedule`: B filters × C channels
-    over framed signal tiles, the superlayer schedule passed as a small
-    runtime table.  Replaces the TPU kernel `_fir_kernel_bank`.
+  * **bank** (`bank_apply`, kernel ``csrc/blmac_bank.cu``) — one launch
+    for every tile group of a `BankSchedule` on the int8 tensor cores: B
+    filters × C channels over framed signal tiles, written straight into
+    the caller's (B, C, n_out) order.  The host's tables (`BankTerms`:
+    digit runs of span ≤ 7 as s8 wgmma fragments, the Horner terms of run
+    × sample byte plane) are built once per schedule and device
+    (`bank_terms`); `bank_term_walk` is their arithmetic in numpy and
+    `bank_call_plain` the plain version of one group.  Replaces the TPU
+    kernel `_fir_kernel_bank`.
   * **specialized** (`specialized_call`, kernel
     ``csrc/blmac_specialized.cu``) — the filters' CSD pulse lists as
     tap-major device tables (`pulse_table`), one launch for every filter
@@ -31,6 +36,7 @@ outputs directly.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -42,27 +48,39 @@ from ..compiler.schedule import (BankSchedule, MERGE_DEFAULT,
 from ..core.csd import csd_digits, pack_trits, unpack_trits
 
 __all__ = [
+    "BankTerms",
     "FAST_PATH_MAX",
     "LANE",
+    "a_fragments",
+    "bank_apply",
     "bank_call",
     "bank_call_plain",
+    "bank_k",
+    "bank_output",
     "bank_schedule_apply",
+    "bank_term_walk",
+    "bank_terms",
     "blmac_fir_bank",
     "blmac_fir_dynamic",
     "blmac_fir_specialized",
+    "digit_runs",
+    "fragment_rows",
     "frame_signal",
     "frame_signal_batch",
+    "group_terms",
     "pulses_from_packed",
     "pulse_table",
     "pulse_table_walk",
     "pulse_tables",
     "pulses_msb_first",
     "reset_launch_counts",
-    "schedule_table",
+    "sample_planes",
+    "schedule_layers",
     "specialized_call",
     "specialized_geometry",
     "specialized_plain",
     "specialized_program",
+    "term_table",
 ]
 
 LANE = 128
@@ -123,10 +141,6 @@ def _check_frames(frames: torch.Tensor, ndim: int, taps: int, tile: int):
     if frames.stride(-1) != 1 or frames.shape[-1] < tile + taps - 1:
         raise ValueError("frames need unit stride along the frame and at "
                          "least tile + taps - 1 samples")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -396,19 +410,261 @@ def blmac_fir_specialized(
 
 
 # ---------------------------------------------------------------------------
-# K1: the scheduled bank kernel
+# K1: the bank kernel on the int8 tensor cores
 # ---------------------------------------------------------------------------
 
-def schedule_table(schedule: tuple, tail_shift: int) -> np.ndarray:
-    """Flatten one tile group's superlayer schedule into the bank
-    kernel's runtime table: ``[n_super, tail_shift, (shift_in, n_parts,
-    (sel_idx, rel) * n_parts) * n_super]`` as int32."""
-    v = [len(schedule), int(tail_shift)]
-    for shift_in, parts in schedule:
-        v += [int(shift_in), len(parts)]
+# K1's geometry (the constants of ``csrc/blmac_bank.cu``): a tile of the
+# bank is ROW_TILE rows (the wgmma's M), a block owns BANK_BN outputs (its
+# N), and the kernel's tables hold digit runs of at most MAX_RUN_SPAN layers
+# and SAMPLE_PLANES byte planes of a uint32 sample
+ROW_TILE = 64
+BANK_BN = 128
+BANK_THREADS = 128
+MAX_RUN_SPAN = 7  # |d| <= 2**7 - 1: a run's digit fits s8 for any trits
+SAMPLE_PLANES = 4
+BANK_MAX_TAPS = 255  # K = taps // 2 + 1 padded to 32 stays <= 128
+BANK_ROW_ALIGN = 8  # int32 elements: rows of K1's result start on 32 bytes
+
+
+def bank_k(taps: int) -> int:
+    """K1's contraction depth: the folded taps ``taps // 2 + 1`` padded to
+    a multiple of 32 (one wgmma k-step of s8 each)."""
+    return _pad_to(taps // 2 + 1, 32)
+
+
+def schedule_layers(schedule: tuple, tail_shift: int) -> list[int]:
+    """The absolute bit layer of every selected layer (``sel_idx``) of a
+    superlayer schedule: the last superlayer sits at ``tail_shift``, each
+    one before it ``shift_in`` (of the one after it) higher."""
+    layers: dict = {}
+    lo = int(tail_shift)
+    for shift_in, parts in reversed(schedule):
         for sel_idx, rel in parts:
-            v += [int(sel_idx), int(rel)]
-    return np.asarray(v, np.int32)
+            layers[int(sel_idx)] = lo + int(rel)
+        lo += int(shift_in)
+    return [layers[i] for i in range(len(layers))]
+
+
+def digit_runs(layers: list[int]) -> list[list[int]]:
+    """Greedy MSB-first runs of the selected layers (as ``sel_idx``), each
+    spanning at most `MAX_RUN_SPAN` layers (``hi − lo < 7``)."""
+    runs: list[list[int]] = []
+    for i in sorted(range(len(layers)), key=lambda i: -layers[i]):
+        if runs and layers[runs[-1][0]] - layers[i] < MAX_RUN_SPAN:
+            runs[-1].append(i)
+        else:
+            runs.append([i])
+    return runs
+
+
+def term_table(run_lows: list[int]) -> np.ndarray:
+    """K1's terms for runs whose lowest layers are ``run_lows``: one
+    ``(run, plane, shift, 0)`` row per run and byte plane with ``shift =
+    lo + 8 · plane < 32`` (a term shifted by 32 or more vanishes modulo
+    2**32), sorted by shift, high first (ties in run, then plane, order)
+    — the order of the kernel's Horner chain."""
+    rows = [(r, p, lo + 8 * p, 0) for r, lo in enumerate(run_lows)
+            for p in range(SAMPLE_PLANES) if lo + 8 * p < 32]
+    rows.sort(key=lambda v: -v[2])
+    return np.asarray(rows, np.int32).reshape(-1, 4)
+
+
+def sample_planes(u: np.ndarray) -> np.ndarray:
+    """Balanced s8 byte planes of uint32 (or int32) values: ``(4,) +
+    u.shape`` int8 with ``u == sum_p s_p · 2**(8p)`` modulo 2**32; ``s_p``
+    is the low byte of what remains, read as s8, and the next plane takes
+    ``(rest − s_p) >> 8`` (arithmetic).  8-bit samples folded (|u| ≤ 256)
+    leave planes 2 and 3 zero."""
+    v = np.asarray(u).astype(np.uint32)
+    out = []
+    for _ in range(SAMPLE_PLANES):
+        s = (v & np.uint32(0xFF)).astype(np.uint8).view(np.int8)
+        out.append(s)
+        v = ((v - s.astype(np.int32).view(np.uint32)).view(np.int32) >> 8) \
+            .view(np.uint32)
+    return np.stack(out)
+
+
+def a_fragments(d: np.ndarray) -> np.ndarray:
+    """(n · 64, K) int8 digit rows → (n, K / 32, 128, 16) int8: each 64-row
+    tile and k-step in wgmma's A-fragment order, 16 bytes a thread of the
+    warpgroup.  Thread ``32 w + 4 g + q`` holds rows ``16 w + g`` and ``16 w
+    + g + 8`` and columns ``4 q .. 4 q + 3`` then ``16 + 4 q ..`` of the
+    step, as four registers (row g, row g + 8, row g, row g + 8)."""
+    rows, k = d.shape
+    v = d.reshape(rows // ROW_TILE, 4, 2, 8, k // 32, 2, 4, 4)
+    # (tile, w, h, g, ks, half, q, byte) → (tile, ks, w, g, q, half, h, byte)
+    v = v.transpose(0, 4, 1, 3, 6, 5, 2, 7)
+    return np.ascontiguousarray(v).reshape(rows // ROW_TILE, k // 32,
+                                           BANK_THREADS, 16)
+
+
+def fragment_rows(f: np.ndarray) -> np.ndarray:
+    """Inverse of `a_fragments` for one tile: (K / 32, 128, 16) → (64, K)."""
+    ks = f.shape[0]
+    v = f.reshape(ks, 4, 8, 4, 2, 2, 4)  # (ks, w, g, q, half, h, byte)
+    return np.ascontiguousarray(v.transpose(1, 5, 2, 0, 4, 3, 6)).reshape(
+        ROW_TILE, 32 * ks)
+
+
+class BankTerms:
+    """K1's tables for one call's tile groups, built on the host once and
+    kept on ``device`` (CUDA) for every launch.
+
+    Host arrays (numpy; `bank_term_walk` reads these):
+
+    * ``digits`` (n, 16) int8 — for each 64-row tile, run and k-step, the
+      run's digit rows in A-fragment order (`a_fragments`);
+    * ``tiles`` (n_row_tiles, 2) int32 — each tile's group and the offset
+      of its fragments in 16-byte units;
+    * ``groups`` (n_groups, 2) int32 — each group's first term and number
+      of terms (0 for an all-zero group: its rows come out zero);
+    * ``terms`` (n_terms, 4) int32 — `term_table` rows, group after group;
+    * ``dest`` (n_row_tiles · 64,) int32 — the output row of every tile
+      row, −1 for padding.
+
+    ``parts`` lists each group as ``(packed (rows, n_sel, n_words), schedule,
+    tail_shift, dest (rows,))``; a group's rows are padded to whole tiles.
+    """
+
+    def __init__(self, parts, n_rows: int, taps: int, device=None):
+        self.taps = int(taps)
+        self.k = bank_k(taps)
+        self.n_rows = int(n_rows)
+        half = taps // 2
+        ks = self.k // 32
+        frags, tiles, groups, terms, dest = [], [], [], [], []
+        off = n_terms = 0
+        for gi, (packed, schedule, tail_shift, rows_dest) in enumerate(parts):
+            rows = packed.shape[0]
+            n_t = -(-rows // ROW_TILE)
+            layers = schedule_layers(schedule, tail_shift)
+            runs = digit_runs(layers)
+            lows = [min(layers[i] for i in run) for run in runs]
+            tab = term_table(lows)
+            groups.append((n_terms, len(tab)))
+            terms.append(tab)
+            n_terms += len(tab)
+            if runs:
+                trits = unpack_trits(np.asarray(packed).view(np.uint32),
+                                     half + 1).astype(np.int16)
+                d = np.zeros((len(runs), n_t * ROW_TILE, self.k), np.int16)
+                for r, (run, lo) in enumerate(zip(runs, lows)):
+                    for i in run:
+                        d[r, :rows, :half + 1] += trits[:, i] << (layers[i] - lo)
+                if np.abs(d).max(initial=0) > 127:
+                    raise AssertionError("a digit run exceeds s8")
+                f = np.stack([a_fragments(dr.astype(np.int8)) for dr in d], 1)
+                frags.append(f.reshape(-1, 16))  # (tile, run, ks, thread)
+            per_tile = len(runs) * ks * BANK_THREADS
+            tiles += [(gi, off + t * per_tile) for t in range(n_t)]
+            off += n_t * per_tile
+            pad = np.full(n_t * ROW_TILE, -1, np.int32)
+            pad[:rows] = rows_dest
+            dest.append(pad)
+        self.digits = (np.concatenate(frags) if frags
+                       else np.zeros((1, 16), np.int8))
+        self.tiles = np.asarray(tiles, np.int32).reshape(-1, 2)
+        self.groups = np.asarray(groups, np.int32).reshape(-1, 2)
+        self.terms = (np.concatenate(terms) if n_terms
+                      else np.zeros((1, 4), np.int32))
+        self.dest = np.concatenate(dest).astype(np.int32)
+        self.device = torch.device("cpu") if device is None \
+            else torch.device(device)
+        self.tensors = None
+        if self.device.type == "cuda":
+            self.tensors = tuple(
+                _on_device(a, self.device) for a in
+                (self.digits, self.tiles, self.groups, self.terms, self.dest))
+
+    @property
+    def n_row_tiles(self) -> int:
+        return self.tiles.shape[0]
+
+
+def group_terms(packed, schedule: tuple, tail_shift: int, taps: int,
+                device=None) -> BankTerms:
+    """`BankTerms` of one tile group whose output rows are its own rows in
+    order (``packed`` a numpy array or tensor, (rows, n_sel, n_words))."""
+    p = packed.cpu().numpy() if torch.is_tensor(packed) else np.asarray(packed)
+    return BankTerms([(p, schedule, tail_shift, np.arange(p.shape[0]))],
+                     p.shape[0], taps, device)
+
+
+_TERMS_CACHE: dict = {}
+TERMS_CACHE_MAX = 32
+
+
+def bank_terms(schedule: BankSchedule, taps: int, device) -> BankTerms:
+    """`BankTerms` of a whole `BankSchedule`, every group's rows bound for
+    the caller's filter order (padded row p → filter ``perm[p]``), cached
+    per (schedule object, taps, device): a program's memoized schedule
+    (`BlmacProgram.schedule`) builds and uploads its tables once, and the
+    engine and `blmac_fir_bank` share them."""
+    dev = torch.device(device)
+    key = (id(schedule), int(taps), str(dev))
+    hit = _TERMS_CACHE.get(key)
+    if hit is not None and hit[0]() is schedule:
+        return hit[1]
+    b_pad = sum(g.packed.shape[0] for g in schedule.groups)
+    dest = np.full(b_pad, -1, np.int64)
+    dest[:schedule.n_filters] = schedule.perm
+    parts, row = [], 0
+    for g in schedule.groups:
+        rows = g.packed.shape[0]
+        parts.append((g.packed, g.schedule, g.tail_shift, dest[row:row + rows]))
+        row += rows
+    terms = BankTerms(parts, schedule.n_filters, taps, dev)
+    _TERMS_CACHE[key] = (weakref.ref(schedule), terms)
+    while len(_TERMS_CACHE) > TERMS_CACHE_MAX:
+        del _TERMS_CACHE[next(iter(_TERMS_CACHE))]
+    return terms
+
+
+def bank_term_walk(frames, terms: BankTerms, tile: int,
+                   n_out: int) -> np.ndarray:
+    """K1's arithmetic in numpy, term by term and plane by plane: (C,
+    n_tiles, frame_len) int32 frames → (B, C, n_out) int32.  Folds the
+    sample pairs in uint32, splits them into `sample_planes`, and for each
+    64-row tile walks its group's `term_table` as the kernel does — ``acc
+    <<= previous shift − shift; acc += D_run · U_plane`` modulo 2**32, the
+    digits read back from their fragment order — skipping a plane that is
+    zero across the samples (the kernel skips it per block: the same sum),
+    then scatters the rows to ``dest``."""
+    x = np.ascontiguousarray(np.asarray(frames, np.int32)).view(np.uint32)
+    n_chan, n_tiles, frame_len = x.shape
+    taps, k, half = terms.taps, terms.k, terms.taps // 2
+    j = np.arange(k)[None, :]
+    t = np.arange(tile)[:, None]
+    fwd = x[..., np.minimum(t + j, frame_len - 1)]
+    rev = x[..., np.clip(t + taps - 1 - j, 0, frame_len - 1)]
+    u = np.where(j < half, fwd + rev, np.where(j == half, fwd, np.uint32(0)))
+    planes = sample_planes(u).reshape(SAMPLE_PLANES, -1, k).astype(np.int64)
+    live = [bool(p.any()) for p in planes]
+    mask = np.int64(0xFFFFFFFF)
+    ks = k // 32
+    y = np.zeros((terms.n_rows, planes.shape[1]), np.int64)
+    for rt, (grp, off) in enumerate(terms.tiles):
+        first, count = terms.groups[grp]
+        acc = np.zeros((ROW_TILE, planes.shape[1]), np.int64)
+        prev = None
+        for run, plane, shift, _ in terms.terms[first:first + count]:
+            if not live[plane]:
+                continue
+            lo = off + run * ks * BANK_THREADS
+            d = fragment_rows(terms.digits[lo:lo + ks * BANK_THREADS]
+                              .reshape(ks, BANK_THREADS, 16)).astype(np.int64)
+            if prev is not None:
+                acc = (acc << (prev - shift)) & mask
+            acc = (acc + d @ planes[plane].T) & mask
+            prev = shift
+        if prev:
+            acc = (acc << prev) & mask
+        rows = terms.dest[rt * ROW_TILE:(rt + 1) * ROW_TILE]
+        keep = rows >= 0
+        y[rows[keep]] = acc[keep]
+    y = y.astype(np.uint32).view(np.int32)
+    return y.reshape(terms.n_rows, n_chan, n_tiles * tile)[:, :, :n_out]
 
 
 def bank_call_plain(
@@ -419,10 +675,10 @@ def bank_call_plain(
     tail_shift: int,
     tile: int,
 ) -> torch.Tensor:
-    """Plain version of the bank kernel, modelled on the reference's
-    `_bank_call_xla`: the window matrix of every (channel, tile) cell at
-    once, then one contraction per superlayer → (rows, C, n_tiles, tile)
-    int32.
+    """Plain version of the bank kernel for one tile group, modelled on the
+    reference's `_bank_call_xla`: the window matrix of every (channel,
+    tile) cell at once, then one contraction per superlayer → (rows, C,
+    n_tiles, tile) int32.
 
     On the CPU the contraction is an int32 ``torch.matmul``, which wraps
     modulo 2**32 like every other step.  Torch has no integer matmul on
@@ -475,6 +731,87 @@ def bank_call_plain(
     return acc.to(torch.int32).reshape(rows, n_chan, n_tiles, tile)
 
 
+def bank_output(n_rows: int, n_chan: int, n_out: int,
+                device) -> torch.Tensor:
+    """An uninitialised (B, C, n_out) int32 result whose rows start on 32
+    bytes (`BANK_ROW_ALIGN` elements apart at least): a view of a (B, C,
+    n_out padded to 8) buffer, so that K1's stores are whole 32-byte
+    sectors of device memory, none shared by two blocks, sent by bulk
+    copies (a row that does not start on 16 bytes takes thread
+    stores)."""
+    ld = _pad_to(n_out, BANK_ROW_ALIGN)
+    return torch.empty((n_rows, n_chan, ld), dtype=torch.int32,
+                       device=device)[:, :, :n_out]
+
+
+def _row_strided(out: torch.Tensor, shape: tuple, device) -> bool:
+    """``out`` is int32 ``shape`` on ``device`` with rows of unit stride,
+    (filter, channel) rows ``out.stride(1)`` apart — the layouts K1
+    writes (contiguous, or `bank_output`'s)."""
+    return (tuple(out.shape) == shape and out.dtype == torch.int32
+            and out.device == device and out.stride(2) == 1
+            and out.stride(1) >= shape[2]
+            and out.stride(0) == shape[1] * out.stride(1))
+
+
+def bank_apply(
+    frames: torch.Tensor,
+    terms: BankTerms,
+    tile: int,
+    n_out: int,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K1 over every tile group of ``terms`` in one launch: (C, n_tiles,
+    frame_len) int32 frames → (B, C, n_out) int32, each filter's row
+    written straight at its output row (``terms.dest``), into ``out`` when
+    given (contiguous, or rows further apart: `bank_output`, the
+    default).  CPU frames take `bank_term_walk`; CUDA frames launch the
+    kernel or raise."""
+    _check_frames(frames, 3, terms.taps, tile)
+    n_chan, n_tiles, _ = frames.shape
+    if not 0 < n_out <= n_tiles * tile:
+        raise ValueError(f"n_out {n_out} outside 1 .. {n_tiles * tile}")
+    shape = (terms.n_rows, n_chan, n_out)
+    if out is not None and not _row_strided(out, shape, frames.device):
+        raise ValueError(f"out must be int32 {shape} on {frames.device}, "
+                         f"rows of unit stride")
+    dev = frames.device
+    if dev.type == "cpu":
+        y = torch.from_numpy(np.ascontiguousarray(
+            bank_term_walk(frames.numpy(), terms, tile, n_out)))
+        return y if out is None else out.copy_(y)
+    if dev.type != "cuda" or terms.tensors is None or terms.device != dev:
+        raise ValueError(f"frames on {dev}, bank tables on {terms.device}")
+    if terms.taps > BANK_MAX_TAPS:
+        raise ValueError(f"the bank kernel takes at most {BANK_MAX_TAPS} "
+                         f"taps, got {terms.taps}")
+    if out is None:
+        out = bank_output(*shape, dev)
+    digits, tiles, groups, table, dest = terms.tensors
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = _bank_library().blmac_bank_launch(
+            frames.data_ptr(), frames.stride(0), frames.stride(1), n_chan,
+            n_tiles, tile, terms.taps, n_out, out.data_ptr(), out.stride(1),
+            digits.data_ptr(), tiles.data_ptr(), groups.data_ptr(),
+            table.data_ptr(), dest.data_ptr(), terms.n_row_tiles,
+            torch._C._cuda_getCurrentRawStream(dev.index),
+        )
+    _raise_on(err, "blmac_bank_kernel")
+    bank_apply.launches += 1
+    return out
+
+
+bank_apply.launches = 0
+
+
+@functools.lru_cache(maxsize=1)
+def _bank_library():
+    """K1's C library, built and loaded at the first launch."""
+    from .build import library
+
+    return library("blmac_bank")
+
+
 def bank_call(
     frames: torch.Tensor,
     packed: torch.Tensor,
@@ -487,10 +824,11 @@ def bank_call(
     """Run one tile group: (C, n_tiles, frame_len) int32 frames and its
     (rows, n_sel, n_words) int32 packed operand → (rows, C, n_tiles,
     tile) int32, written into ``out`` when given.  The plain version for
-    CPU frames, the CUDA kernel for CUDA frames."""
+    CPU frames; for CUDA frames one K1 launch (`bank_apply`) over the
+    group's own tables."""
     _check_frames(frames, 3, taps, tile)
     n_chan, n_tiles, _ = frames.shape
-    rows, n_sel, n_words = packed.shape
+    rows = packed.shape[0]
     if packed.dtype != torch.int32 or packed.device != frames.device:
         raise ValueError(f"packed must be int32 on {frames.device}, got "
                          f"{packed.dtype} on {packed.device}")
@@ -505,30 +843,17 @@ def bank_call(
         return y if out is None else out.copy_(y)
     if frames.device.type != "cuda":
         raise ValueError(f"unsupported device {frames.device}")
-    from .build import library
-
-    packed = packed.contiguous()
+    terms = group_terms(packed, schedule, tail_shift, taps, frames.device)
     if out is None:
         out = torch.empty(shape, dtype=torch.int32, device=frames.device)
-    table = schedule_table(schedule, tail_shift)
-    with torch.cuda.device(frames.device):
-        err = library("blmac_bank").blmac_bank_launch(
-            frames.data_ptr(), frames.stride(0), frames.stride(1),
-            packed.data_ptr(), out.data_ptr(), rows, n_chan, n_tiles, tile,
-            taps, n_sel, n_words, table.ctypes.data, table.size,
-            _stream(frames.device),
-        )
-    _raise_on(err, "blmac_bank_kernel")
-    bank_call.launches += 1
+    bank_apply(frames, terms, tile, n_tiles * tile,
+               out=out.view(rows, n_chan, n_tiles * tile))
     return out
 
 
-bank_call.launches = 0
-
-
 def reset_launch_counts() -> None:
-    """Zero both kernels' launch counters."""
-    bank_call.launches = 0
+    """Zero both FIR kernels' launch counters."""
+    bank_apply.launches = 0
     specialized_call.launches = 0
 
 
@@ -537,37 +862,37 @@ def bank_schedule_apply(
     schedule: BankSchedule,
     taps: int,
     tile: int,
-    device_groups: list | None = None,
+    n_out: int | None = None,
+    terms: BankTerms | None = None,
 ) -> torch.Tensor:
-    """Run every tile group of a `BankSchedule` over pre-framed signal and
-    reassemble rows in the caller's filter order → (B, C, n_tiles*tile).
+    """Run every tile group of a `BankSchedule` over pre-framed signal →
+    (B, C, n_out) int32 in the caller's filter order (``n_out`` defaults
+    to ``n_tiles · tile``).
 
-    One kernel launch per group with populated layers, each writing its
-    rows of one output buffer; all-zero groups are filled with zeros and
-    launch nothing.  The reorder ``y[inv]`` (dropping pad rows) runs on
-    the frames' device.  ``device_groups`` optionally supplies the
-    groups' packed operands already on that device (int32 view, None for
-    all-zero groups), so a streaming caller uploads the bank once."""
+    On CUDA frames: one K1 launch for all groups, all-zero ones included
+    (their rows come out zero), each row written straight at its output
+    row — no reorder, no slice copy.  ``terms`` supplies the schedule's
+    tables already on that device; by default `bank_terms` builds them
+    once per schedule and device.  On CPU frames: the plain version per
+    group with populated layers, zeros for the rest, then the reorder."""
     n_chan, n_tiles, _ = frames.shape
+    n_out = n_tiles * tile if n_out is None else int(n_out)
     dev = frames.device
-    b_pad = sum(g.packed.shape[0] for g in schedule.groups)
-    y = torch.empty((b_pad, n_chan, n_tiles, tile), dtype=torch.int32,
-                    device=dev)
-    row = 0
-    for gi, g in enumerate(schedule.groups):
-        rows = g.packed.shape[0]
-        part = y[row:row + rows]
-        row += rows
-        if not g.sel_layers:  # all-zero tile group: no kernel at all
-            part.zero_()
-            continue
-        op = (
-            device_groups[gi] if device_groups is not None
-            else _on_device(g.packed.view(np.int32), dev)
-        )
-        bank_call(frames, op, taps, g.schedule, g.tail_shift, tile, out=part)
-    inv = torch.as_tensor(schedule.inv, device=dev)
-    return y.reshape(b_pad, n_chan, n_tiles * tile).index_select(0, inv)
+    if dev.type != "cpu":
+        if terms is None:
+            terms = bank_terms(schedule, taps, dev)
+        return bank_apply(frames, terms, tile, n_out)
+    parts = []
+    for g in schedule.groups:
+        if g.sel_layers:
+            parts.append(bank_call_plain(
+                frames, _on_device(g.packed.view(np.int32), dev), taps,
+                g.schedule, g.tail_shift, tile))
+        else:  # all-zero tile group
+            parts.append(torch.zeros((g.packed.shape[0], n_chan, n_tiles,
+                                      tile), dtype=torch.int32))
+    y = torch.cat(parts).reshape(-1, n_chan, n_tiles * tile)
+    return y.index_select(0, torch.as_tensor(schedule.inv))[:, :, :n_out]
 
 
 def blmac_fir_bank(
@@ -581,12 +906,13 @@ def blmac_fir_bank(
     fast_path: bool = True,
 ) -> torch.Tensor:
     """Apply a B-filter bank to a C-channel signal on ``x``'s device with
-    the scheduled bank kernel (one launch per occupancy tile group).
+    the scheduled bank kernel (one launch for the whole bank).
 
     Returns int32 (B, C, T − taps + 1), or (B, T − taps + 1) for 1-D
     ``x``; bit-exact against `fir_bit_layers_batch`.  ``fast_path``
     routes banks of ≤ `FAST_PATH_MAX` filters to the specialized kernel.
-    Pass a precomputed ``schedule`` to skip planning on the hot path."""
+    Pass a precomputed ``schedule`` to skip planning on the hot path (a
+    program's memoized schedule also reuses its kernel tables)."""
     squeeze = x.ndim == 1
     if squeeze:
         x = x[None, :]
@@ -603,8 +929,8 @@ def blmac_fir_bank(
     if schedule is None:
         schedule = plan_bank_schedule(packed, bank_tile, merge)
     frames, n_out = frame_signal_batch(xi, taps, tile)
-    y = bank_schedule_apply(frames, schedule, taps, tile)
-    return y[:, 0, :n_out] if squeeze else y[:, :, :n_out]
+    y = bank_schedule_apply(frames, schedule, taps, tile, n_out)
+    return y[:, 0] if squeeze else y
 
 
 def blmac_fir_dynamic(

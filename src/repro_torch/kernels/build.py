@@ -40,10 +40,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # library name -> (source file, {C function: argtypes})
 SOURCES = {
     "blmac_bank": ("blmac_bank.cu", {
-        # frames, stride_c, stride_tile, packed, out, rows, n_chan, n_tiles,
-        # tile, taps, n_sel, n_words, table, table_len, stream
-        "blmac_bank_launch": [_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _P, _I, _P],
+        # frames, stride_c, stride_tile, n_chan, n_tiles, tile, taps, n_out,
+        # out, ld, digits, tiles, groups, terms, dest, n_row_tiles, stream
+        "blmac_bank_launch": [_P, _L, _L, _I, _I, _I, _I, _I, _P, _L, _P, _P,
+                              _P, _P, _P, _I, _P],
         "blmac_bank_smem_bytes": [_I],  # taps
     }),
     "blmac_specialized": ("blmac_specialized.cu", {

@@ -28,9 +28,9 @@ from repro_torch.kernels import (blmac_fir, blmac_fir_bank, pulse_dequantize,
 from repro_torch.kernels import blmac_matmul as bmm
 from repro_torch.kernels.blmac_matmul import pulse_matmul
 from repro_torch.kernels.ref import pulse_decode_ref, pulse_matmul_ref
-from repro_torch.kernels.blmac_fir import (SpecializedProgram, bank_call,
-                                           bank_call_plain,
-                                           bank_schedule_apply,
+from repro_torch.kernels.blmac_fir import (SpecializedProgram, bank_apply,
+                                           bank_call, bank_call_plain,
+                                           bank_schedule_apply, bank_terms,
                                            frame_signal, frame_signal_batch,
                                            pulses_from_packed,
                                            reset_launch_counts,
@@ -113,6 +113,8 @@ def test_bank_kernel_matches_plain_per_group(cuda, bank, merge):
 
 
 def test_bank_schedule_apply_skips_all_zero_groups(cuda):
+    """All-zero groups have no terms: the one launch writes their rows as
+    zeros among the others'."""
     q = _mixed_bank(31)
     prog = compile_bank(q)
     sched = prog.schedule(bank_tile=1)
@@ -123,7 +125,7 @@ def test_bank_schedule_apply_skips_all_zero_groups(cuda):
     reset_launch_counts()
     got = bank_schedule_apply(frames.to(cuda), sched, prog.taps, 256)
     torch.cuda.synchronize()
-    assert bank_call.launches == sum(bool(g.sel_layers) for g in sched.groups)
+    assert bank_apply.launches == 1
     want = bank_schedule_apply(frames, sched, prog.taps, 256)
     assert torch.equal(got.cpu(), want)
     assert np.array_equal(got.cpu().numpy()[:, :, :n_out],
@@ -145,6 +147,147 @@ def test_bank_kernel_wraps_modulo_2_32(cuda):
     assert torch.equal(got.cpu(), want)
     oracle = fir_bit_layers_batch(x.numpy(), q).astype(np.int32)
     assert np.array_equal(got.cpu().numpy()[:, :, :n_out], oracle)
+
+
+@pytest.mark.parametrize("samples", ["8bit", "20bit", "int32"])
+@pytest.mark.parametrize("merge", [1, 8, 32])
+@pytest.mark.parametrize("taps,n_filters", [(1, 3), (3, 9), (63, 300),
+                                            (127, 48), (255, 20)])
+def test_bank_kernel_whole_schedule(cuda, taps, n_filters, merge, samples):
+    """One launch for every group of a schedule (one all-zero filter, so
+    an all-zero group where the groups are single rows), written in the
+    caller's order and cut at n_out: against the CPU plain version (int32
+    matmul, exact for every sample width), and against the plain version
+    on the card for 8-bit samples."""
+    q = _random_bank(n_filters, taps, taps + merge, density=0.6)
+    q[n_filters // 2] = 0
+    prog = compile_bank(q)
+    sched = prog.schedule(bank_tile=1 if n_filters <= 9 else None, merge=merge)
+    x = _samples(2 * 1024 + 333, samples, taps, channels=2)
+    for tile in (256, 1000):
+        frames, n_out = frame_signal_batch(x, taps, tile)
+        reset_launch_counts()
+        got = bank_schedule_apply(frames.to(cuda), sched, taps, tile, n_out)
+        torch.cuda.synchronize()
+        assert bank_apply.launches == 1
+        want = bank_schedule_apply(frames, sched, taps, tile, n_out)
+        # rows 32-byte aligned (a padded buffer's view), unit stride
+        assert got.shape == (n_filters, 2, n_out) and got.stride(2) == 1
+        assert got.stride(1) % 8 == 0 and got.stride(0) == 2 * got.stride(1)
+        assert torch.equal(got.cpu(), want), (tile, samples)
+        # a contiguous result (odd n_out: rows only 4-byte aligned)
+        dense = torch.full((n_filters, 2, n_out), 7, dtype=torch.int32,
+                           device=cuda)
+        bank_apply(frames.to(cuda), bank_terms(sched, taps, cuda), tile,
+                   n_out, out=dense)
+        assert n_out % 2 == 1 and torch.equal(dense.cpu(), want)
+        if samples == "8bit":
+            assert np.array_equal(want.numpy(),
+                                  fir_bit_layers_batch(x.numpy(), q))
+            for g in sched.groups:
+                if g.sel_layers:
+                    op = torch.tensor(g.packed.view(np.int32), device=cuda)
+                    assert torch.equal(
+                        bank_call(frames.to(cuda), op, taps, g.schedule,
+                                  g.tail_shift, tile),
+                        bank_call_plain(frames.to(cuda), op, taps, g.schedule,
+                                        g.tail_shift, tile))
+
+
+@pytest.mark.parametrize("value", [(1 << 31) - 1, -(1 << 31), (1 << 31) - 129,
+                                   -(1 << 31) + 127])
+def test_bank_kernel_accumulator_crosses_2_31(cuda, value):
+    """x = 2**31 − 1 under the one-tap filter 1: the byte planes are (−1,
+    0, 0, −128), and the Horner chain reaches −2**31 before its last
+    product adds −1.  A saturating s32 accumulator would stop at −2**31;
+    the kernel must wrap to 2**31 − 1.  Likewise near the other end, and
+    under a three-tap bank whose coefficients span 16 layers."""
+    x = torch.full((1, 1500), value, dtype=torch.int32)
+    x[0, ::7] = -value - 1
+    for q in (np.ones((2, 1), np.int64),
+              np.array([[1, (1 << 15) - 1, 1], [-3, 1 << 14, -3]])):
+        prog = compile_bank(q)
+        sched = prog.schedule()
+        frames, n_out = frame_signal_batch(x, prog.taps, 512)
+        got = bank_schedule_apply(frames.to(cuda), sched, prog.taps, 512,
+                                  n_out)
+        want = bank_schedule_apply(frames, sched, prog.taps, 512, n_out)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_bank_kernel_sweep_and_serve_shapes(cuda):
+    """The main path's shapes: the 9,900-filter 127-tap sweep bank over
+    16,384 samples through `blmac_fir_bank`, and one 256-filter 63-tap
+    engine push of 4,096 samples; one launch each, bit-exact against the
+    plain version on the card and the numpy oracle on sampled rows."""
+    sweep_q = po2_quantize_batch(sweep_bank(127), 16)[0]
+    rng = np.random.default_rng(21)
+    x = rng.integers(-128, 128, (1, 16384))
+    reset_launch_counts()
+    y = blmac_fir_bank(x, sweep_q)
+    torch.cuda.synchronize()
+    assert bank_apply.launches == 1 and y.shape == (len(sweep_q), 1, 16258)
+    sched = compile_bank(sweep_q).schedule()
+    frames, n_out = frame_signal_batch(
+        torch.as_tensor(x, dtype=torch.int32, device=cuda), 127, 1024)
+    parts = []
+    for g in sched.groups:
+        op = torch.tensor(g.packed.view(np.int32), device=cuda)
+        parts.append(bank_call_plain(frames, op, 127, g.schedule,
+                                     g.tail_shift, 1024) if g.sel_layers
+                     else torch.zeros((op.shape[0], 1, frames.shape[1], 1024),
+                                      dtype=torch.int32, device=cuda))
+    plain = torch.cat(parts).reshape(-1, 1, frames.shape[1] * 1024)
+    plain = plain[torch.as_tensor(sched.inv, device=cuda)][:, :, :n_out]
+    assert torch.equal(y, plain)
+    rows = rng.choice(len(sweep_q), 32, replace=False)
+    assert np.array_equal(y[torch.as_tensor(rows, device=cuda)].cpu().numpy(),
+                          fir_bit_layers_batch(x, sweep_q[rows]))
+    serve_q = spread_lowpass_qbank(256, 63)
+    eng = FilterBankEngine(serve_q, channels=1, mode="packed")
+    cpu = FilterBankEngine(serve_q, channels=1, mode="packed", device="cpu")
+    s = rng.integers(-128, 128, (1, 3 * 4096))
+    for k in range(3):
+        reset_launch_counts()
+        got = eng.push(s[:, k * 4096:(k + 1) * 4096])
+        assert bank_apply.launches == 1
+        assert np.array_equal(got, cpu.push(s[:, k * 4096:(k + 1) * 4096]))
+
+
+def test_bank_launches_once_a_call(cuda):
+    """`blmac_fir_bank` through the ops entry point, repeated (the tables
+    are cached on the card: the second call builds nothing), and every
+    packed engine push make exactly one K1 launch."""
+    q = _sweep_rows(63, 40, seed=13)
+    x = np.random.default_rng(14).integers(-128, 128, (2, 5000))
+    prog = compile_bank(q)
+    for _ in range(2):
+        reset_launch_counts()
+        y = blmac_fir_bank(x, q)
+        assert bank_apply.launches == 1 and specialized_call.launches == 0
+        assert np.array_equal(y.cpu().numpy(), fir_bit_layers_batch(x, q))
+    assert bank_terms(prog.schedule(), 63, cuda) is bank_terms(
+        prog.schedule(), 63, cuda)
+    eng = FilterBankEngine(prog, channels=2, mode="packed")
+    assert eng._terms is bank_terms(prog.schedule(), 63, cuda)
+    outs = []
+    for a, b in ((0, 40), (40, 1000), (1000, 1001), (1001, 5000)):
+        reset_launch_counts()
+        outs.append(eng.push(x[:, a:b]))
+        assert bank_apply.launches == (1 if b > 62 else 0), (a, b)
+    assert np.array_equal(np.concatenate(outs, 2), fir_bit_layers_batch(x, q))
+
+
+def test_bank_kernel_rejects_what_it_cannot_take(cuda):
+    q = _random_bank(4, 15, 11)
+    sched = compile_bank(q).schedule()
+    frames, n_out = frame_signal_batch(
+        torch.zeros((1, 300), dtype=torch.int32, device=cuda), 15, 128)
+    on_cpu = bank_terms(sched, 15, "cpu")
+    with pytest.raises(ValueError):  # tables on another device
+        bank_apply(frames, on_cpu, 128, n_out)
+    with pytest.raises(ValueError):  # more outputs than the frames hold
+        bank_apply(frames, bank_terms(sched, 15, cuda), 128, 10_000)
 
 
 def _samples(n, kind, seed, channels=None):
@@ -251,7 +394,7 @@ def test_specialized_launches_once_a_call(cuda):
     assert np.array_equal(y.cpu().numpy(), fir_bit_layers_batch(x[0], q[0])[0, 0])
     reset_launch_counts()
     y = blmac_fir_bank(x, q[:1])
-    assert specialized_call.launches == 1 and bank_call.launches == 0
+    assert specialized_call.launches == 1 and bank_apply.launches == 0
     assert np.array_equal(y.cpu().numpy(), fir_bit_layers_batch(x, q[:1]))
     for bank, mode in ((q, "specialized"), (q[:1], "auto")):
         eng = FilterBankEngine(bank, channels=2, mode=mode)
@@ -289,7 +432,7 @@ def test_entry_points_on_the_card(cuda):
     x = np.random.default_rng(8).integers(-128, 128, (2, 5000))
     reset_launch_counts()
     y = blmac_fir_bank(x, q)
-    assert y.device.type == "cuda" and bank_call.launches > 0
+    assert y.device.type == "cuda" and bank_apply.launches == 1
     assert np.array_equal(y.cpu().numpy(), fir_bit_layers_batch(x, q))
     y1 = blmac_fir(x[0], q[0])
     assert specialized_call.launches > 0
@@ -326,7 +469,8 @@ def test_build_reports_kernel_resources(cuda):
 
     infos = build_all()
     res = {k: v for info in infos.values() for k, v in info.resources().items()}
-    assert set(res) == {"blmac_bank_kernel", "blmac_specialized_kernel"} | {
+    assert set(res) == {"blmac_specialized_kernel"} | {
+        f"blmac_bank_kernel<{ks}>" for ks in (1, 2, 3, 4)} | {
         f"blmac_pulse_matmul_kernel<{bm}, {std}>"
         for bm in (8, 16, 64, 128) for std in ("true", "false")}
     assert all(r["registers"] > 0 for r in res.values())

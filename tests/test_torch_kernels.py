@@ -206,7 +206,7 @@ def test_wrappers_count_launches_only_on_the_card():
     tk.reset_launch_counts()
     blmac_fir_bank(_x((1, 300), 16), random_type1_bank(4, 15, seed=16),
                    device=CPU)
-    assert tk.bank_call.launches == 0 and tk.specialized_call.launches == 0
+    assert tk.bank_apply.launches == 0 and tk.specialized_call.launches == 0
 
 
 def test_rejects_bad_operands():
