@@ -11,8 +11,9 @@ before it and read just after:
   * serve       — `FilterBankEngine(mode="packed")` over the 256-filter
                   63-tap spread-lowpass bank, 1 channel, 32 pushes of
                   4,096 samples (the reference's ``--fir-bank`` serving
-                  defaults); one K1 launch a push; bit-exact against the
-                  plain CPU path and the numpy oracle;
+                  defaults); one K1 launch a push, counted push by push;
+                  bit-exact against the plain CPU path and the numpy
+                  oracle;
   * sweep       — `blmac_fir_bank` over the paper's 9,900-filter 127-tap
                   sweep bank (§3.1), 16-bit po2 quantization, 1 channel ×
                   16,384 samples; one K1 launch, the (B, C, n_out) result
@@ -40,17 +41,19 @@ before it and read just after:
                   matrix, exact at x = I and within 1e-5 of the plain
                   version at both M; two launches of ``down`` at each M
                   compared with `torch.equal`; decode and prefill steps
-                  (the 7 calls) under `torch.profiler`: count per kernel
-                  (one K3 kernel a call, nothing else) and, from the same
-                  trace, the device's idle share of each profiled step's
-                  span; and each of the 14 launches with its plan (tile,
+                  (the 7 calls) under `torch.profiler`: launches counted
+                  by the wrapper (7 a step), the kernels the trace saw
+                  (K3's alone), and from that trace the device's idle
+                  share of the traced steps' spans; and each of the 14
+                  launches with its plan (tile,
                   blocks an SM, stages, splits of K, blocks), CUDA-event
                   time, device time (events around launches queued behind
                   a GPU spin), library time and bound.
 
-Between them, with the serve leg's engine: its throughput, and one push
-broken down by CUDA events (the chunk's upload, cat/pad/framing, the K1
-launch, the device-to-host copy) against the push's host clock.
+Between them, with the serve leg's engine: its throughput, and its push
+broken down into the engine's own steps, timed by CUDA events (the
+chunk's upload, cat/pad/framing, the K1 launch, the device-to-host copy)
+against the push's host clock.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the main path's shapes (tolerance 0 for the FIR kernels, integer
@@ -60,7 +63,7 @@ PyTorch library call computing the same function (`F.conv1d` in float64,
 exact here; a float32 `torch.matmul` over the decoded weights) and its
 bound on an H100 SXM (K1's by its output bytes or its adds at the int8
 tensor-core rate, with the CUDA-core bounds it had before beside it); the
-whole sweep call is timed too.  Prints one JSON object per phase, the
+whole sweep call, and K1 into a contiguous result, are timed too.  Prints one JSON object per phase, the
 ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
@@ -223,21 +226,20 @@ def bank_plain(frames, sched, taps: int, tile: int):
     return y.index_select(0, torch.as_tensor(sched.inv, device=frames.device))
 
 
-def serve_push_breakdown(eng, chunks, bf) -> dict:
-    """Where a packed engine push goes: the steps of `FilterBankEngine.push`
-    (the chunk's copy to the card, cat/tail/pad/framing, the one K1 launch,
-    the output's copy to the host), with CUDA events and the host's clock
-    after each, over ``chunks`` (the first primes the tail); the median of
-    each segment against the whole push by the host's clock, and the real
-    push of the same chunks timed alone.  Fails the run when the steps'
-    output differs from the engine's."""
+def serve_push_breakdown(eng, chunks) -> dict:
+    """Where a packed engine push goes: the engine's own steps of
+    `FilterBankEngine.push` (``_upload``: the chunk's copy to the card;
+    ``_advance`` and ``_frame``: cat/tail/pad/framing; ``_run``: the one K1
+    launch; the output's copy to the host), with CUDA events and the
+    host's clock after each, over ``chunks`` (the first, whose buffer has
+    no history yet, untimed); the median of each segment against the whole
+    push by the host's clock, and the push itself timed alone on the same
+    chunks.  Fails the run when the steps' output differs from the
+    push's."""
     import statistics
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.runtime import as_device_tensor
 
     names = ("h2d", "cat_pad_frame", "k1", "d2h")
     eng.reset()
@@ -253,26 +255,20 @@ def serve_push_breakdown(eng, chunks, bf) -> dict:
     ev_ms = {n: [] for n in names}
     host_ms = {n: [] for n in names}
     wall_ms = []
-    tail = eng._tail
     for k, chunk in enumerate(chunks):
         torch.cuda.synchronize()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         t = [time.perf_counter()]
         ev[0].record()
-        c = as_device_tensor(chunk, eng.device).to(torch.int32)
+        c = eng._upload(chunk)
         ev[1].record()
         t.append(time.perf_counter())
-        buf = torch.cat([tail, c], 1)
-        n = buf.shape[1]
-        tail = buf[:, n - (eng.taps - 1):].clone()
-        n_out = n - eng.taps + 1
-        n_pad = -(-n // eng.tile) * eng.tile
-        frames, _ = bf.frame_signal_batch(F.pad(buf, (0, n_pad - n)),
-                                          eng.taps, eng.tile)
+        buf = eng._advance(c)
+        check(buf is not None, f"push {k} still primes the engine")
+        frames, n_out = eng._frame(buf)
         ev[2].record()
         t.append(time.perf_counter())
-        y = bf.bank_schedule_apply(frames, eng.bank_schedule, eng.taps,
-                                   eng.tile, n_out, terms=eng._terms)
+        y = eng._run(frames, n_out)
         ev[3].record()
         t.append(time.perf_counter())
         host = y.cpu().numpy()
@@ -282,7 +278,7 @@ def serve_push_breakdown(eng, chunks, bf) -> dict:
         check(np.array_equal(host, want[k]),
               f"push {k}: the steps differ from the engine's push")
         if k == 0:
-            continue  # primes the tail: no history yet
+            continue
         wall_ms.append((t[-1] - t[0]) * 1e3)
         for i, name in enumerate(names):
             ev_ms[name].append(ev[i].elapsed_time(ev[i + 1]))
@@ -349,23 +345,33 @@ def edge_weights():
     return w
 
 
-def profile_step(fn, launches: int, steps: int = 5,
+def profile_step(fn, launches: int, launch_count, steps: int = 5,
                  reps: int = 20) -> dict:
     """A model step ``fn`` of ``launches`` kernel launches.  Its wall time
     on the host clock without the profiler (mean of ``reps`` steps, each
-    ended by a synchronise), and ``steps`` steps under `torch.profiler`,
-    each in a `record_function` span that ends with a synchronise: from
-    that one trace, per step, the span (its wall time under the profiler),
-    the union of its kernels' intervals (device busy) and the device's
-    idle share of the span; the median step of these, and device time and
-    count per kernel name over the steps.  Fails the run when a step ran
-    another number of kernels or its kernels were busy longer than its
-    span."""
+    ended by a synchronise), and ``steps`` steps traced by `torch.profiler`
+    after one warm-up step it does not trace (the first step under a
+    profiler runs slow), each in a `record_function` span that ends with a
+    synchronise.  From that one trace: the steps' spans (host clock), the
+    union of all their kernels' intervals (device busy), the device's idle
+    share of the summed spans, and device time and count per kernel name.
+
+    The share is taken over the steps together: the trace's device times
+    can sit hundreds of µs off its host times, so a kernel cannot be
+    placed in a step by its start time, and the trace has missed a kernel
+    (69 seen for 70 launches, once in 14 runs), so it cannot be placed by
+    its order either.  The launches are counted by the kernels' own
+    wrapper (``launch_count()``), and the kernels the trace saw are
+    reported beside them.  Fails the run when the wrapper counts another
+    number of launches, the trace shows no kernel or more kernels than
+    were launched in the traced steps, or the kernels were busy longer
+    than the spans."""
     import statistics
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
 
     fn()
     torch.cuda.synchronize()
@@ -374,46 +380,47 @@ def profile_step(fn, launches: int, steps: int = 5,
         fn()
         torch.cuda.synchronize()
     wall_unprofiled_us = (time.perf_counter() - t0) * 1e6 / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
+    before = launch_count()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps,
+                                   repeat=1)) as prof:
+        for i in range(1 + steps):
             with record_function(f"{STEP_SPAN}{i}"):
                 fn()
                 torch.cuda.synchronize()
-    spans, kernels = {}, []
+            prof.step()
+    made = launch_count() - before
+    check(made == (1 + steps) * launches,
+          f"{made} launches in {1 + steps} steps, want {launches} each")
+    traced = steps * launches
+    spans, kernels = [], []
     for e in prof.events():
         if e.name.startswith(STEP_SPAN):
             if e.device_type == DeviceType.CPU:
-                spans[e.name] = (e.time_range.start, e.time_range.end)
+                spans.append(e.time_range.end - e.time_range.start)
         elif e.device_type == DeviceType.CUDA:
             kernels.append((e.time_range.start, e.time_range.end, e.name))
-    kernels.sort()
-    check(len(spans) == steps and len(kernels) == steps * launches,
-          f"{len(kernels)} kernels in {len(spans)} profiled steps, want "
-          f"{launches} in each of {steps}")
+    check(len(spans) == steps, f"{len(spans)} traced step spans, want "
+                               f"{steps}")
+    check(0 < len(kernels) <= traced,
+          f"the trace shows {len(kernels)} kernels for {traced} launches")
     by_name: dict = {}
-    per_step = []
-    for i in range(steps):
-        start, end = spans[f"{STEP_SPAN}{i}"]
-        busy, reach = 0.0, float("-inf")
-        for k0, k1, name in kernels[i * launches:(i + 1) * launches]:
-            row = by_name.setdefault(name, {"count": 0, "device_us": 0.0})
-            row["count"] += 1
-            row["device_us"] += k1 - k0
-            busy += max(0.0, k1 - max(k0, reach))
-            reach = max(reach, k1)
-        span = end - start
-        check(busy <= span, f"profiled step {i}: kernels busy {busy} us "
-                            f"in a span of {span} us")
-        per_step.append({"span_us": span, "device_busy_us": busy,
-                         "idle_share": 1.0 - busy / span})
-    mid = sorted(per_step, key=lambda r: r["span_us"])[steps // 2]
+    busy, reach = 0.0, float("-inf")
+    for k0, k1, name in sorted(kernels):
+        row = by_name.setdefault(name, {"count": 0, "device_us": 0.0})
+        row["count"] += 1
+        row["device_us"] += k1 - k0
+        busy += max(0.0, k1 - max(k0, reach))
+        reach = max(reach, k1)
+    span = sum(spans)
+    check(busy <= span, f"kernels busy {busy} us in spans of {span} us")
     return {"wall_us_unprofiled": wall_unprofiled_us,
-            "profiled_steps": steps, "median_step": mid,
-            "idle_share_by_step": [r["idle_share"] for r in per_step],
-            "device_busy_us_median": statistics.median(
-                r["device_busy_us"] for r in per_step),
-            "kernels": by_name}
+            "traced_steps": steps, "launches_traced": traced,
+            "kernels_seen": len(kernels), "span_us_by_step": spans,
+            "span_us_median": statistics.median(spans),
+            "span_us_sum": span, "device_busy_us_sum": busy,
+            "device_busy_us_per_step": busy / steps,
+            "idle_share": 1.0 - busy / span, "kernels": by_name}
 
 
 def subnormal_weights():
@@ -609,13 +616,11 @@ def pulse_matmul_leg(dev, smi: str) -> dict:
     for m in (DECODE_M, PREFILL_M):
         prof = profile_step(lambda m=m: [
             pulse_matmul_op(xs[(m, name)], *quant[name], PLANES)
-            for name in LAYER], len(LAYER))
-        k3 = sum(r["count"] for name, r in prof["kernels"].items()
-                 if K3_KERNEL in name)
+            for name in LAYER], len(LAYER),
+            lambda: bmm.pulse_matmul.launches)
         extra = sorted(name for name in prof["kernels"]
                        if K3_KERNEL not in name)
-        check(k3 == len(LAYER) * prof["profiled_steps"] and not extra,
-              f"a step at M={m} ran {k3} K3 kernels and {extra}")
+        check(not extra, f"a step at M={m} ran other kernels: {extra}")
         profiles[m] = prof
 
     # -- device time of each launch: CUDA events around launches queued
@@ -712,13 +717,17 @@ def main() -> int:
               for k in range(SERVE_CHUNKS)]
     eng = FilterBankEngine(serve_prog, channels=1, mode="packed", device=dev)
     bf.reset_launch_counts()
+    outs, serve_per_push = [], []
     t0 = time.perf_counter()
-    outs = [eng.push(c) for c in chunks]
+    for c in chunks:
+        before = bf.bank_apply.launches
+        outs.append(eng.push(c))
+        serve_per_push.append(bf.bank_apply.launches - before)
     serve_s = time.perf_counter() - t0
     serve_launches = bf.bank_apply.launches
-    check(serve_launches == SERVE_CHUNKS,
-          f"serve leg: {serve_launches} bank launches for {SERVE_CHUNKS} "
-          f"pushes, want one a push")
+    check(serve_per_push == [1] * SERVE_CHUNKS,
+          f"serve leg: K1 launches per push {serve_per_push}, want one a "
+          f"push")
     cpu_eng = FilterBankEngine(serve_prog, channels=1, mode="packed",
                                device="cpu")
     cpu_outs = [cpu_eng.push(c) for c in chunks]
@@ -732,6 +741,7 @@ def main() -> int:
     emit({"phase": "serve", "filters": SERVE_FILTERS, "taps": SERVE_TAPS,
           "pushes": SERVE_CHUNKS, "chunk": SERVE_CHUNK,
           "outputs_per_filter": n_serve_out, "bank_launches": serve_launches,
+          "bank_launches_per_push": serve_per_push,
           "groups": len(eng.bank_schedule.groups), "wall_s": serve_s,
           "bit_exact_vs_cpu_and_oracle": True})
 
@@ -860,6 +870,14 @@ def main() -> int:
     k1_bound, k1_by = bound(k1_ops, k1_bytes, INT8_TC_OPS_PER_S)
     k1_ms = cuda_ms(k1)
     k1_device_us = queued_us(k1, reps=10)
+    # into a contiguous result (rows 8 bytes off 16 bytes: thread stores)
+    out_dense = torch.empty((len(sweep_q), 1, n_sweep), dtype=torch.int32,
+                            device=dev)
+    k1_dense_ms = cuda_ms(lambda: bf.bank_apply(frames, terms_k1, OPS_TILE,
+                                                n_sweep, out=out_dense))
+    check(torch.equal(out_dense, y_sweep), "K1 into a contiguous result "
+                                           "differs")
+    del out_dense
     k1_plain_ms = cuda_ms(lambda: plain_groups(frames, sched, SWEEP_TAPS,
                                                OPS_TILE))
     k1_lib_ms = conv1d_ms(x_sweep, sweep_q, n_sweep)
@@ -904,8 +922,7 @@ def main() -> int:
     serve_shape = {
         "shape": f"{SERVE_FILTERS} filters x {SERVE_TAPS} taps x 1 channel x "
                  f"{sbuf.shape[1]} samples (one push), tile {eng.tile}",
-        "max_abs_err": serve_diff, "ms": s_device_us / 1e3,
-        "events_ms_back_to_back": cuda_ms(k1_serve),
+        "max_abs_err": serve_diff, "ms": cuda_ms(k1_serve),
         "device_us": s_device_us,
         "plain_ms": cuda_ms(lambda: plain_groups(
             sframes_b, eng.bank_schedule, SERVE_TAPS, eng.tile)),
@@ -913,7 +930,8 @@ def main() -> int:
         "cuda_core_bound_ms": s_ops / INT32_OPS_PER_S * 1e3,
         "cuda_core_iadd3_bound_ms": s_ops / INT32_ADDS_PER_S * 1e3,
         "library_ms": conv1d_ms(sbuf[0], serve_q, n_push),
-        "ops": s_ops, "bytes": s_bytes, "launches_per_push": 1,
+        "ops": s_ops, "bytes": s_bytes,
+        "launches_per_push": serve_per_push,
     }
 
     # K2's adds: one per pulse and one per fold (a tap other than the
@@ -941,6 +959,7 @@ def main() -> int:
                   f"{len(sched.groups)} groups in 1 launch",
          "max_abs_err": sweep_diff, "max_abs_diff": sweep_diff,
          "ms": k1_ms, "kernel_ms": k1_ms, "device_us": k1_device_us,
+         "contiguous_out_ms": k1_dense_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "bound_share": k1_bound / k1_ms,
          "cuda_core_bound_ms": k1_ops / INT32_OPS_PER_S * 1e3,
@@ -976,7 +995,7 @@ def main() -> int:
           "filter_samples_per_s": SERVE_FILTERS * n_done / dt,
           "device": kind, "nvidia_smi": smi})
     bf.reset_launch_counts()
-    breakdown = serve_push_breakdown(eng, chunks, bf)
+    breakdown = serve_push_breakdown(eng, chunks)
     check(bf.bank_apply.launches == 3 * SERVE_CHUNKS,
           f"serve breakdown: {bf.bank_apply.launches} bank launches for "
           f"{3 * SERVE_CHUNKS} pushes")

@@ -137,20 +137,9 @@ class FilterBankEngine:
         a tensor; returns the newly computable outputs as numpy int32
         (B, C, n_out) — n_out is 0 while the engine primes its taps − 1
         history."""
-        chunk = as_device_tensor(chunk, self.device).to(torch.int32)
-        if chunk.ndim == 1:
-            chunk = chunk[None, :]
-        if chunk.shape[0] != self.channels:
-            raise ValueError(
-                f"expected {self.channels} channels, got {chunk.shape[0]}"
-            )
-        self.samples_in += chunk.shape[1]
-        buf = torch.cat([self._tail, chunk], 1)
-        n = buf.shape[1]
-        if n < self.taps:  # still priming
-            self._tail = buf
+        buf = self._advance(self._upload(chunk))
+        if buf is None:  # still priming
             return np.zeros((self.n_filters, self.channels, 0), np.int32)
-        self._tail = buf[:, n - (self.taps - 1):].clone()
         y = self._apply(buf)
         self.samples_out += y.shape[2]
         return y
@@ -219,9 +208,36 @@ class FilterBankEngine:
             )
         return self._apply(buf)
 
-    def _apply(self, buf: torch.Tensor) -> np.ndarray:
+    # -- the steps of a push (each timed by `chip_smoke.py`) -----------------
+
+    def _upload(self, chunk) -> torch.Tensor:
+        """The chunk as (C, n) int32 on the engine's device."""
+        chunk = as_device_tensor(chunk, self.device).to(torch.int32)
+        if chunk.ndim == 1:
+            chunk = chunk[None, :]
+        if chunk.shape[0] != self.channels:
+            raise ValueError(
+                f"expected {self.channels} channels, got {chunk.shape[0]}"
+            )
+        return chunk
+
+    def _advance(self, chunk: torch.Tensor) -> torch.Tensor | None:
+        """Append ``chunk`` to the tail: the (C, taps − 1 + n) buffer to
+        filter, keeping its last taps − 1 samples as the new tail, or None
+        (the whole buffer kept) while the engine still primes."""
+        self.samples_in += chunk.shape[1]
+        buf = torch.cat([self._tail, chunk], 1)
         n = buf.shape[1]
-        n_out = n - self.taps + 1
+        if n < self.taps:
+            self._tail = buf
+            return None
+        self._tail = buf[:, n - (self.taps - 1):].clone()
+        return buf
+
+    def _frame(self, buf: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """(C, n) samples → the kernels' (C, n_tiles, frame_len) frames
+        and the n − taps + 1 outputs they yield."""
+        n = buf.shape[1]
         # pad to a tile multiple as the reference does (there to bound its
         # jit shapes), so both engines frame a push identically; windows
         # reaching into the padding are dropped
@@ -229,12 +245,18 @@ class FilterBankEngine:
         if n_pad != n:
             buf = F.pad(buf, (0, n_pad - n))
         frames, _ = frame_signal_batch(buf, self.taps, self.tile)
+        return frames, n - self.taps + 1
+
+    def _run(self, frames: torch.Tensor, n_out: int) -> torch.Tensor:
+        """One kernel launch over the frames → (B, C, n_out) int32 on the
+        engine's device, filters in the caller's order."""
         if self.mode == "packed":
-            y = bank_schedule_apply(
+            return bank_schedule_apply(
                 frames, self.bank_schedule, self.taps, self.tile, n_out,
                 terms=self._terms,
-            )  # one launch: (B, C, n_out) in the caller's order
-        else:  # one launch: (B, C, n_tiles, tile)
-            y = specialized_call(frames, self._spec).reshape(
-                self.n_filters, self.channels, -1)[:, :, :n_out]
-        return y.cpu().numpy()
+            )
+        y = specialized_call(frames, self._spec)  # (B, C, n_tiles, tile)
+        return y.reshape(self.n_filters, self.channels, -1)[:, :, :n_out]
+
+    def _apply(self, buf: torch.Tensor) -> np.ndarray:
+        return self._run(*self._frame(buf)).cpu().numpy()

@@ -53,7 +53,6 @@ __all__ = [
     "LANE",
     "a_fragments",
     "bank_apply",
-    "bank_call",
     "bank_call_plain",
     "bank_k",
     "bank_output",
@@ -810,45 +809,6 @@ def _bank_library():
     from .build import library
 
     return library("blmac_bank")
-
-
-def bank_call(
-    frames: torch.Tensor,
-    packed: torch.Tensor,
-    taps: int,
-    schedule: tuple,
-    tail_shift: int,
-    tile: int,
-    out: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Run one tile group: (C, n_tiles, frame_len) int32 frames and its
-    (rows, n_sel, n_words) int32 packed operand → (rows, C, n_tiles,
-    tile) int32, written into ``out`` when given.  The plain version for
-    CPU frames; for CUDA frames one K1 launch (`bank_apply`) over the
-    group's own tables."""
-    _check_frames(frames, 3, taps, tile)
-    n_chan, n_tiles, _ = frames.shape
-    rows = packed.shape[0]
-    if packed.dtype != torch.int32 or packed.device != frames.device:
-        raise ValueError(f"packed must be int32 on {frames.device}, got "
-                         f"{packed.dtype} on {packed.device}")
-    shape = (rows, n_chan, n_tiles, tile)
-    if out is not None and (tuple(out.shape) != shape or not
-                            out.is_contiguous() or out.dtype != torch.int32
-                            or out.device != frames.device):
-        raise ValueError(f"out must be contiguous int32 {shape} on "
-                         f"{frames.device}")
-    if frames.device.type == "cpu":
-        y = bank_call_plain(frames, packed, taps, schedule, tail_shift, tile)
-        return y if out is None else out.copy_(y)
-    if frames.device.type != "cuda":
-        raise ValueError(f"unsupported device {frames.device}")
-    terms = group_terms(packed, schedule, tail_shift, taps, frames.device)
-    if out is None:
-        out = torch.empty(shape, dtype=torch.int32, device=frames.device)
-    bank_apply(frames, terms, tile, n_tiles * tile,
-               out=out.view(rows, n_chan, n_tiles * tile))
-    return out
 
 
 def reset_launch_counts() -> None:

@@ -66,8 +66,8 @@
 //     buffer whose rows are padded to 8 elements), so every copy writes
 //     whole 32-byte sectors, none shared with another block's copy.  Into
 //     a contiguous result at the sweep shape (rows 8 bytes off 16, so
-//     thread stores) the kernel takes 2.3x as long on an H100
-//     (benchmarks/port_bank_probe.py).  Thread stores write the rest (a
+//     thread stores) the kernel takes 2.2x as long on an H100
+//     (chip_smoke.py, `contiguous_out_ms`).  Thread stores write the rest (a
 //     row's last outputs past a multiple of 4, or rows that do not start
 //     on 16 bytes);
 //   * all-zero groups have tiles with no terms: the same launch writes

@@ -29,9 +29,10 @@ from repro_torch.kernels import blmac_matmul as bmm
 from repro_torch.kernels.blmac_matmul import pulse_matmul
 from repro_torch.kernels.ref import pulse_decode_ref, pulse_matmul_ref
 from repro_torch.kernels.blmac_fir import (SpecializedProgram, bank_apply,
-                                           bank_call, bank_call_plain,
+                                           bank_call_plain,
                                            bank_schedule_apply, bank_terms,
                                            frame_signal, frame_signal_batch,
+                                           group_terms,
                                            pulses_from_packed,
                                            reset_launch_counts,
                                            specialized_call,
@@ -78,6 +79,17 @@ def _sweep_rows(taps, n, seed=0):
     return po2_quantize_batch(bank[rows], 16)[0]
 
 
+def _group_on_card(frames, g, taps: int, tile: int) -> torch.Tensor:
+    """One tile group through K1 (`bank_apply` over the group's own
+    tables, its rows in order): (rows, C, n_tiles, tile) int32, as
+    `bank_call_plain` returns it."""
+    n_chan, n_tiles, _ = frames.shape
+    terms = group_terms(g.packed, g.schedule, g.tail_shift, taps,
+                        frames.device)
+    return bank_apply(frames, terms, tile, n_tiles * tile).reshape(
+        -1, n_chan, n_tiles, tile)
+
+
 BANKS = {
     "random": lambda: _random_bank(40, 31, 1),
     "sparse": lambda: _random_bank(70, 63, 2, density=0.3),
@@ -106,7 +118,7 @@ def test_bank_kernel_matches_plain_per_group(cuda, bank, merge):
             args = (prog.taps, g.schedule, g.tail_shift, tile)
             want = bank_call_plain(frames_cpu, op_cpu, *args)
             plain = bank_call_plain(frames, op_cpu.to(cuda), *args)
-            got = bank_call(frames, op_cpu.to(cuda), *args)
+            got = _group_on_card(frames, g, prog.taps, tile)
             torch.cuda.synchronize()
             assert torch.equal(plain.cpu(), want)
             assert torch.equal(got.cpu(), want), (bank, merge, tile)
@@ -188,8 +200,7 @@ def test_bank_kernel_whole_schedule(cuda, taps, n_filters, merge, samples):
                 if g.sel_layers:
                     op = torch.tensor(g.packed.view(np.int32), device=cuda)
                     assert torch.equal(
-                        bank_call(frames.to(cuda), op, taps, g.schedule,
-                                  g.tail_shift, tile),
+                        _group_on_card(frames.to(cuda), g, taps, tile),
                         bank_call_plain(frames.to(cuda), op, taps, g.schedule,
                                         g.tail_shift, tile))
 
@@ -459,9 +470,10 @@ def test_kernel_rejects_mixed_devices(cuda):
     g = prog.schedule().groups[0]
     frames, _ = frame_signal_batch(torch.zeros((1, 300), dtype=torch.int32),
                                    15, 128)
-    with pytest.raises(ValueError):
-        bank_call(frames.to(cuda), torch.tensor(g.packed.view(np.int32)),
-                  15, g.schedule, g.tail_shift, 128)
+    with pytest.raises(ValueError):  # the group's tables left on the CPU
+        bank_apply(frames.to(cuda),
+                   group_terms(g.packed, g.schedule, g.tail_shift, 15), 128,
+                   frames.shape[1] * 128)
 
 
 def test_build_reports_kernel_resources(cuda):

@@ -72,8 +72,8 @@ def test_bank_plain_matches_reference_xla_lane(bank, merge, bank_tile):
         if not g.sel_layers:
             continue
         op = g.packed.view(np.int32)
-        got = tk.bank_call(frames, torch.tensor(op), prog.taps, g.schedule,
-                           g.tail_shift, 256)
+        got = tk.bank_call_plain(frames, torch.tensor(op), prog.taps,
+                                 g.schedule, g.tail_shift, 256)
         want = rk._bank_call_xla(rframes, jnp.asarray(op), prog.taps,
                                  g.schedule, g.tail_shift, 256)
         assert np.array_equal(got.numpy(), np.asarray(want))
@@ -87,8 +87,8 @@ def test_bank_plain_matches_reference_interpret_kernel():
     assert len(groups) >= 2
     for g in groups:
         op = g.packed.view(np.int32)
-        got = tk.bank_call(frames, torch.tensor(op), prog.taps, g.schedule,
-                           g.tail_shift, 128)
+        got = tk.bank_call_plain(frames, torch.tensor(op), prog.taps,
+                                 g.schedule, g.tail_shift, 128)
         want = rk._bank_call(rframes, jnp.asarray(op), prog.taps, g.schedule,
                              g.tail_shift, 128, sched.tile_size, True)
         assert np.array_equal(got.numpy(), np.asarray(want))
@@ -212,12 +212,12 @@ def test_wrappers_count_launches_only_on_the_card():
 def test_rejects_bad_operands():
     q, prog, sched, x, frames, _ = _group_case("random", 8, None, 256)
     g = sched.groups[0]
+    terms = tk.group_terms(g.packed, g.schedule, g.tail_shift, prog.taps)
+    n_out = frames.shape[1] * 256
     with pytest.raises(ValueError):  # int64 frames
-        tk.bank_call(frames.to(torch.int64), torch.tensor(g.packed.view(np.int32)),
-                     prog.taps, g.schedule, g.tail_shift, 256)
+        tk.bank_apply(frames.to(torch.int64), terms, 256, n_out)
     with pytest.raises(ValueError):  # wrong output buffer
-        tk.bank_call(frames, torch.tensor(g.packed.view(np.int32)), prog.taps,
-                     g.schedule, g.tail_shift, 256,
-                     out=torch.empty(1, dtype=torch.int32))
+        tk.bank_apply(frames, terms, 256, n_out,
+                      out=torch.empty(1, dtype=torch.int32))
     with pytest.raises(ValueError):
         blmac_fir(np.zeros(50), np.arange(31), device=CPU)
