@@ -11,10 +11,13 @@ packages unchanged:
     on it), `save()` / `load()`,
   * `plan_bank_schedule` / `BankSchedule` / `superlayer_schedule` — the
     pack-time scheduler,
+  * `cse_pass` / `OptimizedProgram` — cross-filter common-subexpression
+    elimination (shared 2-term rows plus a combine matrix),
   * `cache_stats` / `clear_caches` — the cache observability point,
   * `TailSnapshot` — overlap-save stream state, keyed to its program.
 """
 from .cache import cache_stats, clear_caches
+from .optimize import OptimizedProgram, cse_pass
 from .program import (BlmacProgram, CompileSpec, PROGRAM_FORMAT_VERSION,
                       ProgramFormatError, compile_bank, compile_packed,
                       program_from_arrays)
@@ -29,6 +32,7 @@ __all__ = [
     "CompileSpec",
     "MAX_BANK_TILE",
     "MERGE_DEFAULT",
+    "OptimizedProgram",
     "PROGRAM_FORMAT_VERSION",
     "ProgramFormatError",
     "STATE_FORMAT_VERSION",
@@ -39,6 +43,7 @@ __all__ = [
     "clear_caches",
     "compile_bank",
     "compile_packed",
+    "cse_pass",
     "default_bank_tile",
     "plan_bank_schedule",
     "program_from_arrays",

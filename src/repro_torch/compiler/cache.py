@@ -2,10 +2,11 @@
 
 The port's copy of `repro.compiler.cache`: one content-addressed program
 cache (a `BlmacProgram` is compiled at most once per distinct bank
-content) and event counters for the expensive recomputations (CSD
-packings, schedule plans).  `cache_stats()` is the single observability
-point; it also reports the specialized-kernel LRU, whose entries hold
-device-resident pulse tables.
+content), hit/miss stats of the caches that key on a program's digest
+(the dispatch planner's and the CSE pass's memo) and event counters for
+the expensive recomputations (CSD packings, schedule plans, CSE mines).
+`cache_stats()` is the single observability point; it also reports the
+specialized-kernel LRU, whose entries hold device-resident pulse tables.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import importlib
 from dataclasses import dataclass
 
 __all__ = ["CacheStat", "ProgramCache", "cache_stats", "clear_caches",
-           "PROGRAM_CACHE", "COUNTERS"]
+           "PROGRAM_CACHE", "STATS", "COUNTERS"]
 
 
 @dataclass
@@ -75,6 +76,15 @@ class ProgramCache:
 
 PROGRAM_CACHE = ProgramCache()
 
+# hit/miss stats of caches that live outside this module but key on program
+# digests: the dispatch planner's (kernels/runtime.py `_AUTOTUNE_CACHE`)
+# and the optimized-program memo (compiler/optimize.py `_CSE_MEMO`, whose
+# hits are `cse_pass` calls answered without re-mining)
+STATS: "dict[str, CacheStat]" = {
+    "autotune": CacheStat(),
+    "cse": CacheStat(),
+}
+
 # event counters: each key counts actual recomputation events, not lookups
 COUNTERS = collections.Counter()
 
@@ -83,37 +93,50 @@ def _bump(event: str, n: int = 1) -> None:
     COUNTERS[event] += n
 
 
-def _kernel_module():
-    # the submodule, not the same-named function the kernels package
-    # re-exports
-    return importlib.import_module("..kernels.blmac_fir", __package__)
+def _module(name: str):
+    # the submodule, not a same-named function its package re-exports
+    return importlib.import_module(name, __package__)
 
 
 def cache_stats() -> dict:
-    """Hits/misses/size of the program cache and the specialized-kernel
-    LRU, plus the recomputation counters, as a JSON-ready dict::
+    """Hits/misses/size of every compile-pipeline cache, plus the
+    recomputation counters, as a JSON-ready dict (the reference's fields
+    less its jit cache)::
 
         {"program": {"hits", "misses", "size"},
+         "autotune": {"hits", "misses", "size"},
+         "cse": {"hits", "misses", "size"},
          "specialized": {"hits", "misses", "size"},
-         "counters": {"csd_packings": ..., "schedule_plans": ..., ...}}
+         "counters": {"csd_packings": ..., "schedule_plans": ...,
+                      "cse_passes": ..., ...}}
     """
-    info = _kernel_module().specialized_program.cache_info()
-    return {
+    info = _module("..kernels.blmac_fir").specialized_program.cache_info()
+    sizes = {"autotune": len(_module("..kernels.runtime")._AUTOTUNE_CACHE),
+             "cse": len(_module(".optimize")._CSE_MEMO)}
+    out = {
         "program": {
             "hits": PROGRAM_CACHE.stat.hits,
             "misses": PROGRAM_CACHE.stat.misses,
             "size": len(PROGRAM_CACHE),
         },
-        "specialized": {
-            "hits": info.hits, "misses": info.misses, "size": info.currsize,
-        },
-        "counters": dict(COUNTERS),
     }
+    for name, size in sizes.items():
+        out[name] = {"hits": STATS[name].hits, "misses": STATS[name].misses,
+                     "size": size}
+    out["specialized"] = {
+        "hits": info.hits, "misses": info.misses, "size": info.currsize,
+    }
+    out["counters"] = dict(COUNTERS)
+    return out
 
 
 def clear_caches() -> None:
     """Empty every compile-pipeline cache and zero the counters (a test
     isolation hook; the caches are bounded)."""
     PROGRAM_CACHE.clear()
-    _kernel_module().specialized_program.cache_clear()
+    _module("..kernels.runtime")._AUTOTUNE_CACHE.clear()
+    _module(".optimize")._CSE_MEMO.clear()
+    for stat in STATS.values():
+        stat.reset()
+    _module("..kernels.blmac_fir").specialized_program.cache_clear()
     COUNTERS.clear()

@@ -11,9 +11,12 @@ The content address (`BlmacProgram.key`) and the on-disk format
 (`PROGRAM_FORMAT_VERSION`, npz + JSON header) are the reference's, byte
 for byte, so one saved program file serves both packages and a program
 built here from the reference's arrays (`program_from_arrays`) carries
-the reference's key.  What the port leaves out for now: `partition`,
-`select`, `machine_cycles`, the cost-model readers and CSE-optimized
-programs (a file the reference's CSE pass wrote is refused on load).
+the reference's key.  The same holds for a CSE-optimized program
+(`repro_torch.compiler.optimize.OptimizedProgram`): a file either
+package's CSE pass saved loads in the other under the same key.  The
+dispatch planner reads its inputs off the program (`mean_pulses`,
+`predict_specialized_us`, `predict_scheduled_us`).  What the port leaves
+out for now: `partition`, `select` and `machine_cycles`.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ __all__ = [
 # the reference's on-disk layout version; `load` rejects other versions
 # instead of mis-parsing them
 PROGRAM_FORMAT_VERSION = 1
+TRITS_PER_WORD = 16
 
 
 class ProgramFormatError(ValueError):
@@ -117,6 +121,11 @@ class BlmacProgram:
         Non-zero trits per filter.
     """
 
+    # non-None only on an `OptimizedProgram` (compiler/optimize.py): plain
+    # consumers branch on `program.combine is not None`
+    combine = None
+    parent = None
+
     def __init__(self, *, qbank, exponents, packed, occupancy, signatures,
                  pulse_counts, spec: CompileSpec, key: str):
         self.qbank = qbank
@@ -140,6 +149,28 @@ class BlmacProgram:
         return (
             f"BlmacProgram(B={self.n_filters}, taps={self.taps}, "
             f"layers={self.n_layers}, key={self.key[:12]}…)"
+        )
+
+    # -- derived views -------------------------------------------------------
+
+    @property
+    def mean_pulses(self) -> float:
+        """Bank-average BLMAC pulses per filter (the cost model's knob)."""
+        return float(self.pulse_counts.mean()) if self.n_filters else 0.0
+
+    @property
+    def out_filters(self) -> int:
+        """Filters this program serves: ``n_filters`` here; an
+        `OptimizedProgram` serves fewer than its rows (the rest are shared
+        partial sums)."""
+        return self.n_filters
+
+    def total_adds(self) -> int:
+        """§3.3 additions for one output sample of the whole bank:
+        ``taps // 2`` symmetric folds per filter plus one add per CSD
+        pulse — the baseline the CSE pass reduces."""
+        return self.n_filters * (self.taps // 2) + int(
+            self.pulse_counts.sum()
         )
 
     def half_digits(self) -> np.ndarray:
@@ -186,6 +217,58 @@ class BlmacProgram:
             )
         return self._schedules[key]
 
+    # -- cost-model reads ----------------------------------------------------
+
+    def predict_specialized_us(self, channels: int, n_tiles: int, cal=None,
+                               tile: int = 1) -> float:
+        """Modelled per-dispatch latency of the specialized path
+        (`repro_torch.core.costmodel.predict_specialized_us` with the
+        bank's inputs read off the program); ``cal`` selects the lane's
+        constants (default: the reference's), ``tile`` the outputs a
+        signal tile holds (the ``"cuda"`` lane prices every output)."""
+        from ..core.costmodel import predict_specialized_us
+
+        return predict_specialized_us(
+            self.n_filters, channels, n_tiles, self.taps,
+            self.mean_pulses, self.n_layers, cal=cal, tile=tile,
+            max_pulses=float(self.pulse_counts.max(initial=0)),
+        )
+
+    def predict_scheduled_us(
+        self,
+        channels: int,
+        n_tiles: int,
+        tile: int,
+        bank_tile: int | None = None,
+        merge: int | None = None,
+        cal=None,
+    ) -> float:
+        """Modelled per-dispatch latency of the scheduled bank path for
+        one geometry, costed on the memoized schedule.  On the reference
+        lane the reference's formula, with ``f32_safe`` decided by the
+        schedule's superlayers (`f32_dot_safe`); on the ``"cuda"`` lane
+        K1's term walk and output bytes (`predict_bank_kernel_us`)."""
+        from ..core.costmodel import (CUDA_LANE, predict_bank_kernel_us,
+                                      predict_scheduled_us)
+        from ..kernels.blmac_fir import bank_k, bank_work, f32_dot_safe
+
+        sched = self.schedule(bank_tile, merge)
+        if cal is not None and cal.lane == CUDA_LANE:
+            return predict_bank_kernel_us(
+                self.n_filters, channels, n_tiles * tile, bank_k(self.taps),
+                bank_work(sched, self.spec.sample_bits), cal,
+            )
+        m_pad = self.n_words * TRITS_PER_WORD
+        f32_safe = all(
+            f32_dot_safe(m_pad, parts)
+            for g in sched.groups
+            for _, parts in g.schedule
+        )
+        return predict_scheduled_us(
+            channels, n_tiles, tile, m_pad,
+            sched.group_summaries(), cal=cal, f32_safe=f32_safe,
+        )
+
     # -- serialization -------------------------------------------------------
 
     def save(self, path) -> None:
@@ -221,8 +304,10 @@ class BlmacProgram:
         Every way the file can be bad raises `ProgramFormatError`: another
         format version, an unreadable archive, a header digest that does
         not match the packed trits, coefficients that do not decode from
-        the trits, or a CSE-optimized program (not ported yet).  The
-        loaded program is registered content-addressed.
+        the trits, or (for a file with a ``cse`` header section, which
+        loads as an `OptimizedProgram`) a combine matrix that does not
+        rebuild the parent under its stored key.  The loaded program is
+        registered content-addressed.
         """
         try:
             with np.load(path, allow_pickle=False) as z:
@@ -235,20 +320,31 @@ class BlmacProgram:
                 qbank = np.ascontiguousarray(z["qbank"], np.int64)
                 exponents = np.ascontiguousarray(z["exponents"], np.int64)
                 packed = np.ascontiguousarray(z["packed"], np.uint32)
+                combine = use_counts = None
+                if "cse" in header:  # an optimized program (optimize.py)
+                    combine = np.asarray(z["combine"], np.int64)
+                    use_counts = np.asarray(z["use_counts"], np.int64)
         except ProgramFormatError:
             raise
         except Exception as e:  # truncated zip, missing array, bad JSON …
             raise ProgramFormatError(f"{path}: unreadable program file: {e}")
-        if "cse" in header:
-            raise ProgramFormatError(
-                f"{path}: CSE-optimized programs are not supported here yet"
-            )
         spec = CompileSpec(**header["spec"])
         pkey = _packed_key(packed, int(header["taps"]), spec.sample_bits)
-        if pkey[1].hex() != header.get("key"):
+        # an optimized file's `key` is its CSE content address; the trit
+        # digest moves to `packed_digest` (the same integrity check)
+        if pkey[1].hex() != header.get("packed_digest", header.get("key")):
             raise ProgramFormatError(
                 f"{path}: content digest mismatch (corrupted file?)"
             )
+        if "cse" in header:
+            from .optimize import _load_optimized
+
+            try:
+                _check_decodes(qbank, packed)
+            except ValueError as e:
+                raise ProgramFormatError(f"{path}: {e}") from e
+            return _load_optimized(path, header, qbank, exponents, packed,
+                                   combine, use_counts)
         try:
             return _register(qbank, exponents, packed, spec, pkey)
         except ValueError as e:
@@ -306,7 +402,8 @@ def _register(qbank, exponents, packed, spec, pkey) -> BlmacProgram:
 
 
 def program_from_arrays(
-    qbank, exponents, packed, spec: CompileSpec | None = None
+    qbank, exponents, packed, spec: CompileSpec | None = None, *,
+    combine=None, use_counts=None, level=2,
 ) -> BlmacProgram:
     """Build a program from another package's arrays — the reference's
     ``BlmacProgram.qbank``, ``.exponents`` and ``.packed`` as numpy
@@ -314,10 +411,26 @@ def program_from_arrays(
     same content key as the program the arrays came from (pass that
     program's ``spec`` fields when they differ from the defaults).
 
+    With ``combine`` and ``use_counts`` (an optimized program's arrays,
+    its ``level`` beside them) the arrays describe the augmented bank of a
+    CSE-optimized program, and ``spec`` is its parent's: the parent is
+    rebuilt by linearity and the result is an `OptimizedProgram` under the
+    reference's key for the same pass.
+
     Raises ``ValueError`` when the coefficients do not decode from the
-    packed trits, are not type-I, or break the §2.1 int32 bound.
+    packed trits, are not type-I, or break the §2.1 int32 bound (the
+    parent's, for an optimized program).
     """
     spec = spec or CompileSpec()
+    if combine is not None:
+        from .optimize import _rebuild_optimized
+
+        qbank = np.ascontiguousarray(np.asarray(qbank), np.int64)
+        packed = np.ascontiguousarray(np.asarray(packed), np.uint32)
+        _check_decodes(qbank, packed)
+        return _rebuild_optimized(
+            qbank, np.ascontiguousarray(np.asarray(exponents), np.int64),
+            packed, np.asarray(combine), np.asarray(use_counts), level, spec)
     qbank = np.ascontiguousarray(np.asarray(qbank), np.int64)
     packed = np.ascontiguousarray(np.asarray(packed), np.uint32)
     exponents = np.ascontiguousarray(np.asarray(exponents), np.int64)

@@ -16,10 +16,17 @@ Modes:
   * ``"specialized"`` — the pulse-specialized kernel: one launch per
     push for every filter and channel, the filters' pulse tables
     concatenated and uploaded to the device once, at construction.
-  * ``"auto"`` — the default.  The reference's cost-model autotuner is
-    not ported yet, so this is the rule of `blmac_fir_bank`'s fast path:
-    ``"specialized"`` for banks of at most `FAST_PATH_MAX` (= 1) filters,
-    ``"packed"`` otherwise.
+  * ``"auto"`` — the default: `autotune_bank_dispatch` prices both paths
+    (and the scheduled tile/merge grid) with the cost model — the
+    reference's constants on the CPU, the ``"cuda"`` lane fitted on the
+    card — and the engine keeps the winner's plan (``dispatch_plan``).
+
+A CSE-optimized program (`repro_torch.compiler.cse_pass`) serves its
+parent's filters: the engine runs the augmented bank through K1 or K2,
+then folds the shared rows into the real ones (the combine kernel, in
+place), and its ``n_filters`` and ``qbank`` are the parent's.  In
+``"auto"`` mode the planner may decline the shared-row layout
+(``dispatch_plan.cse == "declined"``); the engine then runs the parent.
 
 Arithmetic contract: int32 throughout; the §2.1 bound is asserted once,
 inside `compile_bank`.  Every mode agrees with `fir_bit_layers_batch`
@@ -32,11 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from ..compiler import BlmacProgram, MERGE_DEFAULT, TailSnapshot, compile_bank
-from ..kernels.blmac_fir import (FAST_PATH_MAX, SpecializedProgram,
-                                 bank_schedule_apply, bank_terms,
+from ..kernels.blmac_fir import (SpecializedProgram, bank_schedule_apply,
+                                 bank_terms, combine_fold, combine_table,
                                  frame_signal_batch, specialized_call)
 from ..kernels.ops import as_device_tensor
-from ..kernels.runtime import DEFAULT_TILE, resolve_device
+from ..kernels.runtime import (DEFAULT_TILE, autotune_bank_dispatch,
+                               resolve_device)
 
 __all__ = ["FilterBankEngine", "DEFAULT_TILE"]
 
@@ -49,21 +57,26 @@ class FilterBankEngine:
     qbank : (B, taps) or (taps,) int array, or `BlmacProgram`
         Quantized odd symmetric (type-I) coefficients, one row per filter,
         compiled via `compile_bank` (content-addressed); a prebuilt or
-        `load()`ed program skips compilation.
+        `load()`ed program skips compilation.  An `OptimizedProgram`
+        serves its parent's filters (module docstring).
     channels : int
         Number of independent input channels C.
     tile : int | None
-        Output samples per signal tile (None = `DEFAULT_TILE`).
+        Output samples per signal tile (None = the plan's in ``"auto"``
+        mode, else `DEFAULT_TILE`).
     mode : {"auto", "packed", "scheduled", "specialized"}
-        See the module docstring; ``"auto"`` takes ``"specialized"`` for
-        B ≤ 1 and ``"packed"`` otherwise.
+        See the module docstring; ``"auto"`` runs the dispatch planner.
     bank_tile : int | None
-        Filters per bank tile of the schedule (None = heuristic).
+        Filters per bank tile of the schedule (None = the plan's or the
+        heuristic).
     merge : int | None
-        CSD layers fused per superlayer (None = `MERGE_DEFAULT`).
+        CSD layers fused per superlayer (None = the plan's or
+        `MERGE_DEFAULT`).
     device : str | torch.device | None
         Where the kernels run; None = the GPU (raises without one),
         ``"cpu"`` = the plain PyTorch versions.
+    chunk_hint : int
+        Expected samples per push, the planner's amortization knob.
 
     Examples
     --------
@@ -88,6 +101,7 @@ class FilterBankEngine:
         bank_tile: int | None = None,
         merge: int | None = None,
         device=None,
+        chunk_hint: int = 2048,
     ):
         if isinstance(qbank, BlmacProgram):
             program = qbank
@@ -101,19 +115,38 @@ class FilterBankEngine:
             mode = "packed"
         if mode not in ("auto", "packed", "specialized"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mode == "auto":
-            mode = ("specialized" if program.n_filters <= FAST_PATH_MAX
-                    else "packed")
         self.device = resolve_device(device)
-        self.program = program
-        self.qbank = program.qbank
-        self.n_filters = program.n_filters
-        self.taps = program.taps
         self.channels = int(channels)
+        self.dispatch_plan = None
+        if mode == "auto":
+            self.dispatch_plan, schedule = autotune_bank_dispatch(
+                program, channels=self.channels, tile=tile,
+                chunk_hint=chunk_hint, device=self.device,
+            )
+            if self.dispatch_plan.cse == "declined":
+                # the plan and schedule are the parent's: run the parent
+                program = program.parent
+            mode = ("specialized" if self.dispatch_plan.mode == "specialized"
+                    else "packed")
+            if tile is None:
+                tile = self.dispatch_plan.tile
+            if schedule is not None:  # the plan's geometry, unless given
+                bank_tile = schedule.tile_size if bank_tile is None \
+                    else bank_tile
+                merge = schedule.merge if merge is None else merge
+        self.program = program
+        # a CSE-optimized program serves its parent's filters: qbank and
+        # n_filters describe the folded outputs, the shared rows stay inside
+        self._combine = (None if program.combine is None
+                         else combine_table(program.combine, self.device))
+        self.qbank = (program.qbank if program.combine is None
+                      else program.effective_qbank())
+        self.n_filters = program.out_filters
+        self.taps = program.taps
         self.tile = int(tile) if tile is not None else DEFAULT_TILE
         self.mode = mode
         self.merge = merge if merge is not None else MERGE_DEFAULT
-        if mode == "packed":
+        if mode == "packed":  # memoized: the plan's schedule object
             self.bank_schedule = program.schedule(bank_tile, self.merge)
             self.bank_tile = self.bank_schedule.tile_size
             # the kernel's tables go to the device once (the plain CPU
@@ -248,15 +281,19 @@ class FilterBankEngine:
         return frames, n - self.taps + 1
 
     def _run(self, frames: torch.Tensor, n_out: int) -> torch.Tensor:
-        """One kernel launch over the frames → (B, C, n_out) int32 on the
-        engine's device, filters in the caller's order."""
+        """One kernel launch over the frames (and one fold for an
+        optimized program) → (B, C, n_out) int32 on the engine's device,
+        filters in the caller's order."""
         if self.mode == "packed":
             return bank_schedule_apply(
                 frames, self.bank_schedule, self.taps, self.tile, n_out,
-                terms=self._terms,
+                terms=self._terms, combine=self._combine,
             )
         y = specialized_call(frames, self._spec)  # (B, C, n_tiles, tile)
-        return y.reshape(self.n_filters, self.channels, -1)[:, :, :n_out]
+        y = y.reshape(y.shape[0], self.channels, -1)
+        if self._combine is not None:
+            y = combine_fold(y, self._combine)
+        return y[:, :, :n_out]
 
     def _apply(self, buf: torch.Tensor) -> np.ndarray:
         return self._run(*self._frame(buf)).cpu().numpy()

@@ -1,6 +1,6 @@
 """BLMAC FIR filtering on the GPU: single filters and whole banks.
 
-The port of `repro.kernels.blmac_fir`.  Two hand-written CUDA kernels
+The port of `repro.kernels.blmac_fir`.  Three hand-written CUDA kernels
 carry it, each with a plain PyTorch version of the same function beside
 it:
 
@@ -16,8 +16,17 @@ it:
   * **specialized** (`specialized_call`, kernel
     ``csrc/blmac_specialized.cu``) — the filters' CSD pulse lists as
     tap-major device tables (`pulse_table`), one launch for every filter
-    and channel of a call; one filter's table is cached in the
+    and channel of a call, 16 outputs a thread (4 on a grid too small to
+    fill the card, `specialized_outs`, each filter's walk then split into
+    segments of taps, `pulse_segments`); one filter's table is cached in the
     `specialized_program` LRU.  Replaces `_fir_kernel_specialized`.
+  * **combine fold** (`combine_fold`, kernel ``csrc/blmac_combine.cu``) —
+    a CSE-optimized bank's shared rows folded into its real rows in place,
+    ``y[r] += Σ_s combine[r, s] · y[n_real + s]``, from a per-row sparse
+    table (`combine_table`, built once per combine matrix and device);
+    `combine_plain` is its plain version.  Replaces `_combine_shared`
+    (an XLA program, no Pallas kernel) and the reference engine's host
+    fold.
 
 The tensor's device chooses: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel (or raises — there is no fallback).  Each
@@ -51,6 +60,7 @@ __all__ = [
     "BankTerms",
     "FAST_PATH_MAX",
     "LANE",
+    "CombineTable",
     "a_fragments",
     "bank_apply",
     "bank_call_plain",
@@ -59,16 +69,22 @@ __all__ = [
     "bank_schedule_apply",
     "bank_term_walk",
     "bank_terms",
+    "bank_work",
     "blmac_fir_bank",
     "blmac_fir_dynamic",
     "blmac_fir_specialized",
+    "combine_fold",
+    "combine_plain",
+    "combine_table",
     "digit_runs",
+    "f32_dot_safe",
     "fragment_rows",
     "frame_signal",
     "frame_signal_batch",
     "group_terms",
     "pulses_from_packed",
     "pulse_table",
+    "pulse_segments",
     "pulse_table_walk",
     "pulse_tables",
     "pulses_msb_first",
@@ -77,8 +93,11 @@ __all__ = [
     "schedule_layers",
     "specialized_call",
     "specialized_geometry",
+    "specialized_outs",
     "specialized_plain",
     "specialized_program",
+    "specialized_segments",
+    "specialized_walk",
     "term_table",
 ]
 
@@ -89,6 +108,20 @@ FAST_PATH_MAX = 1  # banks up to this size dispatch to specialized programs
 # the plain bank version contracts in float64 on the GPU (torch has no
 # integer matmul there): exact while |u| <= 2 * 2**7, i.e. 8-bit samples
 F64_SAMPLE_LIMIT = 128
+
+# float32 mantissa: integers of magnitude < 2**24 are exactly
+# representable, and sums/products that stay under the bound are exact
+F32_EXACT_BOUND = 1 << 24
+
+
+def f32_dot_safe(m_pad: int, parts) -> bool:
+    """Whether one superlayer's contraction is exact in float32 (the
+    reference's test, which its cost model reads): with 8-bit samples the
+    folded window entries obey ``|u_j| <= 2**8`` and the superlayer digit
+    ``|d_j| <= sum(2**rel)``; when ``m_pad * bound(d) * 2**8 <= 2**24``
+    every partial sum is an integer below the float32 mantissa limit."""
+    bound = sum(1 << rel for _, rel in parts)
+    return m_pad * bound * 256 <= F32_EXACT_BOUND
 
 
 def _pad_to(n: int, m: int) -> int:
@@ -224,54 +257,108 @@ def pulse_tables(schedules, taps: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def pulse_table_walk(frames, table: np.ndarray, offsets: np.ndarray,
-                     taps: int, tile: int) -> np.ndarray:
+                     taps: int, tile: int, segments=None) -> np.ndarray:
     """Plain walk of `pulse_tables`' layout, in numpy uint32 (which wraps
     modulo 2**32 as the kernel's registers do): (..., n_tiles,
     frame_len) int32 frames → (F, ..., n_tiles, tile) int32 — the kernel's
-    loop, tap by tap, fold then one multiply-add per pulse."""
+    loop, tap by tap, fold then one multiply-add per pulse.  With
+    ``segments`` (`pulse_segments`) each filter is walked segment by
+    segment from each segment's own table index, the centre tap in the
+    last, and the partial sums added, as the kernel's small grids do."""
     x = np.asarray(frames, np.int32).view(np.uint32)
     words = np.asarray(table, np.int32).view(np.uint32)
     half = taps // 2
     out = []
     for f in range(len(offsets) - 1):
         t = words[offsets[f]:offsets[f + 1]]
+        n_steps = int(t[0])
+        segs = [(0, 1)] if segments is None else \
+            [tuple(map(int, sg)) for sg in segments[f]]
         acc = np.zeros(x.shape[:-1] + (tile,), np.uint32)
-        p = 1
-        for j in [*range(int(t[0])), half]:
-            n = int(t[p])
-            p += 1
-            if n:
-                u = x[..., j:j + tile]
-                if j != half:
-                    u = u + x[..., taps - 1 - j:taps - 1 - j + tile]
-                for m in t[p:p + n]:
-                    acc += u * m
-                p += n
+        for k, (j0, p) in enumerate(segs):
+            last = k + 1 == len(segs)
+            j1 = n_steps if last else segs[k + 1][0]
+            for j in [*range(j0, j1), *([half] if last else [])]:
+                n = int(t[p])
+                p += 1
+                if n:
+                    u = x[..., j:j + tile]
+                    if j != half:
+                        u = u + x[..., taps - 1 - j:taps - 1 - j + tile]
+                    for m in t[p:p + n]:
+                        acc += u * m
+                    p += n
         out.append(acc.view(np.int32))
     return np.stack(out) if out else np.zeros(
         (0,) + x.shape[:-1] + (tile,), np.int32)
 
 
-# K2's launch geometry (``kOuts`` and the block limit in the .cu source):
-# each thread keeps OUTS_PER_THREAD outputs of one tile in registers, and a
-# block has at most SPECIALIZED_MAX_THREADS threads
+def pulse_segments(table: np.ndarray, offsets: np.ndarray, n_segs: int,
+                   step: int) -> np.ndarray:
+    """Each filter's tap walk cut into ``n_segs`` segments for K2's small
+    grids: int32 (F, n_segs, 2), segment s's first tap ``j0`` and the
+    index, in the filter's table, of that tap's count ``n_j`` (of the
+    centre's ``n_c`` where ``j0`` is past the walk).  Segments start at
+    multiples of ``step`` (the kernel's outputs a thread, so each starts
+    its register rings in the same slots) and are balanced by their table
+    reads, the chain a thread waits on (one a tap for ``n_j``, one a
+    pulse); the last also takes the centre tap.  Some may be empty."""
+    words = np.asarray(table, np.int32)
+    out = np.zeros((len(offsets) - 1, n_segs, 2), np.int32)
+    for f in range(len(offsets) - 1):
+        t = words[offsets[f]:offsets[f + 1]]
+        n_steps = int(t[0])
+        starts, cost, p = [], [], 1
+        for _ in range(n_steps):
+            starts.append(p)
+            n = int(t[p])
+            cost.append(1 + n)
+            p += 1 + n
+        starts.append(p)  # the centre's entry
+        bounds = list(range(0, n_steps, step)) + [n_steps]
+        cum = np.concatenate([[0], np.cumsum(cost)])[bounds]
+        cuts, prev = [0], 0
+        for k in range(1, n_segs):
+            target = cum[-1] * k / n_segs
+            b = prev + int(np.argmin(np.abs(cum[prev:] - target)))
+            cuts.append(b)
+            prev = b
+        for k, b in enumerate(cuts):
+            out[f, k] = (bounds[b], starts[bounds[b]])
+    return out
+
+
+# K2's launch geometry (``kOuts`` and the block limits in the .cu source):
+# each thread keeps OUTS_PER_THREAD outputs of one tile in registers
+# (SMALL_GRID_OUTS where a launch would give the card fewer than
+# SMALL_GRID_WARPS_PER_SM warps an SM, each filter's walk then split into
+# up to SMALL_GRID_SEGMENTS segments of taps); the threads over a tile's
+# columns are at most SPECIALIZED_MAX_THREADS, a block at most
+# SMALL_GRID_MAX_THREADS with its segments
 OUTS_PER_THREAD = 16
+SMALL_GRID_OUTS = 4
+SMALL_GRID_WARPS_PER_SM = 4
+SMALL_GRID_SEGMENTS = 4
 SPECIALIZED_MAX_THREADS = 256
+SMALL_GRID_MAX_THREADS = 512
 SMEM_LIMIT = 232_448  # bytes of shared memory a Hopper block may use
 
 
-def specialized_geometry(tile: int, taps: int, table_len: int):
+def specialized_geometry(tile: int, taps: int, table_len: int,
+                         outs: int = OUTS_PER_THREAD):
     """K2's block for one launch: ``(threads, columns, tab_pad,
     smem_bytes)``.  Enough warps to cover the tile (at most
-    `SPECIALIZED_MAX_THREADS` threads), each thread `OUTS_PER_THREAD`
+    `SPECIALIZED_MAX_THREADS` threads), each thread ``outs`` (16 or 4)
     consecutive columns; the shared memory holds the longest filter table
     (padded to 4 words) and the ``columns + taps − 1`` samples, one pad
     word every 32.  Raises ``ValueError`` when that does not fit a block
     (no fallback)."""
-    warps = min(SPECIALIZED_MAX_THREADS // 32,
-                -(-tile // (32 * OUTS_PER_THREAD)))
+    if outs not in (OUTS_PER_THREAD, SMALL_GRID_OUTS):
+        raise ValueError(f"K2 keeps {OUTS_PER_THREAD} or {SMALL_GRID_OUTS} "
+                         f"outputs a thread, not {outs}")
+    warps = min(SPECIALIZED_MAX_THREADS // 32, -(-tile // (32 * outs)))
     threads = 32 * warps
-    cols = threads * OUTS_PER_THREAD
+    cols = threads * outs
     tab_pad = _pad_to(table_len, 4)
     n_x = cols + taps - 1  # samples, one pad word every 32 in shared memory
     smem = 4 * (tab_pad + n_x + n_x // 32 + 1)
@@ -279,6 +366,48 @@ def specialized_geometry(tile: int, taps: int, table_len: int):
         raise ValueError(f"the specialized kernel needs {smem} bytes of shared "
                          f"memory, more than a block's {SMEM_LIMIT}")
     return threads, cols, tab_pad, smem
+
+
+def specialized_outs(n_filters: int, n_chan: int, n_tiles: int, tile: int,
+                     sms: int) -> int:
+    """Outputs a thread of K2 keeps for one launch: `OUTS_PER_THREAD`,
+    or `SMALL_GRID_OUTS` when that launch would give the ``sms`` SMs of
+    the card fewer than `SMALL_GRID_WARPS_PER_SM` warps each (then a
+    thread's walk, not the integer pipe, sets its time)."""
+    threads, cols, _, _ = specialized_geometry(tile, 1, 0)
+    warps = (n_filters * n_chan * n_tiles * -(-tile // cols)
+             * threads // 32)
+    return (SMALL_GRID_OUTS if warps < SMALL_GRID_WARPS_PER_SM * sms
+            else OUTS_PER_THREAD)
+
+
+def specialized_walk(n_filters: int, n_chan: int, n_tiles: int, tile: int,
+                     sms: int, taps: int, pulses: float) -> float:
+    """Adds one thread of a K2 launch makes for a filter of ``pulses``
+    pulses: its outputs a thread (`specialized_outs`) × the filter's
+    folds and pulses, over the segments of its walk
+    (`specialized_segments`) — what sets the launch's time on a small
+    grid."""
+    outs = specialized_outs(n_filters, n_chan, n_tiles, tile, sms)
+    threads = specialized_geometry(tile, 1, 0, outs)[0]
+    return outs * (taps // 2 + pulses) / specialized_segments(outs, threads)
+
+
+def specialized_segments(outs: int, threads: int) -> int:
+    """Segments of taps K2 splits each filter's walk into: 1 at
+    `OUTS_PER_THREAD` outputs a thread; on a small grid
+    (`SMALL_GRID_OUTS`) `SMALL_GRID_SEGMENTS`, as far as a block of
+    ``threads`` (the threads over a tile's columns) times the segments
+    stays within `SMALL_GRID_MAX_THREADS`."""
+    if outs == OUTS_PER_THREAD:
+        return 1
+    return max(1, min(SMALL_GRID_SEGMENTS, SMALL_GRID_MAX_THREADS // threads))
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def specialized_plain(
@@ -322,7 +451,18 @@ class SpecializedProgram:
         self.device = device
         table, offsets = pulse_tables(self.schedules, taps)
         self.table_len = int(np.diff(offsets).max(initial=0))
-        self.geometry = specialized_geometry(tile, taps, self.table_len)
+        # the launch geometry for each choice of outputs a thread (both
+        # checked here, so a launch cannot be refused for its size)
+        self.geometries = {
+            outs: specialized_geometry(tile, taps, self.table_len, outs)
+            for outs in (OUTS_PER_THREAD, SMALL_GRID_OUTS)}
+        self.geometry = self.geometries[OUTS_PER_THREAD]
+        # each width's segments of the filters' walks (`pulse_segments`)
+        self.segments = {}
+        for outs, (threads, _, _, _) in self.geometries.items():
+            n_segs = specialized_segments(outs, threads)
+            self.segments[outs] = _on_device(
+                pulse_segments(table, offsets, n_segs, outs), device)
         self.table = _on_device(table, device)
         self.offsets = _on_device(offsets, device)
 
@@ -374,13 +514,18 @@ def specialized_call(frames: torch.Tensor, prog: SpecializedProgram):
     out = torch.empty((prog.n_filters,) + lead + (prog.tile,),
                       dtype=torch.int32, device=dev)
     if prog.n_filters:
-        threads, _, tab_pad, _ = prog.geometry
+        n_chan = lead[0] if len(lead) == 2 else 1
+        outs = specialized_outs(prog.n_filters, n_chan, lead[-1], prog.tile,
+                                sm_count(dev))
+        threads, _, tab_pad, _ = prog.geometries[outs]
+        segs = prog.segments[outs]
         err = _specialized_library().blmac_specialized_launch(
             frames.data_ptr(), frames.stride(0) if len(lead) == 2 else 0,
             frames.stride(-2), prog.table.data_ptr(), prog.offsets.data_ptr(),
-            tab_pad, out.data_ptr(), prog.n_filters,
-            lead[0] if len(lead) == 2 else 1, lead[-1], prog.tile, prog.taps,
-            threads, torch._C._cuda_getCurrentRawStream(dev.index), dev.index,
+            segs.data_ptr(), segs.shape[1], tab_pad, out.data_ptr(),
+            prog.n_filters, n_chan, lead[-1],
+            prog.tile, prog.taps, threads, outs,
+            torch._C._cuda_getCurrentRawStream(dev.index), dev.index,
         )
         _raise_on(err, "blmac_specialized_kernel")
         specialized_call.launches += 1
@@ -579,6 +724,32 @@ class BankTerms:
     @property
     def n_row_tiles(self) -> int:
         return self.tiles.shape[0]
+
+
+def sample_plane_count(sample_bits: int) -> int:
+    """Byte planes K1 walks for folded samples of ``sample_bits``-bit
+    inputs (|u| ≤ 2**sample_bits, `sample_planes`' balanced split): 2 for
+    8-bit samples, 4 for full-range int32."""
+    return min(SAMPLE_PLANES, -(-(sample_bits + 2) // 8))
+
+
+def bank_work(schedule: BankSchedule,
+              sample_bits: int = 8) -> list[tuple[int, int]]:
+    """K1's work for a schedule, without building its tables: one
+    ``(n_row_tiles, n_terms)`` pair per tile group — its 64-row tiles and
+    the `term_table` rows each walks for ``sample_bits``-bit samples (the
+    planes above `sample_plane_count` are zero and skipped).  The layers
+    come back absolute (`schedule_layers`), so the work is the same for
+    every ``merge``; the cost model's ``"cuda"`` lane reads it."""
+    planes = sample_plane_count(sample_bits)
+    out = []
+    for g in schedule.groups:
+        layers = schedule_layers(g.schedule, g.tail_shift)
+        lows = [min(layers[i] for i in run) for run in digit_runs(layers)]
+        tab = term_table(lows)
+        out.append((-(-g.packed.shape[0] // ROW_TILE),
+                    int((tab[:, 1] < planes).sum())))
+    return out
 
 
 def group_terms(packed, schedule: tuple, tail_shift: int, taps: int,
@@ -811,10 +982,170 @@ def _bank_library():
     return library("blmac_bank")
 
 
+# ---------------------------------------------------------------------------
+# the combine fold of a CSE-optimized bank
+# ---------------------------------------------------------------------------
+
+# the plain fold's float64 route on the GPU splits the shared rows into
+# 16-bit halves: exact while each row's sum of |coefficients| times 2**16
+# stays below 2**53
+F64_FOLD_ROW_LIMIT = 1 << 37
+
+
+class CombineTable:
+    """A combine matrix as the fold kernel reads it, built on the host
+    once and kept on ``device`` (CUDA) for every launch: per real row, its
+    nonzeros in column order (CSR).
+
+    * ``row_ptr`` (n_real + 1,) int32 — row ``r``'s entries are
+      ``row_ptr[r] .. row_ptr[r + 1]``;
+    * ``cols`` (nnz,) int32 — the shared row each entry reads;
+    * ``coeffs`` (nnz,) int32 — its coefficient modulo 2**32.
+
+    ``combine`` keeps the int64 matrix for `combine_plain`."""
+
+    def __init__(self, combine, device=None):
+        c = np.ascontiguousarray(np.asarray(combine), np.int64)
+        if c.ndim != 2:
+            raise ValueError(f"combine must be 2-D, got {c.shape}")
+        self.combine = c
+        self.n_real, self.n_shared = c.shape
+        rows, cols = np.nonzero(c)  # row-major: grouped by row
+        self.row_ptr = np.searchsorted(
+            rows, np.arange(self.n_real + 1)).astype(np.int32)
+        self.cols = cols.astype(np.int32)
+        self.coeffs = (c[rows, cols] & 0xFFFFFFFF).astype(np.uint32) \
+            .view(np.int32)
+        self.device = torch.device("cpu") if device is None \
+            else torch.device(device)
+        self.tensors = None
+        if self.device.type == "cuda":
+            self.tensors = tuple(
+                _on_device(a if a.size else np.zeros(1, np.int32),
+                           self.device)
+                for a in (self.row_ptr, self.cols, self.coeffs))
+
+    @property
+    def nnz(self) -> int:
+        return int(self.cols.size)
+
+
+_COMBINE_CACHE: dict = {}
+
+
+def combine_table(combine, device) -> CombineTable:
+    """The `CombineTable` of a combine matrix on ``device``, cached per
+    (matrix object, device): an optimized program's frozen ``combine``
+    builds and uploads its table once, shared by its engines and calls."""
+    dev = torch.device(device)
+    key = (id(combine), str(dev))
+    hit = _COMBINE_CACHE.get(key)
+    if hit is not None and hit[0]() is combine:
+        return hit[1]
+    table = CombineTable(combine, dev)
+    _COMBINE_CACHE[key] = (weakref.ref(combine), table)
+    while len(_COMBINE_CACHE) > TERMS_CACHE_MAX:
+        del _COMBINE_CACHE[next(iter(_COMBINE_CACHE))]
+    return table
+
+
+def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 modulo 2**32 (two's complement), on any device."""
+    return (((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def combine_plain(y: torch.Tensor, combine, n_real: int) -> torch.Tensor:
+    """Plain version of the fold: ``y[:n_real] + combine @ y[n_real:]``
+    over the leading axis of ``y`` (int32 (rows, ...)), in int64 with a
+    wrapping cast to int32 — the residue modulo 2**32 of the reference's
+    int32 GEMM (`_combine_shared`) and host fold (`_host_combine_i32`).
+    Returns a new (n_real, ...) tensor.  Torch has no integer matmul on
+    CUDA: there the shared rows are split into 16-bit halves, each
+    contracted exactly in float64 (rows whose |coefficients| sum to
+    2**37 or more raise)."""
+    c = (combine.to(y.device, torch.int64) if torch.is_tensor(combine)
+         else torch.tensor(np.asarray(combine, np.int64), device=y.device))
+    if c.shape != (n_real, y.shape[0] - n_real):
+        raise ValueError(f"combine {tuple(c.shape)} does not fold "
+                         f"{y.shape[0]} rows into {n_real}")
+    real = y[:n_real].to(torch.int64)
+    shared = y[n_real:]
+    if y.device.type == "cpu":
+        return _wrap_i32(real + torch.tensordot(c, shared.to(torch.int64),
+                                                dims=1))
+    if c.numel() and int(c.abs().sum(1).max()) >= F64_FOLD_ROW_LIMIT:
+        raise ValueError("the float64 plain fold is exact only for rows "
+                         "whose |coefficients| sum below 2**37")
+    cf = c.to(torch.float64)
+    lo = torch.tensordot(cf, (shared & 0xFFFF).to(torch.float64), dims=1)
+    hi = torch.tensordot(cf, (shared >> 16).to(torch.float64), dims=1)
+    return _wrap_i32(real + lo.to(torch.int64)
+                     + ((hi.to(torch.int64) & 0xFFFF) << 16))
+
+
+def combine_fold(y: torch.Tensor, table: CombineTable) -> torch.Tensor:
+    """Fold a CSE-optimized bank's shared rows into its real rows, in
+    place: ``y`` is int32 (n_real + n_shared, C, n) with rows of unit
+    stride (K1's `bank_output` view or a contiguous buffer); each real
+    row becomes ``y[r] + Σ_s combine[r, s] · y[n_real + s]`` modulo
+    2**32, and the first ``n_real`` rows are returned as a view.  CPU
+    tensors take `combine_plain`; CUDA tensors launch the kernel or
+    raise."""
+    n_rows = table.n_real + table.n_shared
+    if (y.dtype != torch.int32 or y.ndim != 3 or y.shape[0] != n_rows
+            or y.stride(2) != 1):
+        raise ValueError(f"y must be int32 ({n_rows}, C, n) with rows of "
+                         f"unit stride, got {y.dtype} {tuple(y.shape)}")
+    dev = y.device
+    if dev.type == "cpu":
+        y[:table.n_real] = combine_plain(y, table.combine, table.n_real)
+        return y[:table.n_real]
+    if dev.type != "cuda" or table.tensors is None or table.device != dev:
+        raise ValueError(f"y on {dev}, combine table on {table.device}")
+    n_chan, n_out = y.shape[1], y.shape[2]
+    if table.n_real and n_chan and n_out:
+        row_ptr, cols, coeffs = table.tensors
+        with torch.cuda.device(dev):
+            err = _combine_library().blmac_combine_launch(
+                y.data_ptr(), y.stride(0), y.stride(1), table.n_real,
+                n_chan, n_out, row_ptr.data_ptr(), cols.data_ptr(),
+                coeffs.data_ptr(),
+                torch._C._cuda_getCurrentRawStream(dev.index),
+            )
+        _raise_on(err, "blmac_combine_kernel")
+        combine_fold.launches += 1
+    return y[:table.n_real]
+
+
+combine_fold.launches = 0
+
+
+@functools.lru_cache(maxsize=1)
+def _combine_library():
+    """The fold's C library, built and loaded at the first launch."""
+    from .build import library
+
+    return library("blmac_combine")
+
+
 def reset_launch_counts() -> None:
-    """Zero both FIR kernels' launch counters."""
+    """Zero the FIR kernels' launch counters (K1, K2, the fold)."""
     bank_apply.launches = 0
     specialized_call.launches = 0
+    combine_fold.launches = 0
+
+
+def _as_table(combine, n_real, device) -> CombineTable | None:
+    """``combine`` (a matrix, whose table for ``device`` is cached, or a
+    `CombineTable`) as a table; checks ``n_real`` against it."""
+    if combine is None:
+        return None
+    table = combine if isinstance(combine, CombineTable) \
+        else combine_table(np.asarray(combine), device)
+    if n_real is not None and int(n_real) != table.n_real:
+        raise ValueError(f"n_real {n_real} but combine has {table.n_real} "
+                         f"rows")
+    return table
 
 
 def bank_schedule_apply(
@@ -824,6 +1155,8 @@ def bank_schedule_apply(
     tile: int,
     n_out: int | None = None,
     terms: BankTerms | None = None,
+    combine=None,
+    n_real: int | None = None,
 ) -> torch.Tensor:
     """Run every tile group of a `BankSchedule` over pre-framed signal →
     (B, C, n_out) int32 in the caller's filter order (``n_out`` defaults
@@ -834,14 +1167,22 @@ def bank_schedule_apply(
     row — no reorder, no slice copy.  ``terms`` supplies the schedule's
     tables already on that device; by default `bank_terms` builds them
     once per schedule and device.  On CPU frames: the plain version per
-    group with populated layers, zeros for the rest, then the reorder."""
+    group with populated layers, zeros for the rest, then the reorder.
+
+    ``combine`` (a matrix or its `CombineTable`) and ``n_real`` run a
+    CSE-optimized program's shared-row layout, as the reference does:
+    rows past ``n_real`` are shared partial sums, folded into the real
+    rows afterwards (`combine_fold`: one more launch, in place), and the
+    result is the first ``n_real`` rows."""
     n_chan, n_tiles, _ = frames.shape
     n_out = n_tiles * tile if n_out is None else int(n_out)
     dev = frames.device
+    table = _as_table(combine, n_real, dev)
     if dev.type != "cpu":
         if terms is None:
             terms = bank_terms(schedule, taps, dev)
-        return bank_apply(frames, terms, tile, n_out)
+        y = bank_apply(frames, terms, tile, n_out)
+        return y if table is None else combine_fold(y, table)
     parts = []
     for g in schedule.groups:
         if g.sel_layers:
@@ -852,7 +1193,8 @@ def bank_schedule_apply(
             parts.append(torch.zeros((g.packed.shape[0], n_chan, n_tiles,
                                       tile), dtype=torch.int32))
     y = torch.cat(parts).reshape(-1, n_chan, n_tiles * tile)
-    return y.index_select(0, torch.as_tensor(schedule.inv))[:, :, :n_out]
+    y = y.index_select(0, torch.as_tensor(schedule.inv))[:, :, :n_out]
+    return y if table is None else combine_fold(y, table)
 
 
 def blmac_fir_bank(
@@ -864,6 +1206,8 @@ def blmac_fir_bank(
     merge: int = MERGE_DEFAULT,
     schedule: BankSchedule | None = None,
     fast_path: bool = True,
+    combine=None,
+    n_real: int | None = None,
 ) -> torch.Tensor:
     """Apply a B-filter bank to a C-channel signal on ``x``'s device with
     the scheduled bank kernel (one launch for the whole bank).
@@ -872,14 +1216,17 @@ def blmac_fir_bank(
     ``x``; bit-exact against `fir_bit_layers_batch`.  ``fast_path``
     routes banks of ≤ `FAST_PATH_MAX` filters to the specialized kernel.
     Pass a precomputed ``schedule`` to skip planning on the hot path (a
-    program's memoized schedule also reuses its kernel tables)."""
+    program's memoized schedule also reuses its kernel tables).
+    ``combine``/``n_real`` run a CSE-optimized shared-row bank (see
+    `bank_schedule_apply`); the result then has ``n_real`` rows."""
     squeeze = x.ndim == 1
     if squeeze:
         x = x[None, :]
     packed = np.asarray(packed)
     n_filters = packed.shape[0]
     xi = x.to(torch.int32)
-    if fast_path and schedule is None and n_filters <= FAST_PATH_MAX:
+    if (fast_path and schedule is None and combine is None
+            and n_filters <= FAST_PATH_MAX):
         y = torch.stack([  # one launch per filter, all channels
             blmac_fir_specialized(xi, pulses_from_packed(packed[b], taps),
                                   taps, tile)
@@ -889,7 +1236,8 @@ def blmac_fir_bank(
     if schedule is None:
         schedule = plan_bank_schedule(packed, bank_tile, merge)
     frames, n_out = frame_signal_batch(xi, taps, tile)
-    y = bank_schedule_apply(frames, schedule, taps, tile, n_out)
+    y = bank_schedule_apply(frames, schedule, taps, tile, n_out,
+                            combine=combine, n_real=n_real)
     return y[:, 0] if squeeze else y
 
 

@@ -47,11 +47,18 @@ SOURCES = {
         "blmac_bank_smem_bytes": [_I],  # taps
     }),
     "blmac_specialized": ("blmac_specialized.cu", {
-        # frames, stride_c, stride_tile, table, offsets, tab_pad, out,
-        # n_filters, n_chan, n_tiles, tile, taps, threads, stream, device
-        "blmac_specialized_launch": [_P, _L, _L, _P, _P, _I, _P, _I, _I, _I,
-                                     _I, _I, _I, _P, _I],
-        "blmac_specialized_smem_bytes": [_I, _I, _I],  # tab_pad, threads, taps
+        # frames, stride_c, stride_tile, table, offsets, segs, n_segs,
+        # tab_pad, out, n_filters, n_chan, n_tiles, tile, taps, threads,
+        # outs, stream, device
+        "blmac_specialized_launch": [_P, _L, _L, _P, _P, _P, _I, _I, _P, _I,
+                                     _I, _I, _I, _I, _I, _I, _P, _I],
+        # tab_pad, threads, taps, outs
+        "blmac_specialized_smem_bytes": [_I, _I, _I, _I],
+    }),
+    "blmac_combine": ("blmac_combine.cu", {
+        # y, stride_row, stride_chan, n_real, n_chan, n_out, row_ptr, cols,
+        # coeffs, stream
+        "blmac_combine_launch": [_P, _L, _L, _I, _I, _I, _P, _P, _P, _P],
     }),
     "blmac_pulse_matmul": ("blmac_pulse_matmul.cu", {
         # x, codes, group_exp, workspace, counters, out, m, n, k, planes,
@@ -79,10 +86,11 @@ class BuildInfo:
 
     def resources(self) -> dict:
         """Registers, static shared memory (bytes) and spill bytes per
-        kernel, parsed from the ``ptxas -v`` report.  The FIR kernels
-        take only dynamic shared memory, sized per launch
+        kernel, parsed from the ``ptxas -v`` report.  The combine fold
+        takes no shared memory; the FIR kernels take only dynamic shared
+        memory, sized per launch
         (``blmac_bank_smem_bytes(taps)``, ``blmac_specialized_smem_bytes(
-        tab_pad, threads, taps)``), and so does the pulse
+        tab_pad, threads, taps, outs)``), and so does the pulse
         matmul (``blmac_pulse_matmul_smem_bytes(bm, planes, group,
         stages)``)."""
         out: dict = {}
@@ -109,7 +117,7 @@ class BuildInfo:
 
 def _demangled(symbol: str) -> str:
     for name in ("blmac_bank_kernel", "blmac_specialized_kernel",
-                 "blmac_pulse_matmul_kernel"):
+                 "blmac_combine_kernel", "blmac_pulse_matmul_kernel"):
         if name in symbol:
             # a template instance: its int and bool arguments, mangled as
             # Li<value>E and Lb<0 or 1>E

@@ -46,7 +46,21 @@
 //     two, never by the collapsed coefficient.  No per-pulse shift, select,
 //     branch or global load is left in the loop;
 //   * the outputs go back through shared memory, so the stores to device
-//     memory are coalesced.
+//     memory are coalesced;
+//   * kOuts is 16, or 4 where a launch at 16 would give the card fewer than
+//     four warps an SM (a few filters over a short push: one filter of 2 x
+//     2,048 outputs is 8 warps).  There a thread's walk over the taps and
+//     pulses, not the card's integer pipe, sets the time, and four outputs
+//     a thread make it a quarter as long; the wrapper chooses
+//     (`specialized_outs` in blmac_fir.py).  The filter's table is copied
+//     with `cp.async` beside the samples, so its words arrive together;
+//   * on such a grid the walk is also split into n_segs segments of taps
+//     (`pulse_segments` in blmac_fir.py: balanced by folds and pulses, each
+//     starting at a multiple of kOuts, so the rings start in the same
+//     slots), one group of threads each over the same outputs, and the
+//     partial sums are added in shared memory (integer atomics, modulo
+//     2^32, in any order).  Each thread's chain of dependent table reads is
+//     then a segment long, not the filter's length.
 // What is left bounds it: the SM's integer pipe, to which the 263 IMADs, the
 // 63 fold adds and the address and loop work of an output all go (the
 // IMADs do not overlap with IADD3 or SHF there, so two pulses as two SHF
@@ -60,7 +74,9 @@
 // the taps below the centre walked up to the last that carries pulses, then
 // the centre tap (its sample alone, outside the walk: no fold and no branch
 // in the walk), m_i = ±2^L modulo 2^32; filters are concatenated and
-// offsets[f] .. offsets[f + 1] delimit filter f.
+// offsets[f] .. offsets[f + 1] delimit filter f.  Segments of filter f:
+// segs[(f * n_segs + s) * 2 + {0, 1}] = the first tap of segment s and the
+// index, in the filter's table, of that tap's n_j (of n_c past the walk).
 
 #include <cstdint>
 
@@ -68,8 +84,9 @@
 
 namespace {
 
-constexpr int kOuts = 16;       // outputs a thread keeps in registers
-constexpr int kMaxThreads = 256;
+// threads a block at most: 256 at 16 outputs a thread, 512 at 4 (the
+// segments of a small grid's walk share a block)
+constexpr int max_threads(int outs) { return outs == 16 ? 256 : 512; }
 
 __device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -79,6 +96,7 @@ __device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
 
 // acc[r] += u[r] * m for each of a tap's n multipliers m = ±2^L: one IMAD a
 // pulse an output.
+template <int kOuts>
 __device__ __forceinline__ void add_pulses(uint32_t (&acc)[kOuts],
                                            const uint32_t (&u)[kOuts],
                                            const int32_t* m, int n) {
@@ -93,29 +111,53 @@ __device__ __forceinline__ void add_pulses(uint32_t (&acc)[kOuts],
 // Shared-memory word of sample i: one pad word every 32 samples.
 __device__ __forceinline__ int skew(int i) { return i + (i >> 5); }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// kOuts: the outputs a thread keeps in registers (16; 4 for small grids,
+// where 16 leaves most SMs idle and each thread's walk sets the time)
+template <int kOuts>
+__global__ void __launch_bounds__(kOuts == 16 ? 256 : 512)
 blmac_specialized_kernel(const int32_t* __restrict__ frames, long long stride_c,
                          long long stride_tile,
                          const int32_t* __restrict__ table,
-                         const int32_t* __restrict__ offsets, int tab_pad,
+                         const int32_t* __restrict__ offsets,
+                         const int32_t* __restrict__ segs, int tab_pad,
                          int32_t* __restrict__ out, int n_chan, int n_tiles,
                          int tile, int taps, int col_blocks) {
   extern __shared__ int32_t smem[];
   int32_t* tab = smem;
   int32_t* xs = smem + tab_pad;
+  // threadIdx.x: the thread's outputs; threadIdx.y: its segment of taps
+  // (at 16 outputs a thread one segment, fixed here so that the compiler
+  // folds the segments away)
+  constexpr bool kSegmented = kOuts != 16;
+  const int seg = kSegmented ? threadIdx.y : 0;
+  const int n_segs = kSegmented ? blockDim.y : 1;
+  const int tid = kSegmented ? threadIdx.y * blockDim.x + threadIdx.x
+                             : threadIdx.x;
+  const int n_threads = kSegmented ? blockDim.x * blockDim.y : blockDim.x;
   const int cols = blockDim.x * kOuts;
   const int f = blockIdx.z;
   const int c = blockIdx.y;
   const int s = blockIdx.x / col_blocks;
   const int col0 = (blockIdx.x % col_blocks) * cols;
 
+  // the segment's first tap, its table index and the next segment's first
+  // tap (-1: the walk's end), read while the table and samples arrive
+  int j0 = 0, p = 1, j1_next = -1;
+  if (n_segs > 1) {
+    const int32_t* sg = segs + (static_cast<long long>(f) * n_segs + seg) * 2;
+    j0 = sg[0];
+    p = sg[1];
+    if (seg + 1 < n_segs) j1_next = sg[2];
+  }
   const int t0 = offsets[f];
   const int tab_len = offsets[f + 1] - t0;
-  for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tab[i] = table[t0 + i];
+  for (int i = tid; i < tab_len; i += n_threads) {
+    cp_async4(&tab[i], &table[t0 + i]);  // in flight with the samples'
+  }
   const int32_t* frame = frames + c * stride_c + s * stride_tile + col0;
   const int n_x = cols + taps - 1;
   const int avail = tile + taps - 1 - col0;  // samples of the frame left
-  for (int i = threadIdx.x; i < n_x; i += blockDim.x) {
+  for (int i = tid; i < n_x; i += n_threads) {
     if (i < avail) {
       cp_async4(&xs[skew(i)], &frame[i]);
     } else {
@@ -125,25 +167,26 @@ blmac_specialized_kernel(const int32_t* __restrict__ frames, long long stride_c,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  // this thread's outputs: columns tb .. tb + kOuts - 1 of the block.  Ring
-  // slot of the sample at offset a from tb: a % kOuts (forward window) and
-  // (a - (taps - 1)) % kOuts (backward window).
+  // this thread's outputs: columns tb .. tb + kOuts - 1 of the block, its
+  // taps j0 .. j1 - 1 (its segment's).  Ring slot of the sample at offset a
+  // from tb + j0: a % kOuts (forward window) and (a - (taps - 1)) % kOuts
+  // (backward window); j0 is a multiple of kOuts.
   const int tb = threadIdx.x * kOuts;
+  const int n_steps = tab[0];
+  const int j1 = j1_next >= 0 ? j1_next : n_steps;
   uint32_t fw[kOuts], bw[kOuts], acc[kOuts];
 #pragma unroll
   for (int r = 0; r < kOuts; ++r) {
-    fw[r] = static_cast<uint32_t>(xs[skew(tb + r)]);
-    bw[r] = static_cast<uint32_t>(xs[skew(tb + taps - 1 + r)]);
+    fw[r] = static_cast<uint32_t>(xs[skew(tb + j0 + r)]);
+    bw[r] = static_cast<uint32_t>(xs[skew(tb + taps - 1 - j0 + r)]);
     acc[r] = 0u;
   }
-  const int n_steps = tab[0];
-  int p = 1;
 #pragma unroll 1
-  for (int jb = 0; jb < n_steps; jb += kOuts) {
+  for (int jb = j0; jb < j1; jb += kOuts) {
 #pragma unroll
     for (int q = 0; q < kOuts; ++q) {
       const int j = jb + q;
-      if (j >= n_steps) break;
+      if (j >= j1) break;
       const int n = tab[p++];
       if (n > 0) {
         uint32_t u[kOuts];
@@ -154,67 +197,109 @@ blmac_specialized_kernel(const int32_t* __restrict__ frames, long long stride_c,
         add_pulses(acc, u, tab + p, n);
         p += n;
       }
-      if (j + 1 < n_steps) {  // slide both windows to tap j + 1
+      if (j + 1 < j1) {  // slide both windows to tap j + 1
         fw[q] = static_cast<uint32_t>(xs[skew(tb + j + kOuts)]);
         bw[kOuts - 1 - q] = static_cast<uint32_t>(xs[skew(tb + taps - 2 - j)]);
       }
     }
   }
-  const int n_centre = tab[p++];  // the centre tap, alone: no fold
-  if (n_centre > 0) {
-    uint32_t u[kOuts];
+  if (seg == n_segs - 1) {  // the centre tap, alone: no fold
+    const int n_centre = tab[p++];
+    if (n_centre > 0) {
+      uint32_t u[kOuts];
 #pragma unroll
-    for (int r = 0; r < kOuts; ++r) {
-      u[r] = static_cast<uint32_t>(xs[skew(tb + taps / 2 + r)]);
+      for (int r = 0; r < kOuts; ++r) {
+        u[r] = static_cast<uint32_t>(xs[skew(tb + taps / 2 + r)]);
+      }
+      add_pulses(acc, u, tab + p, n_centre);
     }
-    add_pulses(acc, u, tab + p, n_centre);
   }
 
   __syncthreads();  // every window read: the samples' space takes the outputs
+  if (seg == 0) {
 #pragma unroll
-  for (int r = 0; r < kOuts; ++r) xs[skew(tb + r)] = static_cast<int32_t>(acc[r]);
+    for (int r = 0; r < kOuts; ++r) {
+      xs[skew(tb + r)] = static_cast<int32_t>(acc[r]);
+    }
+  }
+  if (n_segs > 1) {  // the other segments' partial sums, modulo 2^32
+    __syncthreads();
+    if (seg > 0) {
+#pragma unroll
+      for (int r = 0; r < kOuts; ++r) {
+        atomicAdd(reinterpret_cast<unsigned*>(&xs[skew(tb + r)]), acc[r]);
+      }
+    }
+  }
   __syncthreads();
   int32_t* o = out + ((static_cast<long long>(f) * n_chan + c) * n_tiles + s) *
                          static_cast<long long>(tile) + col0;
   const int n_out = min(cols, tile - col0);
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) o[i] = xs[skew(i)];
+  for (int i = tid; i < n_out; i += n_threads) o[i] = xs[skew(i)];
 }
 
 // Dynamic shared memory of one block: its filter's table (padded to
 // `tab_pad` words) and the samples its outputs read, one pad word every 32.
-size_t smem_bytes(int tab_pad, int threads, int taps) {
-  const int n_x = threads * kOuts + taps - 1;
+size_t smem_bytes(int tab_pad, int threads, int taps, int outs) {
+  const int n_x = threads * outs + taps - 1;
   return sizeof(int32_t) * (static_cast<size_t>(tab_pad) + n_x + n_x / 32 + 1);
+}
+
+template <int kOuts>
+cudaError_t launch(const dim3& grid, const dim3& block, size_t smem,
+                   cudaStream_t stream, const int32_t* frames,
+                   long long stride_c, long long stride_tile,
+                   const int32_t* table, const int32_t* offsets,
+                   const int32_t* segs, int tab_pad, int32_t* out, int n_chan,
+                   int n_tiles, int tile, int taps, int col_blocks) {
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(blmac_specialized_kernel<kOuts>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  }
+  if (e != cudaSuccess) return e;
+  blmac_specialized_kernel<kOuts><<<grid, block, smem, stream>>>(
+      frames, stride_c, stride_tile, table, offsets, segs, tab_pad, out,
+      n_chan, n_tiles, tile, taps, col_blocks);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int blmac_specialized_smem_bytes(int tab_pad, int threads,
-                                            int taps) {
-  return static_cast<int>(smem_bytes(tab_pad, threads, taps));
+                                            int taps, int outs) {
+  return static_cast<int>(smem_bytes(tab_pad, threads, taps, outs));
 }
 
 // Launch `n_filters` filters over `n_chan` channels of `n_tiles` frames on
 // `stream`, in one launch.  `frames` is int32 (n_chan, n_tiles,
 // >= tile + taps - 1) with strides (stride_c, stride_tile, 1); `table` and
 // `offsets` (n_filters + 1) int32 on the device, no filter's table longer
-// than `tab_pad` words; `out` int32 (n_filters, n_chan, n_tiles, tile)
-// contiguous; `threads` a multiple of 32, each thread computing kOuts
-// columns of a tile; every pointer on CUDA device `device`, which is made
-// current for the launch.  Returns cudaGetLastError() after the launch.
+// than `tab_pad` words; `segs` int32 (n_filters, n_segs, 2), each filter's
+// segments of taps (see the table's layout above; read only where n_segs >
+// 1, which needs 4 outputs a thread); `out` int32 (n_filters, n_chan,
+// n_tiles, tile) contiguous; `threads` a multiple of 32, each thread
+// computing `outs` (16 or 4) columns of a tile for one segment, so a block
+// is threads x n_segs; every pointer on CUDA device `device`, which is
+// made current for the launch.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int blmac_specialized_launch(const void* frames, long long stride_c,
                                         long long stride_tile,
                                         const void* table, const void* offsets,
+                                        const void* segs, int n_segs,
                                         int tab_pad, void* out, int n_filters,
                                         int n_chan, int n_tiles, int tile,
-                                        int taps, int threads, void* stream,
-                                        int device) {
+                                        int taps, int threads, int outs,
+                                        void* stream, int device) {
   if (n_filters <= 0 || n_chan <= 0 || n_tiles <= 0 || tile <= 0 ||
-      taps <= 0 || tab_pad < 0 || threads <= 0 || threads > kMaxThreads ||
-      threads % 32 != 0 || n_chan > 65535 || n_filters > 65535) {
+      taps <= 0 || tab_pad < 0 || threads <= 0 || threads % 32 != 0 ||
+      n_chan > 65535 || n_filters > 65535 || (outs != 16 && outs != 4) ||
+      n_segs < 1 || (outs == 16 && n_segs != 1) ||
+      threads * n_segs > max_threads(outs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int cols = threads * kOuts;
+  const int cols = threads * outs;
   const long long col_blocks = (tile + cols - 1) / cols;
   const long long blocks = col_blocks * n_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -222,23 +307,16 @@ extern "C" int blmac_specialized_launch(const void* frames, long long stride_c,
   cudaError_t e = cudaGetDevice(&current);
   if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t smem = smem_bytes(tab_pad, threads, taps);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(blmac_specialized_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  }
-  if (e == cudaSuccess) {
-    const dim3 grid(static_cast<unsigned>(blocks), n_chan, n_filters);
-    blmac_specialized_kernel<<<grid, threads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(frames), stride_c, stride_tile,
-        static_cast<const int32_t*>(table),
-        static_cast<const int32_t*>(offsets), tab_pad,
-        static_cast<int32_t*>(out), n_chan, n_tiles, tile, taps,
-        static_cast<int>(col_blocks));
-    e = cudaGetLastError();
-  }
+  const size_t smem = smem_bytes(tab_pad, threads, taps, outs);
+  const dim3 grid(static_cast<unsigned>(blocks), n_chan, n_filters);
+  e = (outs == 16 ? launch<16> : launch<4>)(
+      grid, dim3(threads, n_segs), smem, static_cast<cudaStream_t>(stream),
+      static_cast<const int32_t*>(frames), stride_c, stride_tile,
+      static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(offsets),
+      static_cast<const int32_t*>(segs), tab_pad,
+      static_cast<int32_t*>(out), n_chan, n_tiles, tile, taps,
+      static_cast<int>(col_blocks));
   if (current != device) cudaSetDevice(current);
   return static_cast<int>(e);
 }

@@ -100,12 +100,22 @@ def test_dtypes_taps1_and_reset():
 
 
 def test_auto_mode_is_the_fast_path_rule():
+    """Auto mode takes the dispatch planner's plan: K2 for one filter, and
+    for wider banks the mode, tile and schedule the reference engine's
+    planner picks."""
     one = sampled_sweep_bank(15, n_div=10, n_filters=1, seed=6)
     two = sampled_sweep_bank(15, n_div=10, n_filters=2, seed=6)
+    wide = sampled_sweep_bank(15, n_div=10, n_filters=48, seed=6)
     assert FilterBankEngine(one, device="cpu").mode == "specialized"
-    eng = FilterBankEngine(two, device="cpu")
+    for q in (two, wide):
+        eng, ref = FilterBankEngine(q, device="cpu"), RefEngine(q)
+        want = "packed" if ref.dispatch_plan.mode == "scheduled" \
+            else "specialized"
+        assert eng.mode == want and eng.tile == ref.tile
+        assert eng.dispatch_plan.predicted_us == ref.dispatch_plan.predicted_us
     assert eng.mode == "packed"
-    assert eng.bank_tile == eng.bank_schedule.tile_size
+    assert eng.bank_tile == eng.bank_schedule.tile_size == ref.bank_tile
+    assert eng.merge == ref.merge
     assert FilterBankEngine(two, mode="scheduled", device="cpu").mode == "packed"
     prog = compile_bank(two)
     assert FilterBankEngine(prog, device="cpu").program is prog

@@ -2,8 +2,9 @@
 
 Same bank in, same program out: content key, packed trits, quantized
 coefficients, exponents and every field of the superlayer schedule must
-be equal (tolerance 0 — these are integers and digests).  Programs and
-tail snapshots saved by one package load in the other.
+be equal (tolerance 0 — these are integers and digests).  Programs
+(CSE-optimized ones too) and tail snapshots saved by one package load in
+the other.
 """
 import numpy as np
 import pytest
@@ -85,11 +86,37 @@ def test_program_saved_by_port_loads_in_reference(tmp_path):
     _assert_same_program(port, ref)
 
 
+def _assert_same_optimized(port, ref):
+    _assert_same_program(port, ref)
+    assert type(port).__name__ == type(ref).__name__ == "OptimizedProgram"
+    assert port.parent_key == ref.parent_key and port.level == ref.level
+    for name in ("combine", "use_counts"):
+        assert np.array_equal(getattr(port, name), getattr(ref, name)), name
+    assert np.array_equal(port.effective_qbank(), ref.effective_qbank())
+
+
 def test_port_refuses_a_cse_program_file(tmp_path):
-    ref = rc.compile_bank(sampled_sweep_bank(63, n_div=10, n_filters=12))
+    """A CSE program file written by either package loads in the other
+    under the same key with the same arrays; one whose combine matrix was
+    tampered with is refused."""
+    q = sampled_sweep_bank(63, n_div=10, n_filters=12)
+    ref = rc.cse_pass(rc.compile_bank(q))
     path = tmp_path / "cse.npz"
-    rc.cse_pass(ref).save(path)
-    with pytest.raises(tc.ProgramFormatError, match="CSE"):
+    ref.save(path)
+    tc.clear_caches()  # a real load, not a memo hit
+    port = tc.BlmacProgram.load(path)
+    _assert_same_optimized(port, ref)
+    back = tmp_path / "cse_port.npz"
+    tc.cse_pass(tc.compile_bank(q)).save(back)
+    rc.clear_caches()
+    _assert_same_optimized(port, rc.BlmacProgram.load(back))
+    with np.load(path) as z:
+        arrays = dict(z)
+    arrays["combine"] = arrays["combine"].copy()
+    arrays["combine"][0, 0] += 1
+    np.savez(path, **arrays)
+    tc.clear_caches()
+    with pytest.raises(tc.ProgramFormatError, match="key"):
         tc.BlmacProgram.load(path)
 
 

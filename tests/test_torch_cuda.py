@@ -6,7 +6,8 @@ card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 0 for the FIR kernels: integer arithmetic modulo 2**32.  The
+Tolerance 0 for the FIR kernels and the combine fold: integer arithmetic
+modulo 2**32.  The
 pulse-code matmul sums in another order than its plain version, so it is
 held to the reference's bound, max|y − y_plain| / max|y_plain| < 1e-5;
 its decode is exact, and the device quantizer's codes equal the CPU's bit
@@ -29,8 +30,10 @@ from repro_torch.kernels import blmac_matmul as bmm
 from repro_torch.kernels.blmac_matmul import pulse_matmul
 from repro_torch.kernels.ref import pulse_decode_ref, pulse_matmul_ref
 from repro_torch.kernels.blmac_fir import (SpecializedProgram, bank_apply,
-                                           bank_call_plain,
+                                           bank_call_plain, bank_output,
                                            bank_schedule_apply, bank_terms,
+                                           combine_fold, combine_plain,
+                                           combine_table,
                                            frame_signal, frame_signal_batch,
                                            group_terms,
                                            pulses_from_packed,
@@ -370,6 +373,66 @@ def test_specialized_kernel_many_filters_and_channels(cuda, taps, tile,
                           .numpy(), oracle.astype(np.int32))
 
 
+@pytest.mark.parametrize("outs", [16, 4])
+def test_specialized_kernel_both_thread_widths(cuda, monkeypatch, outs):
+    """K2 keeps 16 outputs a thread, or 4 on a grid too small to fill the
+    card: each width forced on the same banks, tiles and samples (the
+    tap loop unrolled by the width, the register rings modulo it)."""
+    import importlib
+
+    bfm = importlib.import_module("repro_torch.kernels.blmac_fir")
+    monkeypatch.setattr(bfm, "SMALL_GRID_WARPS_PER_SM",
+                        10 ** 9 if outs == 4 else 0)
+    for taps, samples in ((7, "int32"), (63, "8bit"), (127, "20bit"),
+                          (255, "int32")):
+        q = _special_bank(taps, taps + 1)
+        scheds = compile_bank(q).pulse_schedules()
+        x = _samples(2 * 1024 + 333, samples, taps, channels=2)
+        for tile in (128, 512, 1024):
+            frames, _ = frame_signal_batch(x, taps, tile)
+            prog = SpecializedProgram(scheds, taps, tile, cuda)
+            assert bfm.specialized_outs(len(scheds), 2, frames.shape[1], tile,
+                                        bfm.sm_count(cuda)) == outs
+            got = specialized_call(frames.to(cuda), prog)
+            want = torch.stack([specialized_plain(frames, p, taps, tile)
+                                for p in scheds])
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (taps, tile)
+
+
+@pytest.mark.parametrize("n_segs", [1, 2, 3, 4])
+def test_specialized_kernel_tap_segments(cuda, monkeypatch, n_segs):
+    """On a small grid K2 splits each filter's walk into segments of taps
+    and adds the partial sums in shared memory: every count of segments
+    forced at 4 outputs a thread, over filters with empty, centre-only,
+    one-tap and dense walks, on full-range samples, equals the plain
+    version and the segmented table walk."""
+    import importlib
+
+    bfm = importlib.import_module("repro_torch.kernels.blmac_fir")
+    monkeypatch.setattr(bfm, "SMALL_GRID_WARPS_PER_SM", 10 ** 9)
+    monkeypatch.setattr(bfm, "SMALL_GRID_SEGMENTS", n_segs)
+    for taps in (7, 63, 127, 255):
+        q = _special_bank(taps, taps + 1)
+        scheds = compile_bank(q).pulse_schedules()
+        x = _samples(3 * 512 + 101, "int32", taps, channels=2)
+        for tile in (128, 512):
+            frames, _ = frame_signal_batch(x, taps, tile)
+            prog = SpecializedProgram(scheds, taps, tile, cuda)
+            threads = prog.geometries[4][0]
+            assert prog.segments[4].shape[1] == min(n_segs, 512 // threads)
+            got = specialized_call(frames.to(cuda), prog)
+            want = torch.stack([specialized_plain(frames, p, taps, tile)
+                                for p in scheds])
+            walk = bfm.pulse_table_walk(
+                frames.numpy(), prog.table.cpu().numpy(),
+                prog.offsets.cpu().numpy(), taps, tile,
+                prog.segments[4].cpu().numpy())
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (taps, tile)
+            assert np.array_equal(walk, want.numpy())
+
+
 def test_specialized_kernel_reads_strided_frames(cuda):
     """Views with other strides: every other tile, every other channel, a
     contiguous copy (stride frame_len), one channel's 2-D frames, and
@@ -434,8 +497,11 @@ def test_specialized_smem_matches_the_host_geometry(cuda):
     lib = library("blmac_specialized")
     for tile, taps, table_len in ((128, 7, 3), (1024, 127, 400),
                                   (4096, 255, 1500)):
-        threads, _, tab_pad, smem = specialized_geometry(tile, taps, table_len)
-        assert lib.blmac_specialized_smem_bytes(tab_pad, threads, taps) == smem
+        for outs in (16, 4):
+            threads, _, tab_pad, smem = specialized_geometry(
+                tile, taps, table_len, outs)
+            assert lib.blmac_specialized_smem_bytes(tab_pad, threads, taps,
+                                                    outs) == smem
 
 
 def test_entry_points_on_the_card(cuda):
@@ -481,11 +547,183 @@ def test_build_reports_kernel_resources(cuda):
 
     infos = build_all()
     res = {k: v for info in infos.values() for k, v in info.resources().items()}
-    assert set(res) == {"blmac_specialized_kernel"} | {
+    assert set(res) == {"blmac_specialized_kernel<16>",
+                        "blmac_specialized_kernel<4>",
+                        "blmac_combine_kernel"} | {
         f"blmac_bank_kernel<{ks}>" for ks in (1, 2, 3, 4)} | {
         f"blmac_pulse_matmul_kernel<{bm}, {std}>"
         for bm in (8, 16, 64, 128) for std in ("true", "false")}
     assert all(r["registers"] > 0 for r in res.values())
+
+
+# -- the combine fold of CSE-optimized banks ----------------------------------
+
+def _sparse_combine(n_real, n_shared, per_row, seed, top=14):
+    """A random (n_real, n_shared) combine matrix with about ``per_row``
+    nonzeros a row, signed powers of two below 2**top, row 0 empty."""
+    rng = np.random.default_rng(seed)
+    combine = np.zeros((n_real, n_shared), np.int64)
+    rows = np.repeat(np.arange(1, n_real), per_row)
+    cols = rng.integers(0, n_shared, rows.size)
+    combine[rows, cols] = rng.choice([-1, 1], rows.size) << rng.integers(
+        0, top, rows.size)
+    return combine
+
+
+def _serve_combine():
+    from repro_torch.compiler import cse_pass
+
+    return cse_pass(compile_bank(spread_lowpass_qbank(256, 63))).combine
+
+
+def _fold_on_card(y_host, combine, cuda, padded):
+    """The fold kernel over ``y_host`` (int32 (rows, C, n)) on the card,
+    into a contiguous buffer or a `bank_output` view (rows padded)."""
+    rows, n_chan, n = y_host.shape
+    if padded:
+        y = bank_output(rows, n_chan, n, cuda)
+        y.copy_(torch.as_tensor(y_host))
+    else:
+        y = torch.as_tensor(y_host).to(cuda)
+    table = combine_table(combine, cuda)
+    reset_launch_counts()
+    out = combine_fold(y, table)
+    torch.cuda.synchronize()
+    assert combine_fold.launches == 1
+    assert out.data_ptr() == y.data_ptr() and out.shape[0] == table.n_real
+    assert torch.equal(y[table.n_real:].cpu(),
+                       torch.as_tensor(y_host[table.n_real:]))
+    return out
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("case", ["serve", "one_shared", "wrap", "channels"])
+def test_combine_kernel_matches_plain(cuda, case, padded):
+    rng = np.random.default_rng(11)
+    if case == "serve":  # the serve bank's own combine, one push
+        combine, n_chan, n = _serve_combine(), 1, 4158
+    elif case == "one_shared":
+        combine, n_chan, n = _sparse_combine(40, 1, 1, 12), 1, 1000
+    elif case == "wrap":  # coefficients to 2**30: the sums wrap
+        combine, n_chan, n = _sparse_combine(64, 30, 12, 13, top=31), 1, 777
+    else:
+        combine, n_chan, n = _sparse_combine(100, 50, 9, 14), 3, 2049
+    rows = sum(combine.shape)
+    y_host = rng.integers(-(1 << 31), 1 << 31, (rows, n_chan, n)) \
+        .astype(np.int32)
+    got = _fold_on_card(y_host, combine, cuda, padded)
+    want = combine_plain(torch.as_tensor(y_host), combine, combine.shape[0])
+    assert torch.equal(got.cpu(), want)
+    if case != "wrap":  # the plain fold's float64 route on the card
+        plain = combine_plain(torch.as_tensor(y_host).to(cuda), combine,
+                              combine.shape[0])
+        assert torch.equal(plain.cpu(), want)
+
+
+def test_combine_kernel_at_the_sweep_shape(cuda):
+    """1,424 shared rows into 9,900 real ones over 16,258 samples (the
+    sweep bank's sizes, about 84 nonzeros a row): the kernel against the
+    plain fold on the card, and 32 rows against int64 numpy."""
+    combine = _sparse_combine(9900, 1424, 84, 15)
+    rng = np.random.default_rng(16)
+    y_host = rng.integers(-128 * 2 ** 16, 128 * 2 ** 16,
+                          (sum(combine.shape), 1, 16258)).astype(np.int32)
+    got = _fold_on_card(y_host, combine, cuda, padded=True)
+    plain = combine_plain(torch.as_tensor(y_host).to(cuda), combine, 9900)
+    assert torch.equal(got, plain)
+    rows = rng.choice(9900, 32, replace=False)
+    want = (y_host[rows].astype(np.int64) + np.tensordot(
+        combine[rows], y_host[9900:].astype(np.int64), axes=1)) \
+        .astype(np.int32)
+    assert np.array_equal(got[torch.as_tensor(rows, device=cuda)].cpu()
+                          .numpy(), want)
+
+
+def test_combine_kernel_rejects_what_it_cannot_take(cuda):
+    combine = _sparse_combine(8, 4, 2, 17)
+    y = torch.zeros((12, 1, 100), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # the table left on the CPU
+        combine_fold(y, combine_table(combine, "cpu"))
+    table = combine_table(combine, cuda)
+    for bad in (y.to(torch.int64), y[:11], y.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            combine_fold(bad, table)
+
+
+@pytest.mark.parametrize("mode", ["auto", "packed", "specialized"])
+def test_engine_with_an_optimized_program_matches_cpu(cuda, mode):
+    from repro_torch.compiler import cse_pass
+
+    q = spread_lowpass_qbank(64, 63)
+    opt = cse_pass(compile_bank(q))
+    rng = np.random.default_rng(18)
+    x = rng.integers(-(1 << 31), 1 << 31, (2, 6000))
+    gpu = FilterBankEngine(opt, channels=2, mode=mode)
+    cpu = FilterBankEngine(opt, channels=2, mode=gpu.mode, device="cpu",
+                           tile=gpu.tile)
+    uses_fold = gpu.program.combine is not None
+    assert gpu.n_filters == len(q) and np.array_equal(gpu.qbank, q)
+    cuts = [0, 40, 62, 63, 1000, 1001, 4999, 6000]
+    for a, b in zip(cuts, cuts[1:]):
+        reset_launch_counts()
+        got = gpu.push(x[:, a:b])
+        assert np.array_equal(got, cpu.push(x[:, a:b]))
+        if got.shape[2]:
+            assert bank_apply.launches + specialized_call.launches == 1
+            assert combine_fold.launches == int(uses_fold)
+    want = fir_bit_layers_batch(x[:, -(got.shape[2] + 62):], q)
+    assert np.array_equal(got, want.astype(np.int32))
+
+
+def test_one_filter_auto_engine_plans_the_specialized_kernel(cuda):
+    eng = FilterBankEngine(_sweep_rows(127, 1, seed=19), channels=2)
+    assert eng.dispatch_plan.lane == "cuda"
+    assert eng.mode == "specialized"
+
+
+def test_cuda_calibration_is_written_and_keyed_on_the_card(cuda, tmp_path,
+                                                           monkeypatch):
+    import json
+
+    from repro_torch.core import costmodel as cm
+
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    cal = cm.calibrate_backend("cuda", cuda)
+    name = torch.cuda.get_device_name(cuda)
+    assert cal.device_name == name and cal.source == "fitted"
+    table = json.loads((tmp_path / "calibration.json").read_text())
+    assert list(table["cuda"]) == [name]
+    assert cm.get_calibration("cuda", cuda) == cal
+    assert cal.call_us > 0 and cal.spec_call_us > 0 and cal.fold_call_us > 0
+    assert min(cal.byte_us, cal.mac_us, cal.spec_op_us, cal.fold_byte_us,
+               cal.fold_op_us) >= 0
+    monkeypatch.setattr(cm, "_probe_bank", _failing_probe)
+    assert cm.ensure_calibration("cuda", cuda) == cal  # no second fit
+
+
+def _failing_probe(*args, **kwargs):
+    raise RuntimeError("probe failed")
+
+
+@pytest.mark.parametrize("probe", ["_probe_bank", "_probe_specialized",
+                                   "_probe_fold"])
+def test_a_failing_calibration_probe_raises(cuda, tmp_path, monkeypatch,
+                                            probe):
+    from repro_torch.compiler import clear_caches
+    from repro_torch.core import costmodel as cm
+    from repro_torch.kernels import autotune_bank_dispatch
+
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(cm, probe, _failing_probe)
+    clear_caches()
+    prog = compile_bank(_sweep_rows(63, 4, seed=20))
+    with pytest.raises(RuntimeError, match="probe failed"):
+        cm.calibrate_backend("cuda", cuda)
+    with pytest.raises(RuntimeError, match="probe failed"):
+        autotune_bank_dispatch(prog, device=cuda)
+    with pytest.raises(RuntimeError, match="probe failed"):
+        FilterBankEngine(prog, mode="auto")
+    assert not (tmp_path / "calibration.json").exists()
 
 
 # -- the pulse-code matmul ----------------------------------------------------

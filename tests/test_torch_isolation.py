@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, no `repro`, and no quiet CPU runs.
 
-A fresh interpreter imports `repro_torch`, runs an engine, the pulse-code
-quantizer, matmul and `quantize_param_tree` on the CPU and must end with
+A fresh interpreter imports `repro_torch`, runs an engine, the CSE pass
+with auto and packed engines on its program (the dispatch planner, the
+cost model, the fold), the pulse-code quantizer, matmul and
+`quantize_param_tree` on the CPU and must end with
 neither `jax` nor any `repro` module loaded; no source file
 of the port (nor `chip_smoke.py`) may import them; and an entry point
 called without ``device`` on a host without CUDA raises instead of
@@ -33,6 +35,16 @@ def test_import_and_engine_leave_jax_and_repro_unloaded():
         "y = eng.push(x)\n"
         "assert np.array_equal(y, fir_bit_layers_batch(x, q))\n"
         "blmac_fir(x[0], q[0], device='cpu')\n"
+        "import repro_torch.compiler.optimize, repro_torch.kernels.runtime\n"
+        "import repro_torch.core.costmodel\n"
+        "from repro_torch.compiler import cse_pass\n"
+        "opt = cse_pass(compile_bank(q))\n"
+        "auto = FilterBankEngine(opt, channels=2, mode='auto', device='cpu')\n"
+        "assert auto.dispatch_plan.cse in ('optimized', 'declined')\n"
+        "assert np.array_equal(auto.push(x), fir_bit_layers_batch(x, q))\n"
+        "packed = FilterBankEngine(opt, channels=2, mode='packed',\n"
+        "                          device='cpu')\n"
+        "assert np.array_equal(packed.push(x), fir_bit_layers_batch(x, q))\n"
         "cache_stats()\n"
         "from repro_torch.kernels.blmac_matmul import pulse_quantize\n"
         "from repro_torch.core.serve_quant import quantize_param_tree\n"

@@ -239,3 +239,88 @@ def test_geometry_covers_the_tile_and_refuses_oversized_tables():
     with pytest.raises(ValueError):
         tk.SpecializedProgram([((0, 3, 1),) * 60_000], 7, 128,
                               torch.device("cpu"))
+
+
+def _special_filters(taps):
+    """Filters whose walks are hard to cut: empty, centre only, every
+    pulse on one tap, dense low taps, then sweep-like rows."""
+    half = taps // 2
+    rows = [np.zeros(half + 1, np.int64), np.eye(half + 1, dtype=np.int64)[-1]
+            * 77]
+    one_tap = np.zeros(half + 1, np.int64)
+    one_tap[min(2, half)] = 0x5555
+    dense = np.zeros(half + 1, np.int64)
+    dense[:max(1, half // 3)] = -0x2AAB
+    rows += [one_tap, dense]
+    q = [_sym(r) for r in rows]
+    return np.concatenate([np.stack(q), random_type1_bank(3, taps, seed=taps)])
+
+
+@pytest.mark.parametrize("taps", [7, 63, 127, 255])
+@pytest.mark.parametrize("n_segs", [1, 2, 3, 4, 7])
+def test_segmented_walk_matches_the_walk(taps, n_segs):
+    """K2's small grids split each filter's walk into segments of taps
+    (`pulse_segments`) and add the partial sums: the segmented walk equals
+    the whole walk and the plain version on full-range int32 samples, each
+    segment starts at a multiple of the outputs a thread and at that tap's
+    entry of the table, and the longest segment is at most one step of
+    taps above an even share of the walk's table reads."""
+    q = _special_filters(taps)
+    pulses = [tk.pulses_msb_first(r) for r in q]
+    table, offsets = tk.pulse_tables(pulses, taps)
+    tile = 256
+    x = np.stack([_x(3 * tile + 40, 20 + c, lim=None) for c in range(2)])
+    frames, _ = tk.frame_signal_batch(torch.as_tensor(x), taps, tile)
+    whole = tk.pulse_table_walk(frames.numpy(), table, offsets, taps, tile)
+    plain = torch.stack([tk.specialized_plain(frames, p, taps, tile)
+                         for p in pulses]).numpy()
+    assert np.array_equal(whole, plain)
+    for step in (4, 16):
+        segs = tk.pulse_segments(table, offsets, n_segs, step)
+        assert segs.shape == (len(q), n_segs, 2) and segs.dtype == np.int32
+        got = tk.pulse_table_walk(frames.numpy(), table, offsets, taps, tile,
+                                  segs)
+        assert np.array_equal(got, whole)
+        for f in range(len(q)):
+            t = table[offsets[f]:offsets[f + 1]]
+            n_steps, idx, cost = int(t[0]), [], []
+            p = 1
+            for _ in range(n_steps):
+                idx.append(p)
+                cost.append(1 + int(t[p]))
+                p += 1 + int(t[p])
+            idx.append(p)
+            j0 = segs[f, :, 0]
+            assert j0[0] == 0 and segs[f, 0, 1] == 1
+            assert (np.diff(j0) >= 0).all() and (j0 <= n_steps).all()
+            assert all(j % step == 0 or j == n_steps for j in j0)
+            assert [idx[j] for j in j0] == segs[f, :, 1].tolist()
+            ends = [*j0[1:], n_steps]
+            longest = max(sum(cost[a:b]) for a, b in zip(j0, ends))
+            chunk = max([sum(cost[a:a + step])
+                         for a in range(0, n_steps, step)], default=0)
+            assert longest <= sum(cost) / n_segs + chunk
+
+
+def test_small_grids_split_the_walk_within_a_block():
+    """At 16 outputs a thread the walk is whole; at 4 it is split into
+    `SMALL_GRID_SEGMENTS` segments while the block (a tile's threads times
+    the segments) stays within `SMALL_GRID_MAX_THREADS`; the cost model's
+    walk is one segment's share, and each program carries its segments
+    for both widths."""
+    assert tk.specialized_segments(16, 256) == 1
+    assert tk.specialized_segments(4, 32) == tk.SMALL_GRID_SEGMENTS == 4
+    assert tk.specialized_segments(4, 128) == 4
+    assert tk.specialized_segments(4, 256) == 2
+    # one filter, 2 channels × 4 tiles of 512: 4 outputs, 4 segments
+    assert tk.specialized_walk(1, 2, 4, 512, 132, 127, 263) == 4 * 326 / 4
+    # 2,048 tiles fill the card: 16 outputs, one segment
+    assert tk.specialized_walk(1, 1, 2048, 512, 132, 127, 263) == 16 * 326
+    q = _special_filters(63)
+    prog = tk.SpecializedProgram(
+        [tk.pulses_msb_first(r) for r in q], 63, 512, torch.device("cpu"))
+    assert tuple(prog.segments[16].shape) == (len(q), 1, 2)
+    assert tuple(prog.segments[4].shape) == (len(q), 4, 2)
+    table, offsets = tk.pulse_tables(prog.schedules, 63)
+    assert np.array_equal(prog.segments[4].numpy(),
+                          tk.pulse_segments(table, offsets, 4, 4))
