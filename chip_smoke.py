@@ -63,7 +63,10 @@ before it and read just after:
                   augmented rows plus the fold, against the parent's call;
                   the fold held against `combine_plain` at both shapes and
                   on full-range samples whose sums wrap past 2**31, and
-                  timed by events and by device time;
+                  timed by events and by device time, with the kernel's
+                  launch (span, row groups, staged KiB, blocks) and the
+                  fitted cost model's price of it beside its measured
+                  host and device µs;
   * dispatch    — the ``"cuda"`` cost-model lane fitted on the card
                   (`calibrate_backend`: its constants, the card's name they
                   are keyed on, the fit's seconds; fitted before the
@@ -731,11 +734,15 @@ def candidate_call(program, plan, schedule, chunk: int, dev):
 
 
 def cse_leg(dev, smi, serve_prog, serve_q, chunks, parent_outs, sweep_prog,
-            sweep_q, x_sweep, y_sweep) -> dict:
+            sweep_q, x_sweep, y_sweep, cal) -> dict:
     """The CSE path (see the module notes); emits its phase and returns
-    the fold kernel's row of the ``kernels`` line."""
+    the fold kernel's row of the ``kernels`` line.  ``cal`` is the fitted
+    ``"cuda"`` lane, whose price of each fold is set beside the fold's
+    host and device µs."""
     import numpy as np
     import torch
+
+    from repro_torch.core.costmodel import _split_us, predict_combine_us
 
     from repro_torch.compiler import cse_pass
     from repro_torch.filters import FilterBankEngine, fir_bit_layers_batch
@@ -846,7 +853,12 @@ def cse_leg(dev, smi, serve_prog, serve_q, chunks, parent_outs, sweep_prog,
         nnz = table.nnz
         b_ms, b_by, ops, nbytes = fold_bound(prog.n_real, prog.n_shared, nnz,
                                              1, n_out)
+        lay = table.layout(table.groups_for(1, n_out, bf.sm_count(dev)))
         fold = lambda y=y, table=table: bf.combine_fold(y, table)  # noqa: E731
+        host_us, dev_us = _split_us(fold, 20)
+        predicted = predict_combine_us(prog.n_real, prog.n_shared, 1, 1,
+                                       n_out, cal=cal, nnz=nnz,
+                                       entries=lay.entries)
         rows[name] = {
             "shape": f"{prog.n_real} real + {prog.n_shared} shared rows "
                      f"({nnz} nonzeros) x 1 channel x {n_out} samples",
@@ -855,7 +867,21 @@ def cse_leg(dev, smi, serve_prog, serve_q, chunks, parent_outs, sweep_prog,
             "plain_ms": cuda_ms(lambda y0=y0, prog=prog: bf.combine_plain(
                 y0, prog.combine, prog.n_real)),
             "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes,
-            "library_ms": None}
+            "library_ms": None,
+            # the cost model's price of this fold (a caller that waits:
+            # host + device) against the two measured as the fit does
+            "model": {"predicted_us": predicted, "host_us": host_us,
+                      "device_us": dev_us,
+                      "error": predicted / (host_us + dev_us) - 1},
+            # the launch: samples a block (T), real rows a group, shared
+            # rows staged a block (KiB), blocks, threads a block
+            "design": {"span": bf.COMBINE_SPAN, "groups": lay.n_groups,
+                       "rows_a_group": -(-table.live_rows // lay.n_groups),
+                       "staged_kib": lay.max_union * 4 * bf.COMBINE_SPAN
+                       / 1024,
+                       "blocks": -(-n_out // bf.COMBINE_SPAN) * lay.n_groups,
+                       "threads": 32 * bf.COMBINE_WARPS,
+                       "wide_entries": lay.wide}}
         del y, y0, want, got
     emit({"phase": "cse", "serve_mine_s": serve_mine_s,
           "serve": {"n_real": serve_opt.n_real,
@@ -1203,7 +1229,7 @@ def main() -> int:
 
     # -- the CSE path and the planner -----------------------------------------
     fold_row = cse_leg(dev, smi, serve_prog, serve_q, chunks, outs,
-                       sweep_prog, sweep_q, x_sweep, y_sweep)
+                       sweep_prog, sweep_q, x_sweep, y_sweep, cal)
     dispatch_leg(dev, smi, cal, fit_s, sweep_prog)
 
     # -- K1 at the main path's shapes: the sweep call and one serve push ----

@@ -185,6 +185,21 @@ class OptimizedProgram(BlmacProgram):
         output sample."""
         return int(np.count_nonzero(self.combine))
 
+    def fold_entries(self, channels, n_out, cal=None) -> int | None:
+        """The fold kernel's table entries for a launch over ``channels``
+        × ``n_out`` on a card of ``cal.sms`` SMs — the ``"cuda"`` lane's
+        work a sample — from the host's layout of the combine matrix
+        (built once, cached with its table); None on another lane."""
+        from ..core.costmodel import CUDA_LANE
+
+        if cal is None or cal.lane != CUDA_LANE:
+            return None
+        from ..kernels.blmac_fir import combine_table
+
+        table = combine_table(self.combine, "cpu")
+        return table.layout(table.groups_for(channels, n_out,
+                                             cal.sms)).entries
+
     def predict_scheduled_us(self, channels, n_tiles, tile,
                              bank_tile=None, merge=None, cal=None) -> float:
         """Augmented-schedule latency plus the fold's price — what the
@@ -197,6 +212,7 @@ class OptimizedProgram(BlmacProgram):
         return base + predict_combine_us(
             self.n_real, self.n_shared, channels, n_tiles, tile, cal=cal,
             nnz=self.nnz,
+            entries=self.fold_entries(channels, n_tiles * tile, cal),
         )
 
     def predict_specialized_us(self, channels, n_tiles, cal=None,
@@ -213,6 +229,7 @@ class OptimizedProgram(BlmacProgram):
         return base + predict_combine_us(
             self.n_real, self.n_shared, channels, n_tiles, fold_tile,
             cal=cal, nnz=self.nnz,
+            entries=self.fold_entries(channels, n_tiles * fold_tile, cal),
         )
 
     # -- row-structure hooks that do not survive the combine -----------------

@@ -25,8 +25,9 @@ per-lane constant table (`BackendCalibration`):
         for every output, over all of them at large sizes, and at small
         ones the walk of the longest filter, which one thread makes;
       - the combine fold (`predict_combine_us`): one launch, the real rows
-        read and written and the shared rows read, one multiply-add per
-        nonzero of the combine matrix for every output.
+        read and written and the shared rows read, one step per entry of
+        its table (pairs of real rows, each entry a shared row either
+        uses) for every output.
 
     Each is priced as the time a caller that waits for the result pays
     per call: a constant per launch (the host's call and the kernel's
@@ -89,7 +90,8 @@ class BackendCalibration:
       card's SMs, decides the outputs a thread and the segments
       (`repro_torch.kernels.blmac_fir.specialized_walk`);
     * ``fold_call_us`` / ``fold_byte_us`` / ``fold_op_us`` — the combine
-      fold: per launch, per byte it moves, per multiply-add;
+      fold: per launch, per byte it moves, per table entry an output
+      (two multiply-adds: a pair of rows);
     * ``step_us``, ``unpack_us``, ``mac_f32_us`` — unused (0).
 
     ``source`` is ``"reference"`` (shipped constants) or ``"fitted"``
@@ -251,23 +253,28 @@ def predict_combine_us(
     tile: int,
     cal: BackendCalibration | None = None,
     nnz: int | None = None,
+    entries: int | None = None,
 ) -> float:
     """Modelled latency of the CSE combine stage; zero without shared
     rows.  Reference lane: one dispatch plus an (n_real, n_shared) int32
     GEMM over the signal.  ``"cuda"`` lane: the fold kernel's launch, its
     bytes (each real row read and written, each shared row read) and one
-    multiply-add per nonzero (``nnz``) of the combine matrix, for every
-    one of the ``channels · n_tiles · tile`` outputs."""
+    step per entry of its table (``entries``: a pair of real rows' shared
+    rows, padding included, `CombineLayout.entries`; by default ``nnz``,
+    the combine matrix's nonzeros), for every one of the ``channels ·
+    n_tiles · tile`` outputs."""
     if n_shared == 0:
         return 0.0
     c = _lane(cal)
     signal = channels * n_tiles * tile
     if c.lane == CUDA_LANE:
-        if nnz is None:
-            raise ValueError("the cuda lane prices the fold by its nonzeros")
+        work = nnz if entries is None else entries
+        if work is None:
+            raise ValueError("the cuda lane prices the fold by its table's "
+                             "entries or the matrix's nonzeros")
         nbytes = 4 * signal * (2 * n_real + n_shared)
         return (c.fold_call_us + nbytes * c.fold_byte_us
-                + nnz * signal * c.fold_op_us)
+                + work * signal * c.fold_op_us)
     return c.call_us + n_real * (n_shared + 1) * signal * c.mac_us
 
 
@@ -397,8 +404,11 @@ BANK_PROBES = ((1, 63, 4096), (1, 127, 4096), (32, 63, 4096),
                (64, 255, 4096))
 SPEC_PROBES = ((1, 63, 4096), (1, 127, 4096), (32, 63, 4096),
                (256, 63, 4096), (64, 127, 4096), (8, 127, 16384))
-FOLD_PROBES = ((256, 434, 45, 4096), (256, 64, 4, 4096),
-               (1024, 512, 20, 16384), (64, 1024, 60, 16384))
+# fold probes with clustered columns (the last field 1: rows drawn from a
+# few column sets, as a CSE pass's rows are) pair well, as real ones do
+FOLD_PROBES = ((256, 434, 45, 4096, 0), (256, 64, 4, 4096, 0),
+               (1024, 512, 20, 16384, 0), (64, 1024, 60, 16384, 0),
+               (256, 434, 45, 4096, 1), (2048, 1024, 80, 16384, 1))
 
 
 def _kernels():
@@ -458,23 +468,32 @@ def _probe_specialized(f: int, taps: int, n: int, device):
              float(f * n_tiles * tile * (taps // 2 + prog.mean_pulses))])
 
 
-def _probe_fold(n_real: int, n_shared: int, per_row: int, n: int, device):
-    """One combine-fold launch over a random sparse combine matrix:
-    (call, [bytes, multiply-adds])."""
+def _probe_fold(n_real: int, n_shared: int, per_row: int, n: int,
+                clustered: int, device):
+    """One combine-fold launch over a random sparse combine matrix, its
+    columns drawn uniformly or (``clustered``) from 8 column sets, a
+    quarter of each row's replaced: (call, [bytes, table entries ×
+    outputs])."""
     import torch
 
     bf = _kernels()
-    rng = np.random.default_rng(n_real + n_shared + per_row)
+    rng = np.random.default_rng(n_real + n_shared + per_row + clustered)
+    per_row = min(per_row, n_shared)
+    sets = [rng.choice(n_shared, per_row, replace=False) for _ in range(8)]
     combine = np.zeros((n_real, n_shared), np.int64)
     for r in range(n_real):
-        cols = rng.choice(n_shared, min(per_row, n_shared), replace=False)
+        cols = rng.choice(n_shared, per_row, replace=False)
+        if clustered:
+            keep = rng.random(per_row) < 0.75
+            cols = np.unique(np.where(keep, sets[r % 8], cols))
         combine[r, cols] = rng.choice([-1, 1], cols.size) << rng.integers(
             0, 14, cols.size)
     table = bf.combine_table(combine, device)
+    layout = table.layout(table.groups_for(1, n, _sm_count(device)))
     y = torch.randint(-(1 << 31), 1 << 31, (n_real + n_shared, 1, n),
                       dtype=torch.int32, device=device)
     return (lambda: bf.combine_fold(y, table),
-            [4.0 * n * (2 * n_real + n_shared), float(table.nnz * n)])
+            [4.0 * n * (2 * n_real + n_shared), float(layout.entries * n)])
 
 
 def _fit_kernel(shapes, features, host, device) -> tuple[list[float], list]:

@@ -22,9 +22,12 @@ it:
     `specialized_program` LRU.  Replaces `_fir_kernel_specialized`.
   * **combine fold** (`combine_fold`, kernel ``csrc/blmac_combine.cu``) —
     a CSE-optimized bank's shared rows folded into its real rows in place,
-    ``y[r] += Σ_s combine[r, s] · y[n_real + s]``, from a per-row sparse
-    table (`combine_table`, built once per combine matrix and device);
-    `combine_plain` is its plain version.  Replaces `_combine_shared`
+    ``y[r] += Σ_s combine[r, s] · y[n_real + s]``: a block stages a span
+    of the shared rows in shared memory and walks the real rows in pairs
+    that share shared rows, from a host table (`combine_table`, built once
+    per combine matrix and device, one `CombineLayout` per number of row
+    groups; `combine_walk` is its arithmetic in numpy); `combine_plain` is
+    its plain version.  Replaces `_combine_shared`
     (an XLA program, no Pallas kernel) and the reference engine's host
     fold.
 
@@ -60,6 +63,7 @@ __all__ = [
     "BankTerms",
     "FAST_PATH_MAX",
     "LANE",
+    "CombineLayout",
     "CombineTable",
     "a_fragments",
     "bank_apply",
@@ -76,12 +80,14 @@ __all__ = [
     "combine_fold",
     "combine_plain",
     "combine_table",
+    "combine_walk",
     "digit_runs",
     "f32_dot_safe",
     "fragment_rows",
     "frame_signal",
     "frame_signal_batch",
     "group_terms",
+    "pair_rows",
     "pulses_from_packed",
     "pulse_table",
     "pulse_segments",
@@ -992,17 +998,257 @@ def _bank_library():
 F64_FOLD_ROW_LIMIT = 1 << 37
 
 
+# the fold kernel's geometry (csrc/blmac_combine.cu): a block folds a span
+# of COMBINE_SPAN samples of one channel for a group of real rows, having
+# staged the span of every shared row the group uses; each of its
+# COMBINE_WARPS warps walks a quad of COMBINE_QUAD row pairs at a time (8
+# lanes a pair, 4 samples a lane)
+COMBINE_SPAN = 32
+COMBINE_WARPS = 16
+COMBINE_QUAD = 4
+# shared rows a block can stage (128 bytes each): 1,816
+COMBINE_MAX_STAGED = SMEM_LIMIT // (4 * COMBINE_SPAN)
+# a row flag in the quad table: one piece of a row with more nonzeros than
+# a block can stage, added to the row with atomics
+COMBINE_PIECE = 1 << 30
+# coefficients in [-2**15, 2**15) share a 32-bit table word with their
+# staged row (the compact layout); any other int32 takes the wide one
+COMPACT_COEFF = 1 << 15
+# rows paired at a time, by their overlaps (a dense block × block product)
+COMBINE_PAIR_BLOCK = 1024
+# 16-byte chunks of entries a lane loads at a time: the kernel reads up to
+# this many past a quad's last, so the table's end is padded by as many
+COMBINE_BATCH = 6
+
+
+def _entries(starts, counts) -> np.ndarray:
+    """The table positions of runs of ``counts`` entries from ``starts``."""
+    counts = np.asarray(counts, np.int64)
+    return (np.repeat(np.asarray(starts, np.int64) - np.cumsum(counts)
+                      + counts, counts) + np.arange(counts.sum()))
+
+
+def _snake(n: int, width: int) -> np.ndarray:
+    """0 .. n-1 in rounds of ``width``, every other round reversed: quads
+    sorted longest first and dealt so, warp w taking entries w, w +
+    width, ..., give each warp about the same walk."""
+    order = np.arange(n)
+    for lo in range(width, n, 2 * width):
+        order[lo:lo + width] = order[lo:lo + width][::-1]
+    return order
+
+
+def pair_rows(rows, row_ptr, cols, n_shared: int) -> np.ndarray:
+    """Pair ``rows`` (real rows with nonzeros) so that the two rows of a
+    pair share many shared rows: (P, 2) int64, -1 in the second column of
+    a row left alone.  Rows sorted by their mean shared row, in blocks of
+    `COMBINE_PAIR_BLOCK`: mutual best partners by shared columns are
+    paired, round after round, then the rest in order."""
+    rows = np.asarray(rows, np.int64)
+    nnz = row_ptr[rows + 1] - row_ptr[rows]
+    src = _entries(row_ptr[rows], nnz)
+    which = np.repeat(np.arange(rows.size), nnz)
+    mean = np.bincount(which, cols[src], rows.size) / np.maximum(nnz, 1)
+    rows = rows[np.argsort(mean, kind="stable")]
+    # at most 2**22 cells (16 MB) in a block's dense 0/1 matrix
+    block = max(64, min(COMBINE_PAIR_BLOCK, (1 << 22) // max(n_shared, 1)))
+    pairs = []
+    for lo in range(0, rows.size, block):
+        part = rows[lo:lo + block]
+        m = part.size
+        dense = np.zeros((m, n_shared), np.float32)
+        n = row_ptr[part + 1] - row_ptr[part]
+        dense[np.repeat(np.arange(m), n), cols[_entries(row_ptr[part], n)]] = 1
+        ov = dense @ dense.T
+        np.fill_diagonal(ov, -1)
+        free = np.ones(m, bool)
+        while True:
+            ov[~free] = -1
+            ov[:, ~free] = -1
+            best = ov.argmax(1)
+            val = ov[np.arange(m), best]
+            cand = free & (val > 0)
+            if not cand.any():
+                break
+            mutual = np.flatnonzero(cand & (best[best] == np.arange(m))
+                                    & (np.arange(m) < best))
+            if not mutual.size:  # no mutual best: the best pair of all
+                i = int(np.argmax(np.where(cand, val, -1)))
+                mutual = np.array([min(i, best[i])])
+            for i in mutual:
+                j = best[i]
+                if free[i] and free[j]:
+                    free[i] = free[j] = False
+                    pairs.append((part[i], part[j]))
+        rest = part[free]
+        for i in range(0, rest.size - 1, 2):
+            pairs.append((rest[i], rest[i + 1]))
+        if rest.size % 2:
+            pairs.append((rest[-1], -1))
+    return np.asarray(pairs, np.int64).reshape(-1, 2)
+
+
+class CombineLayout:
+    """A combine matrix cut for the fold kernel at ``n_groups`` row
+    groups (`CombineTable.layout`).
+
+    * ``group_union`` (G + 1,) int32 — group g stages the shared rows
+      ``ulist[group_union[g]:group_union[g + 1]]`` (sorted, each used by
+      one of its rows; at most ``staged_max``, ``max_union`` the most of
+      any group);
+    * ``group_quads`` (G + 1,) int32 — its quads
+      ``quads[group_quads[g]:group_quads[g + 1]]``, longest first in
+      `_snake` order;
+    * ``quads`` (Q, 12) int32 — a quad's first 16-byte word of
+      ``table``, its chunks, two unused words, the first rows of its four
+      pairs and their second rows (-1 for none; ORed with `COMBINE_PIECE`
+      for a piece added atomically);
+    * ``table`` (chunks × 4, 4) uint32 — chunk k of the quad's pair s at
+      16-byte word ``first + 4k + s``.  An entry is a shared row the pair
+      reads, as its place in shared memory (8 × its index among the
+      group's staged rows: its first 16-byte word), with both rows'
+      coefficients (0 for a row that does not use it): compact, two to a
+      chunk, ``(c_first << 16) | place`` and ``c_second``; ``wide``, one,
+      ``(place, c_first, c_second, 0)``.  Zero entries pad a pair shorter
+      than its quad's longest, and `COMBINE_BATCH` zero chunks the end.
+
+    Groups hold consecutive rows, balanced by nonzeros and split further
+    until their union fits; a row with more nonzeros than a block can
+    stage becomes pieces, one group each, unpaired.  Within a group rows
+    are paired by `pair_rows` (``pair=False``: none).  ``tensors`` holds
+    the device copies (`to`)."""
+
+    def __init__(self, row_ptr, cols, coeffs, n_shared: int, n_groups: int,
+                 wide: bool, staged_max: int = COMBINE_MAX_STAGED,
+                 pair: bool = True):
+        self.wide = bool(wide)
+        per = 1 if wide else 2  # entries a 16-byte chunk
+        nnz = np.diff(row_ptr)
+        rows = np.flatnonzero(nnz)
+        regular = rows[nnz[rows] <= staged_max]
+        # each group: its positions' (first row, second row) and their
+        # (start, count) runs of table entries
+        groups = []
+        if regular.size:
+            cum = np.cumsum(nnz[regular])
+            cuts = np.unique(np.searchsorted(
+                cum, cum[-1] * np.arange(1, n_groups) / n_groups) + 1)
+            chunks = [c for c in np.split(regular, cuts[cuts < regular.size])
+                      if c.size]
+            while chunks:
+                c = chunks.pop(0)
+                if c.size > 1 and np.unique(cols[_entries(
+                        row_ptr[c], nnz[c])]).size > staged_max:
+                    chunks[:0] = [c[:c.size // 2], c[c.size // 2:]]
+                    continue
+                pos = pair_rows(c, row_ptr, cols, n_shared) if pair else \
+                    np.stack([c, np.full(c.size, -1)], 1)
+                second = np.maximum(pos[:, 1], 0)
+                groups.append((pos, row_ptr[pos[:, 0]], nnz[pos[:, 0]],
+                               row_ptr[second],
+                               np.where(pos[:, 1] >= 0, nnz[second], 0)))
+        for r in rows[nnz[rows] > staged_max]:
+            for lo in range(row_ptr[r], row_ptr[r + 1], staged_max):
+                n = min(staged_max, row_ptr[r + 1] - lo)
+                groups.append((np.array([[r | COMBINE_PIECE, -1]]),
+                               np.array([lo]), np.array([n]),
+                               np.array([0]), np.array([0])))
+        if not groups:  # an all-zero matrix: one empty group, one launch
+            groups.append((np.zeros((0, 2), np.int64),)
+                          + (np.zeros(0, np.int64),) * 4)
+        unions, quads, tables = [], [], []
+        group_union, group_quads = [0], [0]
+        first = 0  # 16-byte chunks of the table before this group's
+        for pos, a_start, a_n, b_start, b_n in groups:
+            src_a, src_b = _entries(a_start, a_n), _entries(b_start, b_n)
+            union = np.unique(cols[np.concatenate([src_a, src_b])])
+            # the pair's entries: its shared rows in order, both
+            # coefficients (keys: position × n_shared + shared row)
+            keys = np.concatenate([
+                np.repeat(np.arange(len(pos)), a_n) * n_shared + cols[src_a],
+                np.repeat(np.arange(len(pos)), b_n) * n_shared + cols[src_b]])
+            ent, inv = np.unique(keys, return_inverse=True)
+            c_a = np.zeros(ent.size, np.uint32)
+            c_b = np.zeros(ent.size, np.uint32)
+            c_a[inv[:src_a.size]] = coeffs[src_a].view(np.uint32)
+            c_b[inv[src_a.size:]] = coeffs[src_b].view(np.uint32)
+            e_pos = ent // max(n_shared, 1)
+            counts = np.bincount(e_pos, minlength=len(pos))
+            # a staged row's place: its first 16-byte word in shared memory
+            place = (8 * np.searchsorted(union, ent % max(n_shared, 1))) \
+                .astype(np.uint32)
+            order = np.argsort(-counts, kind="stable")
+            pad = -len(order) % COMBINE_QUAD
+            q_pos = np.concatenate([order, np.full(pad, -1)]) \
+                .reshape(-1, COMBINE_QUAD)
+            q_pos = q_pos[_snake(len(q_pos), COMBINE_WARPS)]
+            q_counts = np.where(q_pos >= 0, counts[q_pos], 0)
+            q_chunks = -(-q_counts.max(1) // per)
+            q_first = np.cumsum(q_chunks) - q_chunks
+            words = np.zeros((int(q_chunks.sum()), COMBINE_QUAD, 4), np.uint32)
+            # every entry's quad and slot, and its place in its pair's run
+            slot_of = np.full(len(pos), 0)
+            slot_of[q_pos[q_pos >= 0]] = np.flatnonzero(q_pos.ravel() >= 0)
+            slot = slot_of[e_pos]
+            j = np.arange(ent.size) - (np.cumsum(counts) - counts)[e_pos]
+            chunk = q_first[slot // COMBINE_QUAD] + j // per
+            s = slot % COMBINE_QUAD
+            if wide:
+                words[chunk, s, 0] = place
+                words[chunk, s, 1] = c_a
+                words[chunk, s, 2] = c_b
+            else:
+                words[chunk, s, 2 * (j % per)] = (c_a << 16) | place
+                words[chunk, s, 2 * (j % per) + 1] = c_b
+            rows_q = np.where(q_pos[..., None] >= 0,
+                              pos[np.maximum(q_pos, 0)], -1)
+            quads.append(np.concatenate([
+                np.stack([4 * (first + q_first), q_chunks,
+                          np.zeros_like(q_chunks), np.zeros_like(q_chunks)],
+                         1), rows_q[..., 0], rows_q[..., 1]], 1))
+            tables.append(words.reshape(-1, 4))
+            unions.append(union)
+            first += words.shape[0]
+            group_union.append(group_union[-1] + union.size)
+            group_quads.append(group_quads[-1] + len(q_pos))
+        self.n_groups = len(groups)
+        self.group_union = np.asarray(group_union, np.int32)
+        self.group_quads = np.asarray(group_quads, np.int32)
+        self.ulist = np.concatenate(unions).astype(np.int32)
+        self.quads = np.concatenate(quads).astype(np.int32)
+        self.table = np.concatenate(
+            tables + [np.zeros((COMBINE_QUAD * COMBINE_BATCH, 4), np.uint32)])
+        self.max_union = int(np.diff(self.group_union).max())
+        # entries the kernel walks, padding included: its work a sample
+        self.entries = per * (self.table.shape[0] - COMBINE_QUAD
+                              * COMBINE_BATCH)
+        self.tensors = None
+
+    def to(self, device) -> "CombineLayout":
+        """Upload the arrays to ``device`` (a CUDA device) once."""
+        if self.tensors is None:
+            self.tensors = tuple(
+                _on_device(a if a.size else np.zeros(4, np.int32), device)
+                for a in (self.group_quads, self.group_union, self.ulist,
+                          self.quads, self.table.view(np.int32)))
+        return self
+
+
 class CombineTable:
     """A combine matrix as the fold kernel reads it, built on the host
-    once and kept on ``device`` (CUDA) for every launch: per real row, its
-    nonzeros in column order (CSR).
+    once and kept on ``device`` for every launch.
+
+    Its CSR form, per real row its nonzeros in column order:
 
     * ``row_ptr`` (n_real + 1,) int32 — row ``r``'s entries are
       ``row_ptr[r] .. row_ptr[r + 1]``;
     * ``cols`` (nnz,) int32 — the shared row each entry reads;
-    * ``coeffs`` (nnz,) int32 — its coefficient modulo 2**32.
+    * ``coeffs`` (nnz,) int32 — its coefficient modulo 2**32;
 
-    ``combine`` keeps the int64 matrix for `combine_plain`."""
+    and, cut from it for the kernel, a `CombineLayout` for each number of
+    row groups a launch asks for (`layout`, built and uploaded at first
+    use).  ``wide`` says whether a coefficient leaves the compact entry's
+    16 bits.  ``combine`` keeps the int64 matrix for `combine_plain`."""
 
     def __init__(self, combine, device=None):
         c = np.ascontiguousarray(np.asarray(combine), np.int64)
@@ -1014,20 +1260,78 @@ class CombineTable:
         self.row_ptr = np.searchsorted(
             rows, np.arange(self.n_real + 1)).astype(np.int32)
         self.cols = cols.astype(np.int32)
-        self.coeffs = (c[rows, cols] & 0xFFFFFFFF).astype(np.uint32) \
-            .view(np.int32)
+        vals = c[rows, cols]
+        self.coeffs = (vals & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        self.wide = bool(vals.size) and not (
+            -COMPACT_COEFF <= vals.min() and vals.max() < COMPACT_COEFF)
+        self.live_rows = int(np.count_nonzero(np.diff(self.row_ptr)))
         self.device = torch.device("cpu") if device is None \
             else torch.device(device)
-        self.tensors = None
-        if self.device.type == "cuda":
-            self.tensors = tuple(
-                _on_device(a if a.size else np.zeros(1, np.int32),
-                           self.device)
-                for a in (self.row_ptr, self.cols, self.coeffs))
+        self._layouts: dict = {}
 
     @property
     def nnz(self) -> int:
         return int(self.cols.size)
+
+    def layout(self, n_groups: int) -> CombineLayout:
+        """The `CombineLayout` at ``n_groups`` row groups, cached; on a
+        CUDA table its arrays are on the device."""
+        hit = self._layouts.get(n_groups)
+        if hit is None:
+            hit = CombineLayout(self.row_ptr, self.cols, self.coeffs,
+                                self.n_shared, n_groups, self.wide)
+            if self.device.type == "cuda":
+                hit.to(self.device)
+            self._layouts[n_groups] = hit
+        return hit
+
+    def groups_for(self, n_chan: int, n_out: int, sms: int) -> int:
+        """Row groups for a launch over ``n_chan`` × ``n_out``: one, unless
+        the spans of all channels leave SMs idle; then the largest power
+        of two that keeps the blocks within ``sms``, each group at least a
+        quad for every warp of a block."""
+        spans = -(-n_out // COMBINE_SPAN) * n_chan
+        g = 1
+        while (2 * g * spans <= sms
+               and 2 * g * COMBINE_QUAD * COMBINE_WARPS <= self.live_rows):
+            g *= 2
+        return g
+
+
+def combine_walk(y, layout: CombineLayout, n_real: int) -> np.ndarray:
+    """The fold kernel's arithmetic in numpy, read back from its table:
+    ``y`` int32 (rows, C, n) → the (n_real, C, n) int32 real rows after
+    the fold.  Group by group it stages the union rows, and for each pair
+    of each quad decodes its chunks as the kernel does (compact or wide
+    entries; a zero entry reads staged row 0 and adds 0), sums each row's
+    coefficient × staged row modulo 2**32 and adds it to the row (a piece
+    to what earlier pieces left there)."""
+    yy = np.asarray(y, np.int32).view(np.uint32).astype(np.uint64)
+    out = yy[:n_real].copy()
+    words = layout.table
+    for g in range(layout.n_groups):
+        staged = yy[n_real + layout.ulist[layout.group_union[g]:
+                                          layout.group_union[g + 1]]]
+        for q in layout.quads[layout.group_quads[g]:
+                              layout.group_quads[g + 1]]:
+            first, n_chunks = q[0], q[1]
+            quad = words[first:first + 4 * n_chunks].reshape(
+                n_chunks, COMBINE_QUAD, 4)
+            for s in range(COMBINE_QUAD):
+                e = quad[:, s]
+                if layout.wide:
+                    place, c_a, c_b = e[:, 0], e[:, 1], e[:, 2]
+                else:
+                    e = e.reshape(-1, 2)
+                    place = e[:, 0] & 0xFFFF
+                    c_a = (e[:, 0].view(np.int32) >> 16).view(np.uint32)
+                    c_b = e[:, 1]
+                rows = staged[place // 8]
+                for row, coef in ((q[4 + s], c_a), (q[8 + s], c_b)):
+                    if row >= 0:
+                        out[row & (COMBINE_PIECE - 1)] += np.tensordot(
+                            coef.astype(np.uint64), rows, axes=1)
+    return (out & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
 _COMBINE_CACHE: dict = {}
@@ -1089,7 +1393,8 @@ def combine_fold(y: torch.Tensor, table: CombineTable) -> torch.Tensor:
     stride (K1's `bank_output` view or a contiguous buffer); each real
     row becomes ``y[r] + Σ_s combine[r, s] · y[n_real + s]`` modulo
     2**32, and the first ``n_real`` rows are returned as a view.  CPU
-    tensors take `combine_plain`; CUDA tensors launch the kernel or
+    tensors take `combine_plain`; CUDA tensors launch the kernel over the
+    table's `CombineLayout` for this grid (`CombineTable.groups_for`) or
     raise."""
     n_rows = table.n_real + table.n_shared
     if (y.dtype != torch.int32 or y.ndim != 3 or y.shape[0] != n_rows
@@ -1100,17 +1405,19 @@ def combine_fold(y: torch.Tensor, table: CombineTable) -> torch.Tensor:
     if dev.type == "cpu":
         y[:table.n_real] = combine_plain(y, table.combine, table.n_real)
         return y[:table.n_real]
-    if dev.type != "cuda" or table.tensors is None or table.device != dev:
+    if dev.type != "cuda" or table.device != dev:
         raise ValueError(f"y on {dev}, combine table on {table.device}")
     n_chan, n_out = y.shape[1], y.shape[2]
     if table.n_real and n_chan and n_out:
-        row_ptr, cols, coeffs = table.tensors
+        lay = table.layout(table.groups_for(n_chan, n_out, sm_count(dev)))
+        group_quads, group_union, ulist, quads, words = lay.tensors
         with torch.cuda.device(dev):
             err = _combine_library().blmac_combine_launch(
                 y.data_ptr(), y.stride(0), y.stride(1), table.n_real,
-                n_chan, n_out, row_ptr.data_ptr(), cols.data_ptr(),
-                coeffs.data_ptr(),
-                torch._C._cuda_getCurrentRawStream(dev.index),
+                n_chan, n_out, lay.n_groups, lay.max_union,
+                group_quads.data_ptr(), group_union.data_ptr(),
+                ulist.data_ptr(), quads.data_ptr(), words.data_ptr(),
+                int(lay.wide), torch._C._cuda_getCurrentRawStream(dev.index),
             )
         _raise_on(err, "blmac_combine_kernel")
         combine_fold.launches += 1

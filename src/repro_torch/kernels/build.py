@@ -56,9 +56,11 @@ SOURCES = {
         "blmac_specialized_smem_bytes": [_I, _I, _I, _I],
     }),
     "blmac_combine": ("blmac_combine.cu", {
-        # y, stride_row, stride_chan, n_real, n_chan, n_out, row_ptr, cols,
-        # coeffs, stream
-        "blmac_combine_launch": [_P, _L, _L, _I, _I, _I, _P, _P, _P, _P],
+        # y, stride_row, stride_chan, n_real, n_chan, n_out, n_groups,
+        # max_union, group_quads, group_union, ulist, quads, table, wide,
+        # stream
+        "blmac_combine_launch": [_P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P,
+                                 _P, _P, _I, _P],
     }),
     "blmac_pulse_matmul": ("blmac_pulse_matmul.cu", {
         # x, codes, group_exp, workspace, counters, out, m, n, k, planes,
@@ -86,12 +88,12 @@ class BuildInfo:
 
     def resources(self) -> dict:
         """Registers, static shared memory (bytes) and spill bytes per
-        kernel, parsed from the ``ptxas -v`` report.  The combine fold
-        takes no shared memory; the FIR kernels take only dynamic shared
-        memory, sized per launch
+        kernel, parsed from the ``ptxas -v`` report.  The kernels take
+        only dynamic shared memory, sized per launch
         (``blmac_bank_smem_bytes(taps)``, ``blmac_specialized_smem_bytes(
-        tab_pad, threads, taps, outs)``), and so does the pulse
-        matmul (``blmac_pulse_matmul_smem_bytes(bm, planes, group,
+        tab_pad, threads, taps, outs)``; the combine fold 128 bytes a
+        staged shared row, `CombineLayout.max_union`), and so does the
+        pulse matmul (``blmac_pulse_matmul_smem_bytes(bm, planes, group,
         stages)``)."""
         out: dict = {}
         kernel = None

@@ -15,6 +15,8 @@ for bit.  This file imports only the port (the card's machine has no
 JAX); the banks and weights come from the port's own generators and
 seeded numpy draws.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -548,8 +550,9 @@ def test_build_reports_kernel_resources(cuda):
     infos = build_all()
     res = {k: v for info in infos.values() for k, v in info.resources().items()}
     assert set(res) == {"blmac_specialized_kernel<16>",
-                        "blmac_specialized_kernel<4>",
-                        "blmac_combine_kernel"} | {
+                        "blmac_specialized_kernel<4>"} | {
+        f"blmac_combine_kernel<{vec}, {wide}>" for vec in ("true", "false")
+        for wide in ("true", "false")} | {
         f"blmac_bank_kernel<{ks}>" for ks in (1, 2, 3, 4)} | {
         f"blmac_pulse_matmul_kernel<{bm}, {std}>"
         for bm in (8, 16, 64, 128) for std in ("true", "false")}
@@ -576,15 +579,22 @@ def _serve_combine():
     return cse_pass(compile_bank(spread_lowpass_qbank(256, 63))).combine
 
 
-def _fold_on_card(y_host, combine, cuda, padded):
+def _fold_on_card(y_host, combine, cuda, padded, offset=0):
     """The fold kernel over ``y_host`` (int32 (rows, C, n)) on the card,
-    into a contiguous buffer or a `bank_output` view (rows padded)."""
+    into a contiguous buffer or a `bank_output` view (rows padded); with
+    ``offset``, the buffer's first ``offset`` words are skipped, so no
+    row starts on 16 bytes."""
     rows, n_chan, n = y_host.shape
-    if padded:
+    if padded and not offset:
         y = bank_output(rows, n_chan, n, cuda)
-        y.copy_(torch.as_tensor(y_host))
+    elif padded:
+        ld = -(-(n + offset) // 8) * 8
+        y = torch.empty((rows, n_chan, ld), dtype=torch.int32,
+                        device=cuda)[:, :, offset:offset + n]
     else:
-        y = torch.as_tensor(y_host).to(cuda)
+        y = torch.empty(rows * n_chan * n + offset, dtype=torch.int32,
+                        device=cuda)[offset:].view(rows, n_chan, n)
+    y.copy_(torch.as_tensor(y_host))
     table = combine_table(combine, cuda)
     reset_launch_counts()
     out = combine_fold(y, table)
@@ -596,28 +606,78 @@ def _fold_on_card(y_host, combine, cuda, padded):
     return out
 
 
+def _wide_row_combine():
+    """A row with more nonzeros than a block can stage (cut into pieces
+    added with atomics) beside ordinary rows."""
+    combine = _sparse_combine(6, 2500, 30, 24)
+    combine[2, :2400] = np.random.default_rng(25).choice([-3, 5], 2400)
+    return combine
+
+
 @pytest.mark.parametrize("padded", [False, True])
-@pytest.mark.parametrize("case", ["serve", "one_shared", "wrap", "channels"])
+@pytest.mark.parametrize("case", ["serve", "one_shared", "wrap", "channels",
+                                  "short", "mid_vector", "unaligned",
+                                  "many_shared", "wide_row"])
 def test_combine_kernel_matches_plain(cuda, case, padded):
     rng = np.random.default_rng(11)
+    offset = 0
     if case == "serve":  # the serve bank's own combine, one push
         combine, n_chan, n = _serve_combine(), 1, 4158
     elif case == "one_shared":
         combine, n_chan, n = _sparse_combine(40, 1, 1, 12), 1, 1000
     elif case == "wrap":  # coefficients to 2**30: the sums wrap
         combine, n_chan, n = _sparse_combine(64, 30, 12, 13, top=31), 1, 777
-    else:
+    elif case == "channels":
         combine, n_chan, n = _sparse_combine(100, 50, 9, 14), 3, 2049
+    elif case == "short":  # fewer samples than one span: many row groups
+        combine, n_chan, n = _sparse_combine(2000, 300, 20, 21), 1, 20
+    elif case == "mid_vector":  # the last span ends inside a lane's 4
+        combine, n_chan, n = _sparse_combine(300, 200, 30, 22), 1, 166
+    elif case == "unaligned":  # no row starts on 16 bytes
+        combine, n_chan, n, offset = _serve_combine(), 1, 4096, 1
+    elif case == "many_shared":  # a group's union split to fit
+        combine, n_chan, n = _sparse_combine(200, 4000, 40, 23), 1, 500
+    else:
+        combine, n_chan, n = _wide_row_combine(), 2, 300
     rows = sum(combine.shape)
     y_host = rng.integers(-(1 << 31), 1 << 31, (rows, n_chan, n)) \
         .astype(np.int32)
-    got = _fold_on_card(y_host, combine, cuda, padded)
+    got = _fold_on_card(y_host, combine, cuda, padded, offset)
     want = combine_plain(torch.as_tensor(y_host), combine, combine.shape[0])
     assert torch.equal(got.cpu(), want)
     if case != "wrap":  # the plain fold's float64 route on the card
         plain = combine_plain(torch.as_tensor(y_host).to(cuda), combine,
                               combine.shape[0])
         assert torch.equal(plain.cpu(), want)
+
+
+@functools.lru_cache(maxsize=1)
+def _sweep_combine():
+    from repro_torch.compiler import cse_pass
+
+    q, _ = po2_quantize_batch(sweep_bank(127), 16)
+    return cse_pass(compile_bank(q)).combine
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_combine_kernel_on_the_sweep_bank_combine(cuda, padded):
+    """The sweep bank's own combine (9,900 x 1,424, 828,212 nonzeros;
+    clustered columns, one shared row used by 7,385 real rows) over
+    16,258 full-range samples: the kernel against the plain fold on the
+    card, and 16 rows against int64 numpy."""
+    combine = _sweep_combine()
+    rng = np.random.default_rng(26)
+    y_host = rng.integers(-(1 << 31), 1 << 31,
+                          (sum(combine.shape), 1, 16258)).astype(np.int32)
+    got = _fold_on_card(y_host, combine, cuda, padded)
+    plain = combine_plain(torch.as_tensor(y_host).to(cuda), combine, 9900)
+    assert torch.equal(got, plain)
+    rows = rng.choice(9900, 16, replace=False)
+    want = (y_host[rows].astype(np.int64) + np.tensordot(
+        combine[rows], y_host[9900:].astype(np.int64), axes=1)) \
+        .astype(np.int32)
+    assert np.array_equal(got[torch.as_tensor(rows, device=cuda)].cpu()
+                          .numpy(), want)
 
 
 def test_combine_kernel_at_the_sweep_shape(cuda):

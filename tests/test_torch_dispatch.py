@@ -203,9 +203,21 @@ def test_the_cuda_lane_prices_k1_by_its_terms_and_bytes():
     assert fold == pytest.approx(
         22.0 + 4 * 3 * 1024 * (2 * opt.n_real + opt.n_shared) * 3e-7
         + opt.nnz * 3 * 1024 * 2e-7)
+    # the optimized program prices the fold kernel's table: its pairs of
+    # real rows' shared rows, padding included, instead of the nonzeros
+    entries = opt.fold_entries(3, 1024, CUDA_CAL)
+    table = tk.combine_table(opt.combine, "cpu")
+    assert entries == table.layout(table.groups_for(3, 1024, 132)).entries
+    assert entries >= opt.nnz // 2
+    assert opt.fold_entries(3, 1024, None) is None
+    paired = cm.predict_combine_us(opt.n_real, opt.n_shared, 3, 2, 512,
+                                   cal=CUDA_CAL, nnz=opt.nnz,
+                                   entries=entries)
+    assert paired == pytest.approx(fold + (entries - opt.nnz) * 3 * 1024
+                                   * 2e-7)
     assert opt.predict_scheduled_us(3, 2, 512, cal=CUDA_CAL) == \
         pytest.approx(opt.bank.predict_scheduled_us(3, 2, 512, cal=CUDA_CAL)
-                      + fold)
+                      + paired)
     with pytest.raises(ValueError):
         cm.predict_combine_us(4, 2, 1, 1, 512, cal=CUDA_CAL)
     assert cm.predict_combine_us(4, 0, 1, 1, 512, cal=CUDA_CAL) == 0.0
@@ -268,7 +280,8 @@ def test_calibration_files_are_keyed_on_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("probe,args", [
     ("_probe_bank", (64, 63, 600)),
     ("_probe_specialized", (3, 31, 600)),
-    ("_probe_fold", (16, 9, 4, 600)),
+    ("_probe_fold", (16, 9, 4, 600, 0)),
+    ("_probe_fold", (40, 30, 6, 600, 1)),  # clustered columns: pairs share
 ])
 def test_calibration_probes_run_their_kernels(probe, args):
     """Each probe of the fit runs its kernel's wrapper (the plain version
@@ -280,9 +293,11 @@ def test_calibration_probes_run_their_kernels(probe, args):
         b, taps, n = args
         assert work[1] == 4 * b * n and tuple(y.shape) == (b, 1, n)
     elif probe == "_probe_fold":
-        n_real, n_shared, per_row, n = args
+        n_real, n_shared, per_row, n, clustered = args
         assert work[0] == 4 * n * (2 * n_real + n_shared)
         assert tuple(y.shape) == (n_real, 1, n)
+        # the work is the kernel's table entries (pairs of rows) a sample
+        assert work[1] % n == 0 and work[1] // n >= n_real * per_row // 4
     else:
         assert len(work) == 2 and y.shape[0] == args[0]
 
