@@ -75,7 +75,24 @@ before it and read just after:
                   filters at 63 taps and for the sweep bank, the chosen
                   candidate's and the runner-up's predicted time beside
                   the time measured for each, and the filter count at which
-                  K1 overtakes K2 at 63 taps, measured and predicted.
+                  K1 overtakes K2 at 63 taps, measured and predicted;
+  * machine     — the paper's §4 accounting and `lower()` on the card:
+                  Table 4 at full size (the sweep bank's mean
+                  `machine_cycles`, its `fused_last_add` mean and the
+                  vmachine's share of filters that do not fit the
+                  256-code memory, equal to `machine_cycles_batch`, to the
+                  vmachine's cycles and to ``BENCH_machine.json``'s
+                  ``"100"`` grid, the paper's 231.6 beside them); then
+                  `lower()`'s ``"scheduled"`` (K1) and ``"specialized"``
+                  (K2, one launch for all filters) on the sweep bank, its
+                  CSE-optimized program (plus one fold each), the serve
+                  bank and one sweep filter, over 512 outputs of 8-bit
+                  samples: tolerance 0 against ``"oracle"`` and
+                  ``"vmachine"`` (with its fit mask), the scalar machine
+                  on 4 sampled rows × 8 outputs and reject-parity on every
+                  row the mask flags, the launches of every call counted;
+                  its host seconds, and each lowered call at the sweep and
+                  serve shapes timed by CUDA events and by host clock.
 
 Between them, with the serve leg's engine: its throughput, and its push
 broken down into the engine's own steps, timed by CUDA events (the
@@ -1004,6 +1021,195 @@ def dispatch_leg(dev, smi, cal, fit_s, sweep_prog) -> None:
           "device": torch.cuda.get_device_name(dev), "nvidia_smi": smi})
 
 
+MACHINE_OUT = 512  # outputs a channel of the machine phase's lowered calls
+MACHINE_SCALAR_FILTERS, MACHINE_SCALAR_OUTPUTS = 4, 8
+PAPER_MEAN_CYCLES = 231.6  # §4, the paper's mean over its 127-tap bank
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Mean host milliseconds of ``fn`` (a lowered call ends in a copy to
+    the host, so it returns with the device done), after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def machine_leg(dev, smi, sweep_prog, serve_prog) -> dict:
+    """The §4 machine model and `lower()` on the card (see the module
+    notes); emits the ``machine`` phase and returns the kernels' launches
+    counted over its lowered calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compiler import compile_bank, cse_pass, lower
+    from repro_torch.core import (FirBlmacMachine, MachineSpec,
+                                  machine_cycles_batch)
+
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(19)
+
+    # -- Table 4 at the paper's size: the sweep bank's cycles and fit share
+    cycles = sweep_prog.machine_cycles()  # the paper's spec at 127 taps
+    fused = sweep_prog.machine_cycles(
+        MachineSpec(taps=sweep_prog.taps, fused_last_add=True))
+    check(np.array_equal(cycles, machine_cycles_batch(sweep_prog.qbank))
+          and np.array_equal(fused, machine_cycles_batch(
+              sweep_prog.qbank, fused_last_add=True)),
+          "machine_cycles differs from machine_cycles_batch")
+    with open(os.path.join(HERE, "BENCH_machine.json")) as f:
+        committed = json.load(f)["grids"]["100"]
+    table4 = {"filters": int(sweep_prog.n_filters),
+              "mean_cycles": float(cycles.mean()),
+              "fused_mean_cycles": float(fused.mean()),
+              "paper_mean_cycles": PAPER_MEAN_CYCLES}
+
+    cases = {"sweep": sweep_prog, "sweep_cse": cse_pass(sweep_prog),
+             "serve": serve_prog,
+             # the specialized leg's filter, a bandpass of the sweep bank
+             "one_filter": compile_bank(
+                 sweep_prog.qbank[sweep_prog.n_filters // 2][None])}
+    check(cases["sweep_cse"] is not sweep_prog,
+          "the CSE pass declined the sweep bank")
+    launches = {"bank_apply": 0, "specialized_call": 0, "combine_fold": 0}
+    rows, signals, oracles, lowered = {}, {}, {}, {}
+    for name, prog in cases.items():
+        row = {"filters": prog.out_filters, "rows": prog.n_filters,
+               "taps": prog.taps, "outputs": MACHINE_OUT}
+        t0 = time.perf_counter()
+        # an optimized program runs its parent's signal against the
+        # parent's oracle (its effective coefficients are the parent's)
+        parent = prog if prog.combine is None else prog.parent
+        if parent.key not in oracles:
+            signals[parent.key] = rng.integers(
+                -128, 128, prog.taps - 1 + MACHINE_OUT)
+            oracles[parent.key] = lower(parent, "oracle")(
+                signals[parent.key])
+        x, oracle = signals[parent.key], oracles[parent.key]
+        if prog.combine is not None:
+            check(np.array_equal(prog.effective_qbank(), parent.qbank),
+                  f"{name}: effective_qbank differs from the parent's")
+        row["oracle_s"] = time.perf_counter() - t0
+
+        # the vmachine: outputs (folded exactly for an optimized program),
+        # fit mask and cycles
+        t0 = time.perf_counter()
+        vlow = lower(prog, "vmachine")
+        vm, fits = vlow.vmachine, vlow.fits
+        y_vm = vlow(x)
+        check(np.array_equal(y_vm, oracle),
+              f"{name}: vmachine differs from the oracle")
+        vcycles = vm.run(x[:prog.taps]).cycles[:, 0]
+        if prog.combine is None:
+            check(np.array_equal(prog.machine_cycles(), vcycles)
+                  and np.array_equal(vcycles,
+                                     machine_cycles_batch(prog.qbank)),
+                  f"{name}: machine_cycles, machine_cycles_batch and the "
+                  f"vmachine differ")
+        else:
+            check(np.array_equal(prog.machine_cycles(),
+                                 vcycles[:prog.n_real] + prog.use_counts)
+                  and np.array_equal(prog.shared_cycles(),
+                                     vcycles[prog.n_real:]),
+                  f"{name}: machine_cycles/shared_cycles differ from the "
+                  f"widened vmachine")
+        row["vmachine_s"] = time.perf_counter() - t0
+        row["fits"] = int(fits.sum())
+        row["not_fitting_pct"] = float(100 * (~fits).mean())
+        row["mean_cycles"] = float(prog.machine_cycles().mean())
+
+        # the scalar machine: sampled rows and outputs, and reject-parity
+        # on every row the fit mask flags (same spec as the vmachine's)
+        t0 = time.perf_counter()
+        sample = rng.choice(prog.n_filters,
+                            min(MACHINE_SCALAR_FILTERS, prog.n_filters),
+                            replace=False)
+        xs = x[:prog.taps - 1 + MACHINE_SCALAR_OUTPUTS]
+        vres = vm.run(xs)
+        replayed = 0
+        for b in sample:
+            m = FirBlmacMachine(vm.spec)
+            try:
+                m.program(prog.qbank[b])
+            except ValueError:
+                check(not fits[b], f"{name}: scalar rejected row {b}, the "
+                                   f"vmachine fit it")
+                continue
+            check(bool(fits[b]), f"{name}: the vmachine rejected row {b}, "
+                                 f"the scalar machine programmed it")
+            res = m.run(xs)
+            check(np.array_equal(res.outputs, vres.outputs[b])
+                  and np.array_equal(res.cycles, vres.cycles[b]),
+                  f"{name}: scalar machine differs from the vmachine "
+                  f"(row {b})")
+            replayed += 1
+        for b in np.nonzero(~fits)[0]:
+            try:
+                FirBlmacMachine(vm.spec).program(prog.qbank[b])
+            except ValueError:
+                continue
+            check(False, f"{name}: the vmachine flags row {b}, the scalar "
+                         f"machine programmed it")
+        row["scalar_replayed"] = replayed
+        row["scalar_rejected"] = int((~fits).sum())
+        row["scalar_s"] = time.perf_counter() - t0
+
+        # K1 and K2 through lower(): one launch each, one fold with a
+        # combine, tolerance 0 against the oracle and the vmachine
+        for backend, kernel in (("scheduled", "bank_apply"),
+                                ("specialized", "specialized_call")):
+            low = lowered[name, backend] = lower(prog, backend, device=dev)
+            bf.reset_launch_counts()
+            y = low(x)
+            got = {k: getattr(bf, k).launches for k in launches}
+            want = {k: 0 for k in launches}
+            want[kernel] = 1
+            want["combine_fold"] = int(prog.combine is not None)
+            check(got == want, f"{name} {backend}: launches {got}, want "
+                               f"{want}")
+            for k in launches:
+                launches[k] += got[k]
+            err = int(np.abs(y.astype(np.int64) - oracle).max())
+            check(err == 0 and y.dtype == np.int32
+                  and y.shape == oracle.shape
+                  and np.array_equal(y, y_vm),
+                  f"{name} {backend}: differs from the oracle by {err} "
+                  f"or from the vmachine")
+            row[backend] = {"launches": got, "max_abs_err": err}
+        rows[name] = row
+
+    # Table 4's fit share is the vmachine's over the sweep bank; the
+    # counts are deterministic, so they equal the committed baseline
+    table4["not_fitting_pct"] = rows["sweep"]["not_fitting_pct"]
+    for key, ref in (("mean_cycles", "mean_cycles_all"),
+                     ("fused_mean_cycles", "fused_mean_cycles_all"),
+                     ("not_fitting_pct", "pct_not_fitting")):
+        check(abs(table4[key] - committed[ref]) < 1e-9,
+              f"Table 4: {key} {table4[key]} differs from "
+              f"BENCH_machine.json's {committed[ref]}")
+    table4["paper_rel_err"] = table4["mean_cycles"] / PAPER_MEAN_CYCLES - 1
+    host_s = time.perf_counter() - t_phase
+
+    # timings (reported, not claimed): each lowered call by CUDA events and
+    # by the host's clock, at the sweep and serve shapes
+    timings = {}
+    for name in ("sweep", "sweep_cse", "serve"):
+        prog = cases[name]
+        parent = prog if prog.combine is None else prog.parent
+        x = signals[parent.key]
+        for backend in ("scheduled", "specialized"):
+            low = lowered[name, backend]
+            timings[f"{name}/{backend}"] = {
+                "cuda_event_ms": cuda_ms(lambda: low(x)),
+                "host_ms": host_ms(lambda: low(x))}
+    emit({"phase": "machine", "table4": table4, "host_s": host_s,
+          "cases": rows, "lowered_call_ms": timings, "launches": launches,
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1231,6 +1437,7 @@ def main() -> int:
     fold_row = cse_leg(dev, smi, serve_prog, serve_q, chunks, outs,
                        sweep_prog, sweep_q, x_sweep, y_sweep, cal)
     dispatch_leg(dev, smi, cal, fit_s, sweep_prog)
+    machine_launches = machine_leg(dev, smi, sweep_prog, serve_prog)
 
     # -- K1 at the main path's shapes: the sweep call and one serve push ----
     # K1's bound: the bytes (samples in, the int32 output out, once each)
@@ -1331,8 +1538,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/blmac_bank.cu",
          "replaces": "src/repro/kernels/blmac_fir.py:200",
          "replaces_function": "_fir_kernel_bank",
-         "launches": serve_launches + sweep_launches,
-         "launches_by_leg": {"serve": serve_launches, "sweep": sweep_launches},
+         "launches": (serve_launches + sweep_launches
+                      + machine_launches["bank_apply"]),
+         "launches_by_leg": {"serve": serve_launches, "sweep": sweep_launches,
+                             "machine": machine_launches["bank_apply"]},
          "shape": f"{len(sweep_q)} filters x {SWEEP_TAPS} taps x 1 channel x "
                   f"{SWEEP_SAMPLES} samples, tile {OPS_TILE}, "
                   f"{len(sched.groups)} groups in 1 launch",
@@ -1352,14 +1561,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/blmac_specialized.cu",
          "replaces": "src/repro/kernels/blmac_fir.py:112",
          "replaces_function": "_fir_kernel_specialized",
-         "launches": spec_launches,
+         "launches": spec_launches + machine_launches["specialized_call"],
          "shape": f"1 filter x {SWEEP_TAPS} taps ({len(spec_pulses)} pulses) x "
                   f"{SPEC_SAMPLES} samples, tile {OPS_TILE}",
          "max_abs_err": spec_diff, "max_abs_diff": spec_diff,
          "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
          "ops": k2_ops, "bytes": k2_bytes, "device_us": k2_device_us,
-         "launches_by_call": {"blmac_fir": fir_launches, **per_push}},
+         "launches_by_call": {"blmac_fir": fir_launches, **per_push,
+                              "machine": machine_launches["specialized_call"]}},
     ]
 
     # -- engine throughput on the serve leg (before the pulse_matmul leg,
@@ -1381,6 +1591,9 @@ def main() -> int:
     emit({"phase": "serve_push_breakdown", **breakdown,
           "device": kind, "nvidia_smi": smi})
 
+    fold_row["launches_by_leg"] = {"cse": fold_row["launches"],
+                                   "machine": machine_launches["combine_fold"]}
+    fold_row["launches"] += machine_launches["combine_fold"]
     kernels.append(fold_row)
     kernels.append(pulse_matmul_leg(dev, smi))
 

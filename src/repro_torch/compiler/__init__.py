@@ -13,10 +13,13 @@ packages unchanged:
     pack-time scheduler,
   * `cse_pass` / `OptimizedProgram` — cross-filter common-subexpression
     elimination (shared 2-term rows plus a combine matrix),
+  * `lower` / `Lowered` / `BACKENDS` — one program, one executable per
+    backend (the numpy oracle, K1, K2, the §4 vmachine),
   * `cache_stats` / `clear_caches` — the cache observability point,
   * `TailSnapshot` — overlap-save stream state, keyed to its program.
 """
 from .cache import cache_stats, clear_caches
+from .lowering import BACKENDS, Lowered, lower
 from .optimize import OptimizedProgram, cse_pass
 from .program import (BlmacProgram, CompileSpec, PROGRAM_FORMAT_VERSION,
                       ProgramFormatError, compile_bank, compile_packed,
@@ -27,9 +30,11 @@ from .schedule import (BankSchedule, MAX_BANK_TILE, MERGE_DEFAULT, TileGroup,
 from .state import STATE_FORMAT_VERSION, SnapshotFormatError, TailSnapshot
 
 __all__ = [
+    "BACKENDS",
     "BankSchedule",
     "BlmacProgram",
     "CompileSpec",
+    "Lowered",
     "MAX_BANK_TILE",
     "MERGE_DEFAULT",
     "OptimizedProgram",
@@ -45,6 +50,7 @@ __all__ = [
     "compile_packed",
     "cse_pass",
     "default_bank_tile",
+    "lower",
     "plan_bank_schedule",
     "program_from_arrays",
     "superlayer_schedule",

@@ -4,7 +4,8 @@ The port's copy of `repro.compiler.cache`: one content-addressed program
 cache (a `BlmacProgram` is compiled at most once per distinct bank
 content), hit/miss stats of the caches that key on a program's digest
 (the dispatch planner's and the CSE pass's memo) and event counters for
-the expensive recomputations (CSD packings, schedule plans, CSE mines).
+the expensive recomputations (CSD packings, schedule plans, CSE mines,
+§4 machine-cycle computes).
 `cache_stats()` is the single observability point; it also reports the
 specialized-kernel LRU, whose entries hold device-resident pulse tables.
 """
@@ -108,7 +109,8 @@ def cache_stats() -> dict:
          "cse": {"hits", "misses", "size"},
          "specialized": {"hits", "misses", "size"},
          "counters": {"csd_packings": ..., "schedule_plans": ...,
-                      "cse_passes": ..., ...}}
+                      "cse_passes": ..., "machine_cycle_computes": ...,
+                      ...}}
     """
     info = _module("..kernels.blmac_fir").specialized_program.cache_info()
     sizes = {"autotune": len(_module("..kernels.runtime")._AUTOTUNE_CACHE),

@@ -47,6 +47,7 @@ import numpy as np
 from ..core.csd import (layer_occupancy, occupancy_signatures, pack_trits,
                         packed_pulse_counts, unpack_trits)
 from ..core.io import atomic_write
+from ..core.machine import MachineSpec
 from .cache import PROGRAM_CACHE, STATS, _bump
 from .program import (PROGRAM_FORMAT_VERSION, BlmacProgram, CompileSpec,
                       ProgramFormatError, _packed_key, _qbank_key,
@@ -58,12 +59,6 @@ __all__ = ["OptimizedProgram", "cse_pass", "CSE_MEMO_MAX"]
 # is bounded; an evicted entry just re-mines
 CSE_MEMO_MAX = 16
 _CSE_MEMO: dict = {}
-
-# the queue item the machine model waits for (ROADMAP.md, queue 1)
-_MACHINE_MODEL = ("the §4 machine model is not ported yet (ROADMAP.md, "
-                  "queue 1, item 4: machines, lowering and the differential "
-                  "harness)")
-
 
 def _memo_key(parent_key: str, level, max_shared):
     return (parent_key, "cse", level, max_shared)
@@ -93,7 +88,8 @@ class OptimizedProgram(BlmacProgram):
         Signed power-of-two reuse coefficients; column ``p`` folds shared
         row ``p`` into each real output.
     use_counts : (n_real,) int64
-        Combine adds per real filter.
+        Combine adds per real filter — the +1-cycle term of the §4 cycle
+        model and the +1-add term of the §3.3 adds count.
     """
 
     def __init__(self, *, parent, combine, use_counts, level, **kw):
@@ -167,15 +163,31 @@ class OptimizedProgram(BlmacProgram):
             + int(self.use_counts.sum())
         )
 
-    def machine_cycles(self, spec=None):
-        """Not ported yet: raises `NotImplementedError` naming the queue
-        item it waits for."""
-        raise NotImplementedError(f"machine_cycles: {_MACHINE_MODEL}")
+    def machine_cycles(self, spec=None) -> np.ndarray:
+        """(n_real,) §4 cycles per output for each real filter: the
+        reduced row's own RLE codes plus one cycle per combine add.
+        Shared-row cycles are bank-level (each virtual row runs once for
+        all its consumers) — see `shared_cycles`.
 
-    def shared_cycles(self, spec=None):
-        """Not ported yet: raises `NotImplementedError` naming the queue
-        item it waits for."""
-        raise NotImplementedError(f"shared_cycles: {_MACHINE_MODEL}")
+        The default spec is widened to ``n_layers + 1`` coefficient
+        bits: reduced and virtual rows can exceed the parent's
+        magnitude range even though their outputs recombine into it.
+        """
+        if spec is None:
+            spec = MachineSpec(taps=self.taps,
+                               coeff_bits=self.n_layers + 1)
+        base = super().machine_cycles(spec)
+        cycles = base[: self.n_real] + self.use_counts
+        cycles.setflags(write=False)
+        return cycles
+
+    def shared_cycles(self, spec=None) -> np.ndarray:
+        """(n_shared,) §4 cycles of the virtual rows — amortized once
+        per bank per output sample."""
+        if spec is None:
+            spec = MachineSpec(taps=self.taps,
+                               coeff_bits=self.n_layers + 1)
+        return super().machine_cycles(spec)[self.n_real:]
 
     # -- cost-model reads ----------------------------------------------------
 

@@ -5,7 +5,8 @@ A compiled filter bank is quantized taps → CSD bit layers → packed 2-bit
 trit words (the bank kernel's operand) plus the views every backend
 reads: per-filter layer occupancy, occupancy signatures, pulse counts,
 memoized superlayer schedules per ``(bank_tile, merge)`` and per-filter
-MSB-first pulse tuples.
+MSB-first pulse tuples, and memoized §4 machine cycle counts per
+`MachineSpec` (`machine_cycles`).
 
 The content address (`BlmacProgram.key`) and the on-disk format
 (`PROGRAM_FORMAT_VERSION`, npz + JSON header) are the reference's, byte
@@ -16,7 +17,8 @@ the reference's key.  The same holds for a CSE-optimized program
 package's CSE pass saved loads in the other under the same key.  The
 dispatch planner reads its inputs off the program (`mean_pulses`,
 `predict_specialized_us`, `predict_scheduled_us`).  What the port leaves
-out for now: `partition`, `select` and `machine_cycles`.
+out for now: `partition` (the sharded engine's plan, ROADMAP queue 1,
+item 5) and `select` (the session server's, item 6).
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from ..core.csd import (assert_int32_bound, csd_decode, csd_digits,
                         layer_occupancy, occupancy_signatures, pack_trits,
                         packed_pulse_counts, require_type1, unpack_trits)
 from ..core.io import atomic_write, check_format_header
+from ..core.machine import MachineSpec
+from ..core.rle import code_count_batch
 from .cache import PROGRAM_CACHE, _bump
 from .schedule import (BankSchedule, MERGE_DEFAULT, default_bank_tile,
                        plan_bank_schedule)
@@ -142,6 +146,7 @@ class BlmacProgram:
                   pulse_counts):
             a.setflags(write=False)
         self._schedules: dict = {}
+        self._cycle_cache: dict = {}
         self._half_digits = None
         self._pulse_schedules = None
 
@@ -218,6 +223,49 @@ class BlmacProgram:
         return self._schedules[key]
 
     # -- cost-model reads ----------------------------------------------------
+
+    def machine_cycles(self, spec=None) -> np.ndarray:
+        """(B,) §4 machine clock cycles per output sample, per filter.
+
+        Derived from the program's own digits (no CSD recomputation):
+        layers are sliced or padded to ``spec.n_layers`` — exact, because
+        NAF digit values do not depend on the requested width — and a
+        bank whose digits populate layers the spec lacks raises, as
+        `machine_cycles_batch` would.  Memoized per spec parameters (the
+        memo is no part of the key or the file); equal to both
+        simulators' cycles (`tests/torch_differential.py`).
+        """
+        if spec is None:
+            spec = MachineSpec(taps=self.taps)
+        if spec.taps != self.taps:
+            raise ValueError(
+                f"spec is for {spec.taps} taps, bank has {self.taps}"
+            )
+        key = (spec.n_layers, spec.start_overhead, spec.fused_last_add)
+        if key not in self._cycle_cache:
+            _bump("machine_cycle_computes")
+            digits = self.half_digits()  # (B, M, L) LSB-first
+            n = int(spec.n_layers)
+            if digits.shape[-1] > n:
+                if self.occupancy[:, n:].any():
+                    raise ValueError(
+                        f"bank populates CSD layer >= {n}; spec has only "
+                        f"{n} layers"
+                    )
+                digits = digits[..., :n]
+            elif digits.shape[-1] < n:
+                pad = np.zeros(
+                    digits.shape[:-1] + (n - digits.shape[-1],), np.int8
+                )
+                digits = np.concatenate([digits, pad], axis=-1)
+            cycles = code_count_batch(digits) + spec.start_overhead
+            if spec.fused_last_add:
+                cycles = cycles - np.count_nonzero(
+                    digits.any(axis=1), axis=-1
+                )
+            cycles.setflags(write=False)  # shared cache entry: no mutation
+            self._cycle_cache[key] = cycles
+        return self._cycle_cache[key]
 
     def predict_specialized_us(self, channels: int, n_tiles: int, cal=None,
                                tile: int = 1) -> float:

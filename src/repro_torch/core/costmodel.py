@@ -1,4 +1,18 @@
-"""The bank-dispatch cost model: the objective the dispatch planner
+"""The paper's cost model (§3.3, §4) and the bank-dispatch cost model.
+
+The paper's counts, numpy copies of `repro.core.costmodel`'s: the
+additions needed to apply a type-I FIR filter with a BLMAC, with the
+symmetric pre-add of Eq. 3,
+
+    tot = N/2                              (pre-adds of symmetric samples)
+        + Σ_{j<N/2+1} ntrits[|w_j|]        (BLMAC pulses)
+
+(`fir_blmac_additions`, per coefficient and per tap, and the classical
+baseline the paper compares with), and the §4 machine's clock cycles per
+output sample, one per RLE code plus a fixed overhead (`machine_cycles`,
+`machine_cycles_batch`).
+
+The bank-dispatch cost model is the objective the dispatch planner
 (`repro_torch.kernels.runtime.autotune_bank_dispatch`) minimises.
 
 A copy of the reference's model (`repro.core.costmodel`) with one lane
@@ -35,7 +49,6 @@ per-lane constant table (`BackendCalibration`):
 
 There is no fallback: `ensure_calibration` fits the ``"cuda"`` lane at
 first use and raises when a probe fails, and no other lane is fitted.
-The machine model of §4 (`machine_cycles`) is not here yet.
 """
 from __future__ import annotations
 
@@ -47,7 +60,17 @@ from dataclasses import asdict, dataclass
 
 import numpy as np
 
+from .csd import csd_digits, num_pulses
+from .rle import code_count, code_count_batch
+
 __all__ = [
+    "adds_per_coeff",
+    "adds_per_tap",
+    "classical_equivalent_adds",
+    "fir_blmac_additions",
+    "fir_blmac_additions_batch",
+    "machine_cycles",
+    "machine_cycles_batch",
     "BackendCalibration",
     "BankDispatchPlan",
     "CUDA_LANE",
@@ -61,6 +84,71 @@ __all__ = [
     "predict_scheduled_us",
     "predict_specialized_us",
 ]
+
+def _half(wq: np.ndarray) -> np.ndarray:
+    """First N//2 + 1 coefficients of a type-I (odd, symmetric) filter."""
+    n = wq.shape[-1]
+    if n % 2 == 0:
+        raise ValueError("type-I FIR filters have an odd number of taps")
+    return wq[..., : n // 2 + 1]
+
+
+def fir_blmac_additions(wq: np.ndarray) -> int:
+    """Total additions to apply one quantized N-tap type-I filter (Eq. 3)."""
+    n = wq.shape[-1]
+    return int(n // 2 + num_pulses(np.abs(_half(wq))).sum())
+
+
+def fir_blmac_additions_batch(wq: np.ndarray) -> np.ndarray:
+    """Vectorized over a bank: ``wq`` is (n_filters, n_taps) int."""
+    n = wq.shape[-1]
+    return n // 2 + num_pulses(np.abs(_half(wq))).sum(axis=-1)
+
+
+def adds_per_coeff(total_adds, n_taps: int):
+    """(B_N − N/2) / (N/2 + 1) — comparable to Tab. 3's per-weight averages."""
+    return (np.asarray(total_adds, np.float64) - n_taps // 2) / (n_taps // 2 + 1)
+
+
+def adds_per_tap(total_adds, n_taps: int):
+    return np.asarray(total_adds, np.float64) / n_taps
+
+
+def classical_equivalent_adds(n_taps: int, mult_cost_adds: int = 15) -> int:
+    """The paper's apples-to-apples baseline: symmetric classical algorithm
+    = (N/2+1) multiplications (@ ``mult_cost_adds`` adds each for 16-bit)
+    + N−1 additions."""
+    return mult_cost_adds * (n_taps // 2 + 1) + n_taps - 1
+
+
+def machine_cycles(
+    wq: np.ndarray, n_layers: int = 16, overhead: int = 0
+) -> int:
+    """Clock cycles of the §4 dot-product machine for one output sample:
+    one cycle per RLE code (pulse or EOR) + fixed per-sample overhead."""
+    digits = csd_digits(_half(wq), n_digits=n_layers)
+    return code_count(digits) + overhead
+
+
+def machine_cycles_batch(
+    wq: np.ndarray,
+    n_layers: int = 16,
+    overhead: int = 0,
+    fused_last_add: bool = False,
+) -> np.ndarray:
+    """Vectorized :func:`machine_cycles` over a (B, taps) bank → (B,) int64.
+
+    ``fused_last_add`` applies the §4 optimization (the last add of each
+    non-empty bit layer overlaps the shift: −1 cycle per such layer, −16
+    for a fully-populated 16-layer program) — matching both simulators.
+    """
+    wq2 = np.atleast_2d(np.asarray(wq, np.int64))
+    digits = csd_digits(_half(wq2), n_digits=n_layers)  # (B, M, L)
+    cycles = code_count_batch(digits) + overhead
+    if fused_last_add:
+        cycles = cycles - np.count_nonzero(digits.any(axis=1), axis=-1)
+    return cycles
+
 
 # the reference's "interpret" constants (microseconds)
 SPEC_CALL_US = 140.0  # per specialized-program dispatch (B=1 pallas_call)

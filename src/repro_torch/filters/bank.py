@@ -163,6 +163,26 @@ class FilterBankEngine:
                                             self.taps, self.tile, self.device)
         self.reset()
 
+    # -- cost model ---------------------------------------------------------
+
+    def predicted_machine_cycles(self, spec=None) -> np.ndarray:
+        """(B,) clock cycles per output each filter would cost on the §4
+        FPGA dot-product machine (one cycle per RLE code + overhead).
+
+        ``spec`` is a `repro_torch.core.MachineSpec` (default: the paper's
+        127-tap spec parameters applied to this bank's tap count).  Reads
+        `BlmacProgram.machine_cycles` — derived from the program's own CSD
+        digits and memoized per spec on the program, so every engine and
+        test sharing this bank shares one computation.  For an optimized
+        program: each real filter's reduced row plus one cycle per combine
+        use, under a spec widened by one coefficient bit.
+        """
+        return self.program.machine_cycles(spec)
+
+    def predicted_mean_cycles(self, spec=None) -> float:
+        """Bank-average §4 machine cycles per output sample."""
+        return float(self.predicted_machine_cycles(spec).mean())
+
     # -- streaming API ------------------------------------------------------
 
     def push(self, chunk) -> np.ndarray:

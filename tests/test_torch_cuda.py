@@ -735,6 +735,60 @@ def test_engine_with_an_optimized_program_matches_cpu(cuda, mode):
     assert np.array_equal(got, want.astype(np.int32))
 
 
+LOWER_BANKS = {
+    "sweep127": lambda: _sweep_rows(127, 40, seed=21),
+    "mixed": lambda: _mixed_bank(31, seed=22),
+    "one_filter": lambda: _sweep_rows(127, 1, seed=23),
+    "lowpass63": lambda: spread_lowpass_qbank(96, 63),
+}
+
+
+@pytest.mark.parametrize("samples", ["8bit", "int32"])
+@pytest.mark.parametrize("optimized", [False, True], ids=["plain", "cse"])
+@pytest.mark.parametrize("backend", ["scheduled", "specialized"])
+@pytest.mark.parametrize("bank", sorted(LOWER_BANKS))
+def test_lower_on_the_card_matches_the_oracle(cuda, bank, backend, optimized,
+                                              samples):
+    """`lower()`'s kernel backends on the card: one K1 or one K2 launch a
+    call for every filter and channel, one fold more on an optimized
+    program, the oracle's numbers modulo 2**32 (tolerance 0), and the
+    same as the plain versions on the CPU."""
+    from repro_torch.compiler import cse_pass, lower
+
+    q = LOWER_BANKS[bank]()
+    prog = compile_bank(q)
+    if optimized:
+        prog = cse_pass(prog)
+    lim = 128 if samples == "8bit" else 1 << 31
+    x = np.random.default_rng(24).integers(-lim, lim, (2, 3000))
+    want = lower(prog, "oracle")(x).astype(np.int32)
+    exe = lower(prog, backend)  # no device: the card
+    assert exe.device.type == "cuda"
+    reset_launch_counts()
+    got = exe(x)
+    kernel = bank_apply if backend == "scheduled" else specialized_call
+    other = specialized_call if backend == "scheduled" else bank_apply
+    assert (kernel.launches, other.launches) == (1, 0)
+    assert combine_fold.launches == int(prog.combine is not None)
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+    assert np.array_equal(got, lower(prog, backend, device="cpu")(x))
+    assert np.array_equal(exe(x[0]), want[:, :1])  # a 1-D signal
+
+
+def test_lower_on_the_card_against_the_vmachine(cuda):
+    """The CSE-optimized sweep rows through K1 and K2 equal the widened
+    vmachine's exact int64 fold, fit mask and all."""
+    from repro_torch.compiler import cse_pass, lower
+
+    opt = cse_pass(compile_bank(_sweep_rows(127, 200, seed=25)))
+    x = np.random.default_rng(26).integers(-128, 128, 126 + 700)
+    vm = lower(opt, "vmachine")
+    want = vm(x)
+    assert vm.fits.shape == (opt.n_filters,)
+    for backend in ("scheduled", "specialized"):
+        assert np.array_equal(lower(opt, backend, device=cuda)(x), want)
+
+
 def test_one_filter_auto_engine_plans_the_specialized_kernel(cuda):
     eng = FilterBankEngine(_sweep_rows(127, 1, seed=19), channels=2)
     assert eng.dispatch_plan.lane == "cuda"

@@ -2,10 +2,12 @@
 
 A fresh interpreter imports `repro_torch`, runs an engine, the CSE pass
 with auto and packed engines on its program (the dispatch planner, the
-cost model, the fold), the pulse-code quantizer, matmul and
+cost model, the fold), `lower()` on every ported backend, both machines
+and `machine_cycles`, the pulse-code quantizer, matmul and
 `quantize_param_tree` on the CPU and must end with
 neither `jax` nor any `repro` module loaded; no source file
-of the port (nor `chip_smoke.py`) may import them; and an entry point
+of the port (nor `chip_smoke.py`, nor the port's examples) may import
+them; and an entry point
 called without ``device`` on a host without CUDA raises instead of
 running on the CPU.
 """
@@ -46,6 +48,24 @@ def test_import_and_engine_leave_jax_and_repro_unloaded():
         "                          device='cpu')\n"
         "assert np.array_equal(packed.push(x), fir_bit_layers_batch(x, q))\n"
         "cache_stats()\n"
+        "from repro_torch.compiler import BACKENDS, lower\n"
+        "from repro_torch.core import (FirBlmacMachine, FirBlmacVMachine,\n"
+        "    MachineSpec, machine_cycles_batch)\n"
+        "prog = compile_bank(q)\n"
+        "want = fir_bit_layers_batch(x, q)\n"
+        "for b in BACKENDS[:-1]:\n"
+        "    for p in (prog, opt):\n"
+        "        assert np.array_equal(lower(p, b, device='cpu')(x), want)\n"
+        "spec = MachineSpec(taps=31)\n"
+        "vm = FirBlmacVMachine(spec)\n"
+        "fits = vm.program_bank(q)\n"
+        "assert np.array_equal(vm.run(x[0]).outputs, want[:, 0])\n"
+        "assert np.array_equal(prog.machine_cycles(spec),\n"
+        "                      machine_cycles_batch(q))\n"
+        "opt.machine_cycles(), opt.shared_cycles()\n"
+        "m = FirBlmacMachine(spec)\n"
+        "m.program(q[0])\n"
+        "assert np.array_equal(m.run(x[0]).outputs, want[0, 0])\n"
         "from repro_torch.kernels.blmac_matmul import pulse_quantize\n"
         "from repro_torch.core.serve_quant import quantize_param_tree\n"
         "from repro_torch.kernels import pulse_matmul_op\n"
@@ -72,6 +92,9 @@ _FORBIDDEN = re.compile(
 def test_no_port_source_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("port_*.py"))
+    assert len(examples) >= 2
+    files += examples
     assert len(files) > 10
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders
