@@ -94,6 +94,34 @@ before it and read just after:
                   its host seconds, and each lowered call at the sweep and
                   serve shapes timed by CUDA events and by host clock.
 
+  * sharded     — the reference's serving path: the ``--fir-bank``
+                  entry point (`repro_torch.launch.serve.serve_fir_bank`,
+                  256 × 63, chunk 4,096, 32 chunks, `AsyncBankServer` at
+                  depth 2) on the default mesh (1×1 on one card), every
+                  chunk against the unsharded packed engine and the tail
+                  against the oracle; the sweep bank through
+                  `ShardedFilterBankEngine` on a (4, 2) mesh of the card's
+                  slots (4 shards, time slices with the halo exchange) in
+                  4 pushes of 4,096, joined and held against the sweep
+                  leg's `blmac_fir_bank` result, then at the planner's
+                  choice on an (8, 1) mesh; the serve bank at C = 4 on a
+                  (2, 2) mesh, 2 bank shards × 2 channel groups, against
+                  the oracle; 32 serve filters at C = 2 on a (2, 1) mesh,
+                  2 specialized shards (one K2 launch each a push);
+                  `lower(cse_pass(serve bank), "sharded")` on a (2, 1)
+                  mesh, the fold launched once a call on the card; the
+                  launcher as a user runs it (`python -m
+                  repro_torch.launch.serve`, a fresh process) and the
+                  loop cold and warm in one fresh process; chaos behind the
+                  server (a (4, 1) mesh, integrity probe on, shard 1 killed
+                  at chunk 3 and shard 0 at chunk 6, 8 chunks) against the
+                  oracle with the fault counters equal to the kills.  For
+                  each leg: pushes by CUDA events and host clock
+                  (medians), the same pushes through the unsharded engine,
+                  each shard alone (`time_shards`), the plan's
+                  ``predicted_us`` beside the measured push, and the K1/K2
+                  launches of every push against the plan.
+
 Between them, with the serve leg's engine: its throughput, and its push
 broken down into the engine's own steps, timed by CUDA events (the
 chunk's upload, cat/pad/framing, the K1 launch, the device-to-host copy)
@@ -1210,6 +1238,417 @@ def machine_leg(dev, smi, sweep_prog, serve_prog) -> dict:
     return launches
 
 
+# the sharded phase (the reference's `--fir-bank` serving path)
+SHARDED_CHANNELS, SHARDED_CHANNEL_PUSHES = 4, 2
+NARROW_FILTERS, NARROW_CHANNELS = 32, 2  # K2's shards: SPECIALIZE_BANK_MAX
+CHAOS_CHUNKS, CHAOS_KILLS = 8, ((1, 3), (0, 6))
+SWEEP_PUSH = 4096
+
+
+def plan_summary(plan) -> dict:
+    """A `ShardedBankPlan` as JSON: its mesh use, critical-path
+    prediction and each shard's mode, tile and predicted µs."""
+    return {"n_bank_shards": plan.n_bank_shards, "n_data": plan.n_data,
+            "data_mode": plan.data_mode, "predicted_us": plan.predicted_us,
+            "cse": plan.cse,
+            "shards": [{"mode": p.mode, "tile": p.tile,
+                        "bank_tile": p.bank_tile, "lane": p.lane,
+                        "predicted_us": p.predicted_us}
+                       for p in plan.shard_plans]}
+
+
+def plan_launches(eng) -> tuple[int, int]:
+    """K1 and K2 launches a push of a sharded engine makes by its plan:
+    one K1 launch a data slot of each scheduled shard, one K2 launch for
+    each specialized shard."""
+    modes = [p.mode for p in eng.plan.shard_plans]
+    return modes.count("scheduled") * eng.n_data, modes.count("specialized")
+
+
+def push_times(eng, chunks, want) -> dict:
+    """Each push of ``chunks`` through ``eng`` (reset first) timed by CUDA
+    events around the push and its copy back and by the host's clock; for
+    an engine with ``push_async`` also the host's time of the dispatch
+    and of ``result()`` (copy back and reassembly) apart; and the K1/K2
+    launches of every push.  Each output is held against ``want`` and
+    dropped, as a streaming caller consumes it (kept outputs would time
+    the host's first touch of fresh pages instead)."""
+    import numpy as np
+    import torch
+
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+    eng.reset()
+    torch.cuda.synchronize()
+    rec = {k: [] for k in ("events_ms", "host_ms", "dispatch_ms",
+                           "result_ms", "k1", "k2")}
+    for c, w in zip(chunks, want):
+        b1, b2 = bf.bank_apply.launches, bf.specialized_call.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        if hasattr(eng, "push_async"):
+            pending = eng.push_async(c)
+            t1 = time.perf_counter()
+            out = pending.result()
+            rec["dispatch_ms"].append((t1 - t0) * 1e3)
+            rec["result_ms"].append((time.perf_counter() - t1) * 1e3)
+        else:
+            out = eng.push(c)
+        end.record()
+        torch.cuda.synchronize()
+        rec["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["events_ms"].append(start.elapsed_time(end))
+        rec["k1"].append(bf.bank_apply.launches - b1)
+        rec["k2"].append(bf.specialized_call.launches - b2)
+        check(np.array_equal(out, w), f"a push of {type(eng).__name__} "
+                                      f"differs from the unsharded engine")
+        del out
+    return rec
+
+
+def sharded_numbers(eng, chunks, unsharded, smi) -> dict:
+    """The numbers the sharded phase reports for one leg, the sharded and
+    the unsharded engine in turns (unsharded, sharded, sharded,
+    unsharded) over the same pushes, every output held against the
+    unsharded engine's: medians by CUDA events and host clock, the
+    sharded push split into dispatch and ``result()``, its plan's
+    prediction beside the measured median, each shard alone
+    (`time_shards`), and the launches a push against the plan (a mismatch
+    fails the run)."""
+    import statistics
+
+    unsharded.reset()
+    want = [unsharded.push(c) for c in chunks]
+    turns = [(name, push_times(e, chunks, want)) for name, e in (
+        ("unsharded", unsharded), ("sharded", eng), ("sharded", eng),
+        ("unsharded", unsharded))]
+    del want
+    plan = plan_launches(eng)
+    got = [g for name, rec in turns if name == "sharded"
+           for g in zip(rec["k1"], rec["k2"])]
+    check(all(g == plan for g in got),
+          f"launches a push {got}, the plan gives {plan} ({eng.describe()})")
+
+    def median(name, key):
+        return statistics.median(v for n, rec in turns if n == name
+                                 for v in rec[key])
+
+    measured_us = median("sharded", "events_ms") * 1e3
+    return {
+        "describe": eng.describe(), "plan": plan_summary(eng.plan),
+        "push_ms_events_median": median("sharded", "events_ms"),
+        "push_ms_host_median": median("sharded", "host_ms"),
+        "dispatch_ms_host_median": median("sharded", "dispatch_ms"),
+        "result_ms_host_median": median("sharded", "result_ms"),
+        "unsharded_push_ms_events_median": median("unsharded", "events_ms"),
+        "unsharded_push_ms_host_median": median("unsharded", "host_ms"),
+        "turns_events_ms_median": [[name, statistics.median(rec["events_ms"])]
+                                   for name, rec in turns],
+        "predicted_us": eng.plan.predicted_us, "measured_us": measured_us,
+        "model_rel_err": eng.plan.predicted_us / measured_us - 1,
+        "time_shards_ms": (eng.time_shards(chunks[-1]) * 1e3).tolist(),
+        "k1_k2_per_push": list(plan), "pushes": len(chunks),
+        "nvidia_smi": smi}
+
+
+SERVE_ARGV = ["--fir-bank", str(SERVE_FILTERS), "--taps", str(SERVE_TAPS),
+              "--chunk", str(SERVE_CHUNK), "--chunks", str(SERVE_CHUNKS)]
+# the launcher's loop twice in one fresh process, each resolved chunk's
+# arrival on the host clock and the garbage collector's passes during
+# the call (all counted by generation; each of generation 2 or of 1 ms or
+# more as [start ms, ms, generation]): the first run pays the process's
+# first launches, allocations and copies; the loop is the last
+# ``seconds`` before the last arrival
+COLD_WARM = """
+import gc, json, sys, time
+from repro_torch.launch.serve import parser, serve_fir_bank
+args = parser().parse_args(sys.argv[1:])
+runs, gcs = [], []
+
+def on_gc(phase, info):
+    if phase == "start":
+        gcs.append([time.perf_counter(), 0.0, info["generation"]])
+    else:
+        gcs[-1][1] = (time.perf_counter() - gcs[-1][0]) * 1e3
+
+gc.callbacks.append(on_gc)
+for _ in range(2):
+    marks, gcs[:] = [], []
+    t0 = time.perf_counter()
+    run = serve_fir_bank(args, consume=lambda out: marks.append(
+        time.perf_counter()))
+    runs.append({"seconds": run.seconds, "call_s": time.perf_counter() - t0,
+                 "filter_samples_per_s": run.samples * args.fir_bank
+                 / run.seconds,
+                 "arrival_ms": [(m - t0) * 1e3 for m in marks],
+                 "arrival_gaps_ms": [(b - a) * 1e3
+                                     for a, b in zip(marks, marks[1:])],
+                 "to_first_arrival_ms": (marks[0] - t0) * 1e3,
+                 "gc_passes_by_generation": [
+                     sum(g[2] == n for g in gcs) for n in range(3)],
+                 "gc_long_passes": [[(g[0] - t0) * 1e3, g[1], g[2]]
+                                    for g in gcs
+                                    if g[2] == 2 or g[1] >= 1.0]})
+print("COLD_WARM " + json.dumps(runs))
+"""
+
+
+def fresh_launcher() -> dict:
+    """The ``--fir-bank`` launcher at the serving defaults in fresh
+    processes on the card: as a user runs it (its printed aggregate
+    rate), and the loop cold then warm in one process (`COLD_WARM`)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+
+    def run(argv):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable] + argv, env=env, cwd=HERE,
+                             capture_output=True, text=True, timeout=300)
+        check(res.returncode == 0, f"{argv[:2]} exited {res.returncode}: "
+                                   f"{res.stderr[-2000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    out, wall = run(["-m", "repro_torch.launch.serve"] + SERVE_ARGV)
+    rate = [ln for ln in out.splitlines() if "filter-samples/s" in ln]
+    check(len(rate) == 1 and "tail chunk bit-exact" in out,
+          f"the launcher printed {out[-2000:]}")
+    cw, _ = run(["-c", COLD_WARM] + SERVE_ARGV)
+    runs = json.loads(cw.split("COLD_WARM ", 1)[1])
+    return {"launcher_line": rate[0],
+            "launcher_filter_samples_per_s": float(
+                rate[0].split(", ")[-1].split()[0]),
+            "launcher_process_wall_s": wall,
+            "cold": runs[0], "warm": runs[1]}
+
+
+def sharded_leg(dev, smi, serve_prog, sweep_prog, x_sweep, y_sweep) -> dict:
+    """The ``sharded`` phase: the reference's serving path, bit for bit.
+
+    (1) the ``--fir-bank`` entry point (`serve_fir_bank`, 256 × 63, chunk
+    4,096, 32 chunks, depth 2) on the default mesh, every chunk against
+    the unsharded packed engine; (2) the sweep bank through a (4, 2) mesh
+    of the card's slots (4 shards, time slices with the halo exchange) in
+    4 pushes of 4,096, joined against the sweep leg's `blmac_fir_bank`
+    result, then on an (8, 1) mesh at the planner's choice; (3) the serve
+    bank at C = 4 on a (2, 2) mesh (2 shards × 2 channel groups) against
+    the numpy oracle; (3b) 32 serve filters at C = 2 on a (2, 1) mesh, 2
+    specialized shards; (3c) a CSE program lowered to the sharded backend,
+    its fold on the card; (4) chaos behind `AsyncBankServer`: two shards
+    of a (4, 1) mesh killed,
+    the stream against the oracle, the fault counters against the kills.
+    Each leg's launches are counted with the counts zeroed just before it;
+    returns them by leg."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compiler import cse_pass, lower
+    from repro_torch.distributed import FaultInjector, bank_mesh
+    from repro_torch.filters import FilterBankEngine, ShardedFilterBankEngine
+    from repro_torch.launch.serve import parser, serve_fir_bank
+    from repro_torch.serving import AsyncBankServer
+
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+    launches = {}
+
+    def counted(name, fn):
+        bf.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {"bank_apply": bf.bank_apply.launches,
+                          "specialized_call": bf.specialized_call.launches,
+                          "combine_fold": bf.combine_fold.launches}
+        return out
+
+    def slots(n_bank, n_data):
+        return bank_mesh(n_bank, n_data, devices=[dev] * (n_bank * n_data))
+
+    # -- (1) the entry point at the reference's serving defaults: every
+    # chunk held against the unsharded engine's as it resolves ------------
+    args = parser().parse_args(SERVE_ARGV + ["--depth", "2",
+                                             "--device", "cuda"])
+    stream = np.random.default_rng(0).integers(
+        -128, 128, (1, SERVE_CHUNK * SERVE_CHUNKS)).astype(np.int32)
+    chunks = [stream[:, k * SERVE_CHUNK:(k + 1) * SERVE_CHUNK]
+              for k in range(SERVE_CHUNKS)]
+    plain = FilterBankEngine(serve_prog, channels=1, mode="packed",
+                             device=dev)
+    expect = [plain.push(c) for c in chunks]
+    seen = []
+
+    def against_unsharded(out):
+        seen.append(np.array_equal(out, expect[len(seen)]))
+
+    run = counted("entry_point",
+                  lambda: serve_fir_bank(args, consume=against_unsharded))
+    del expect
+    check(np.array_equal(run.stream, stream), "the launcher served another "
+                                              "stream")
+    check(seen == [True] * SERVE_CHUNKS,
+          f"the entry point's chunks against the unsharded engine: {seen}")
+    eng = run.engine
+    check(eng.program.key == serve_prog.key, "the launcher compiled "
+                                             "another bank")
+    k1_push, k2_push = plan_launches(eng)
+    check(launches["entry_point"]["bank_apply"] == SERVE_CHUNKS * k1_push
+          and launches["entry_point"]["specialized_call"]
+          == SERVE_CHUNKS * k2_push,
+          f"entry point: launches {launches['entry_point']} for "
+          f"{SERVE_CHUNKS} chunks of ({k1_push}, {k2_push})")
+    check(run.server.chunks_out == SERVE_CHUNKS
+          and run.server.failed_chunks == 0, "the server dropped chunks")
+    # the serving loop alone, timed: no consumer, as the launcher runs it
+    timed = serve_fir_bank(args)
+    legs = {"entry_point": {
+        "filter_samples_per_s": timed.samples * SERVE_FILTERS / timed.seconds,
+        "wall_s": timed.seconds, "checked_run_wall_s": run.seconds,
+        "fresh_process": fresh_launcher(),
+        "k1_launches_per_chunk":
+            launches["entry_point"]["bank_apply"] / SERVE_CHUNKS,
+        **sharded_numbers(eng, chunks, plain, smi)}}
+
+    # -- (2) full width: the sweep bank on a (4, 2) mesh, then (8, 1) -------
+    xs = x_sweep.cpu().numpy()
+    sweep_chunks = [xs[:, k:k + SWEEP_PUSH]
+                    for k in range(0, xs.shape[1], SWEEP_PUSH)]
+    want = y_sweep.cpu().numpy()
+    sweep_plain = FilterBankEngine(sweep_prog, channels=1, mode="packed",
+                                   device=dev)
+    for name, mesh, kw in (
+            ("sweep_4x2_time", slots(4, 2),
+             dict(n_bank_shards=4, data_mode="time")),
+            ("sweep_8x1_planned", slots(8, 1), {})):
+        t0 = time.perf_counter()
+        seng = ShardedFilterBankEngine(sweep_prog, mesh=mesh,
+                                       chunk_hint=SWEEP_PUSH, **kw)
+        build_s = time.perf_counter() - t0
+        outs = counted(name, lambda: [seng.push(c) for c in sweep_chunks])
+        got = np.concatenate(outs, axis=2)
+        check(np.array_equal(got, want),
+              f"{name}: the sharded sweep differs from blmac_fir_bank")
+        del got, outs
+        check(launches[name]["bank_apply"] == len(sweep_chunks)
+              * plan_launches(seng)[0], f"{name}: {launches[name]}")
+        legs[name] = {"build_s": build_s,
+                      **sharded_numbers(seng, sweep_chunks, sweep_plain, smi)}
+    if legs["sweep_4x2_time"]["plan"]["data_mode"] != "time":
+        check(False, "the (4, 2) sweep mesh did not slice time")
+    del want
+
+    # -- (3) channel sharding: C = 4 on a (2, 2) mesh, 2 bank shards × 2
+    # channel groups (4 K1 launches a push) ---------------------------------
+    rng = np.random.default_rng(20)
+    xc = rng.integers(-128, 128, (SHARDED_CHANNELS,
+                                  SHARDED_CHANNEL_PUSHES * SERVE_CHUNK)) \
+        .astype(np.int32)
+    cchunks = [xc[:, k * SERVE_CHUNK:(k + 1) * SERVE_CHUNK]
+               for k in range(SHARDED_CHANNEL_PUSHES)]
+    ceng = ShardedFilterBankEngine(serve_prog, channels=SHARDED_CHANNELS,
+                                   mesh=slots(2, 2), n_bank_shards=2,
+                                   data_mode="channels",
+                                   chunk_hint=SERVE_CHUNK)
+    check(ceng.data_mode == "channels" and ceng.n_bank_shards == 2,
+          f"the channel mesh is not used: {ceng.describe()}")
+    couts = counted("channels_2x2", lambda: [ceng.push(c) for c in cchunks])
+    check(np.array_equal(np.concatenate(couts, axis=2),
+                         lower(serve_prog, "oracle")(xc)),
+          "the channel-sharded stream differs from the numpy oracle")
+    check(launches["channels_2x2"]["bank_apply"]
+          == len(cchunks) * plan_launches(ceng)[0],
+          f"channels: {launches['channels_2x2']}")
+    legs["channels_2x2"] = sharded_numbers(
+        ceng, cchunks, FilterBankEngine(serve_prog, channels=SHARDED_CHANNELS,
+                                        mode="packed", device=dev), smi)
+
+    # -- (3b) specialized shards: a narrow bank, C = 2, on a (2, 1) mesh ----
+    narrow = serve_prog.select(np.arange(NARROW_FILTERS))
+    neng = ShardedFilterBankEngine(narrow, channels=NARROW_CHANNELS,
+                                   mesh=slots(2, 1), n_bank_shards=2,
+                                   chunk_hint=SERVE_CHUNK)
+    modes = [p.mode for p in neng.plan.shard_plans]
+    check(modes == ["specialized"] * 2,
+          f"the narrow bank planned no specialized shards: {neng.describe()}")
+    nchunks = [xc[:NARROW_CHANNELS, k * SERVE_CHUNK:(k + 1) * SERVE_CHUNK]
+               for k in range(SHARDED_CHANNEL_PUSHES)]
+    nouts = counted("specialized_2x1", lambda: [neng.push(c)
+                                                for c in nchunks])
+    check(np.array_equal(np.concatenate(nouts, axis=2),
+                         lower(narrow, "oracle")(xc[:NARROW_CHANNELS])),
+          "the specialized shards differ from the numpy oracle")
+    check(launches["specialized_2x1"]["specialized_call"] == 2 * len(nchunks)
+          and launches["specialized_2x1"]["bank_apply"] == 0,
+          f"specialized shards: {launches['specialized_2x1']}")
+    legs["specialized_2x1"] = sharded_numbers(
+        neng, nchunks, FilterBankEngine(narrow, channels=NARROW_CHANNELS,
+                                        device=dev), smi)
+
+    # -- (3c) a CSE program through the sharded backend at the planner's
+    # choice, then its augmented bank forced into 2 shards: the shards'
+    # launches, then one fold on the card before the copy back ------------
+    serve_opt = cse_pass(serve_prog)
+    x1 = stream[:, :SERVE_CHUNK]
+    want1 = lower(serve_prog, "oracle")(x1)
+    exe = lower(serve_opt, "sharded", mesh=slots(2, 1))
+    feng = ShardedFilterBankEngine(serve_opt.bank, mesh=slots(2, 1),
+                                   n_bank_shards=2, combine=serve_opt.combine,
+                                   chunk_hint=SERVE_CHUNK)
+    for name, eng_c, call in (
+            ("lower_cse_2x1", exe.engine, lambda: exe(x1)),
+            ("cse_2_shards", feng, lambda: (feng.reset(), feng.push(x1))[1])):
+        check(np.array_equal(counted(name, call), want1),
+              f"{name}: the sharded CSE program differs from the oracle")
+        k1_c, k2_c = plan_launches(eng_c)
+        check(launches[name] == {"bank_apply": k1_c, "specialized_call": k2_c,
+                                 "combine_fold": 1},
+              f"{name}: {launches[name]} ({eng_c.describe()})")
+        legs[name] = {
+            "describe": eng_c.describe(), "plan": plan_summary(eng_c.plan),
+            "call_ms_events": cuda_ms(call), "call_ms_host": host_ms(call),
+            "launches": launches[name], "nvidia_smi": smi}
+    check(feng.n_bank_shards == 2, f"cse_2_shards: {feng.describe()}")
+
+    # -- (4) chaos behind the server: two shards killed --------------------
+    inj = FaultInjector()
+    for shard, at in CHAOS_KILLS:
+        inj.kill_shard(shard, at)
+    keng = ShardedFilterBankEngine(serve_prog, mesh=slots(4, 1),
+                                   n_bank_shards=4, fault_injector=inj,
+                                   integrity_check=True,
+                                   chunk_hint=SERVE_CHUNK)
+    server = AsyncBankServer(keng, depth=2)
+    kx = stream[:, :CHAOS_CHUNKS * SERVE_CHUNK]
+
+    def chaos():
+        got = []
+        for k in range(CHAOS_CHUNKS):
+            got += server.submit(kx[:, k * SERVE_CHUNK:(k + 1) * SERVE_CHUNK])
+        return got + server.drain()
+
+    t0 = time.perf_counter()
+    kouts = counted("chaos", chaos)
+    chaos_s = time.perf_counter() - t0
+    check(np.array_equal(np.concatenate(kouts, axis=2),
+                         lower(serve_prog, "oracle")(kx)),
+          "the recovered stream differs from the numpy oracle")
+    st = keng.fault_stats()
+    n_kills = len(CHAOS_KILLS)
+    check(st["injected"]["kills"] == st["lost_shards"] == st["recoveries"]
+          == st["detections"] == n_kills and not st["degraded"],
+          f"chaos counters: {st}")
+    check(server.failed_chunks == 0 and server.chunks_out == CHAOS_CHUNKS,
+          f"the server dropped chunks: {server.fault_stats()}")
+    legs["chaos"] = {"describe": keng.describe(), "wall_s": chaos_s,
+                     "fault_stats": st, "server": {
+                         k: v for k, v in server.fault_stats().items()
+                         if k != "engine"},
+                     "launches": launches["chaos"], "nvidia_smi": smi}
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("bank_apply", "specialized_call", "combine_fold")}
+    emit({"phase": "sharded", "legs": legs, "launches": launches,
+          "launches_total": total, "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1438,6 +1877,8 @@ def main() -> int:
                        sweep_prog, sweep_q, x_sweep, y_sweep, cal)
     dispatch_leg(dev, smi, cal, fit_s, sweep_prog)
     machine_launches = machine_leg(dev, smi, sweep_prog, serve_prog)
+    sharded_launches = sharded_leg(dev, smi, serve_prog, sweep_prog, x_sweep,
+                                   y_sweep)
 
     # -- K1 at the main path's shapes: the sweep call and one serve push ----
     # K1's bound: the bytes (samples in, the int32 output out, once each)
@@ -1539,9 +1980,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/blmac_fir.py:200",
          "replaces_function": "_fir_kernel_bank",
          "launches": (serve_launches + sweep_launches
-                      + machine_launches["bank_apply"]),
+                      + machine_launches["bank_apply"]
+                      + sharded_launches["bank_apply"]),
          "launches_by_leg": {"serve": serve_launches, "sweep": sweep_launches,
-                             "machine": machine_launches["bank_apply"]},
+                             "machine": machine_launches["bank_apply"],
+                             "sharded": sharded_launches["bank_apply"]},
          "shape": f"{len(sweep_q)} filters x {SWEEP_TAPS} taps x 1 channel x "
                   f"{SWEEP_SAMPLES} samples, tile {OPS_TILE}, "
                   f"{len(sched.groups)} groups in 1 launch",
@@ -1561,7 +2004,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/blmac_specialized.cu",
          "replaces": "src/repro/kernels/blmac_fir.py:112",
          "replaces_function": "_fir_kernel_specialized",
-         "launches": spec_launches + machine_launches["specialized_call"],
+         "launches": (spec_launches + machine_launches["specialized_call"]
+                      + sharded_launches["specialized_call"]),
+         "launches_by_leg": {"specialized": spec_launches,
+                             "machine": machine_launches["specialized_call"],
+                             "sharded": sharded_launches["specialized_call"]},
          "shape": f"1 filter x {SWEEP_TAPS} taps ({len(spec_pulses)} pulses) x "
                   f"{SPEC_SAMPLES} samples, tile {OPS_TILE}",
          "max_abs_err": spec_diff, "max_abs_diff": spec_diff,
@@ -1592,8 +2039,10 @@ def main() -> int:
           "device": kind, "nvidia_smi": smi})
 
     fold_row["launches_by_leg"] = {"cse": fold_row["launches"],
-                                   "machine": machine_launches["combine_fold"]}
-    fold_row["launches"] += machine_launches["combine_fold"]
+                                   "machine": machine_launches["combine_fold"],
+                                   "sharded": sharded_launches["combine_fold"]}
+    fold_row["launches"] += (machine_launches["combine_fold"]
+                             + sharded_launches["combine_fold"])
     kernels.append(fold_row)
     kernels.append(pulse_matmul_leg(dev, smi))
 

@@ -20,13 +20,15 @@ for:
     with the bank, one run per channel; the executable exposes
     ``.vmachine`` and ``.fits`` (weight-memory verdicts).  Host numpy,
     int64.
-  * ``"sharded"``     — listed, not ported yet: it raises
-    `NotImplementedError` (ROADMAP.md, queue 1, item 5, the sharded
-    engine).
+  * ``"sharded"``     — a `ShardedFilterBankEngine` built from the
+    program over a (bank, data) mesh (``mesh``; by default every card,
+    or one slot of ``device`` when one is given); exposes ``.engine``.
+    One-shot semantics: the engine is reset on every call.  int32.
 
 The two kernel backends run where ``device`` says (`resolve_device`:
 ``None`` is the GPU, and raises without one; ``"cpu"`` runs the kernels'
-plain PyTorch versions); the host backends ignore it.  The reference's
+plain PyTorch versions); the sharded backend runs on its mesh's slots;
+the host backends ignore ``device``.  The reference's
 ``lane`` names a Pallas execution lane; the port has one route per
 device, so ``lane`` takes only ``None``.
 
@@ -38,7 +40,10 @@ shared-row bank and fold the shared rows back in with the combine kernel
 residue modulo 2**32 as the reference's host fold); the oracle reads
 ``effective_qbank()``; the vmachine widens ``coeff_bits`` by one, since
 reduced and virtual rows may exceed the parent's coefficient range, and
-folds exactly in int64.
+folds exactly in int64; the sharded backend shards the augmented bank
+(``program.bank``) and folds the shared rows on the reassembly device
+with the combine kernel before the one copy back (the reference folds on
+the host after its gather: the same residue modulo 2**32).
 """
 from __future__ import annotations
 
@@ -53,10 +58,6 @@ from .program import BlmacProgram
 __all__ = ["BACKENDS", "Lowered", "lower"]
 
 BACKENDS = ("oracle", "specialized", "scheduled", "vmachine", "sharded")
-
-# the queue item the sharded backend waits for (ROADMAP.md, queue 1)
-_SHARDED = ("the 'sharded' backend is not ported yet (ROADMAP.md, queue 1, "
-            "item 5: ShardedFilterBankEngine)")
 
 
 class Lowered:
@@ -90,6 +91,8 @@ def lower(
     program: BlmacProgram,
     backend: str = "scheduled",
     *,
+    channels: int = 1,
+    mesh=None,
     tile: int | None = None,
     bank_tile: int | None = None,
     merge: int | None = None,
@@ -106,13 +109,17 @@ def lower(
         `program_from_arrays` / `BlmacProgram.load` / `cse_pass`).
     backend : str
         One of `BACKENDS`.
+    channels, mesh
+        Configure the sharded engine (a `BankMesh`; the other backends
+        infer C from the input).
     tile, bank_tile, merge
         Pin kernel geometry (None = 1024 outputs a signal tile and the
         program's memoized schedule heuristics).
     device : str | torch.device | None
         Where the kernel backends run (`resolve_device`): None is the GPU
-        and raises without one; ``"cpu"`` runs the plain versions.
-        Ignored by ``"oracle"`` and ``"vmachine"``.
+        and raises without one; ``"cpu"`` runs the plain versions.  The
+        sharded backend without a ``mesh`` takes one slot of it (None:
+        every card).  Ignored by ``"oracle"`` and ``"vmachine"``.
     machine_spec : MachineSpec | None
         The vmachine's spec (default: the paper's parameters at this tap
         count).
@@ -123,7 +130,9 @@ def lower(
     Returns
     -------
     Lowered
-        Callable ``exe(x) -> (B, C, n_out)`` numpy array.
+        Callable ``exe(x) -> (B, C, n_out)`` numpy array, with
+        backend-specific attributes (``.schedule``, ``.specialized``,
+        ``.vmachine``, ``.fits``, ``.engine``, ``.device``).
 
     Raises
     ------
@@ -131,8 +140,6 @@ def lower(
         ``program`` is not a `BlmacProgram`.
     ValueError
         Unknown ``backend``, or a ``lane`` name.
-    NotImplementedError
-        ``backend="sharded"``.
 
     Examples
     --------
@@ -209,7 +216,25 @@ def lower(
         return Lowered(run_vmachine, backend, program, vmachine=vm, fits=fits)
 
     if backend == "sharded":
-        raise NotImplementedError(_SHARDED)
+        from ..distributed.sharding import bank_mesh
+        from ..filters.sharded import ShardedFilterBankEngine
+
+        if mesh is None and device is not None:
+            mesh = bank_mesh(1, 1, devices=[device])
+        # rows are rows to the partition: an optimized program shards its
+        # augmented bank, and the engine folds the shared rows on the
+        # device it reassembles on
+        eng = ShardedFilterBankEngine(
+            program.bank if combine is not None else program,
+            channels=channels, mesh=mesh, tile=tile, merge=merge,
+            combine=combine,
+        )
+
+        def run_sharded(x):
+            eng.reset()
+            return eng.push(_as_channels(x))
+
+        return Lowered(run_sharded, backend, program, engine=eng)
 
     # the kernel backends: imported here, since the kernel modules import
     # this package

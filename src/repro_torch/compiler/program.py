@@ -16,9 +16,10 @@ the reference's key.  The same holds for a CSE-optimized program
 (`repro_torch.compiler.optimize.OptimizedProgram`): a file either
 package's CSE pass saved loads in the other under the same key.  The
 dispatch planner reads its inputs off the program (`mean_pulses`,
-`predict_specialized_us`, `predict_scheduled_us`).  What the port leaves
-out for now: `partition` (the sharded engine's plan, ROADMAP queue 1,
-item 5) and `select` (the session server's, item 6).
+`predict_specialized_us`, `predict_scheduled_us`).  The sharded engine
+and its planner read memoized bank partitions (`partition`) and shard
+subprograms (`select`), each registered under the reference's key for
+the same rows.
 """
 from __future__ import annotations
 
@@ -98,6 +99,7 @@ def _memo_put(memo: dict, key, value, cap: int) -> None:
 
 
 SCHEDULE_MEMO_MAX = 16
+SUBPROGRAM_MEMO_MAX = 32
 
 
 class BlmacProgram:
@@ -149,6 +151,8 @@ class BlmacProgram:
         self._cycle_cache: dict = {}
         self._half_digits = None
         self._pulse_schedules = None
+        self._partitions: dict = {}
+        self._subprograms: dict = {}
 
     def __repr__(self) -> str:
         return (
@@ -221,6 +225,86 @@ class BlmacProgram:
                 plan_bank_schedule(self.packed, bt, mg), SCHEDULE_MEMO_MAX,
             )
         return self._schedules[key]
+
+    def partition(self, n_shards: int):
+        """Memoized occupancy-balanced `BankPartition` over ``n_shards``
+        contiguous (post-occupancy-sort) filter shards — the sharded
+        engine's and the mesh planner's shared plan.
+
+        Raises ``ValueError`` for an empty bank; ``n_shards`` is clamped
+        to ``1 .. n_filters``.
+
+        Examples
+        --------
+        >>> import numpy as np
+        >>> from repro_torch.compiler import compile_bank
+        >>> bank = np.zeros((4, 15), np.int64)
+        >>> bank[:, 7] = [64, 96, 160, 224]
+        >>> part = compile_bank(bank).partition(2)
+        >>> sorted(len(rows) for rows in part.assign)
+        [2, 2]
+        """
+        from ..distributed.sharding import partition_bank
+
+        n_shards = int(n_shards)
+        if n_shards not in self._partitions:
+            self._partitions[n_shards] = partition_bank(
+                self.packed, n_shards, self.taps,
+                cost=self.filter_costs, sig=self.signatures,
+            )
+        return self._partitions[n_shards]
+
+    @property
+    def filter_costs(self) -> np.ndarray:
+        """(B,) per-filter work the partition balances: pulses plus the
+        ``taps // 2`` symmetric folds (§3.3)."""
+        return self.pulse_counts.astype(np.float64) + self.taps // 2
+
+    def select(self, rows) -> "BlmacProgram":
+        """The subprogram serving ``rows`` (original filter indices, in
+        order): array slices of this program, no recompilation.  Memoized
+        here and registered content-addressed under the reference's key
+        for the same rows, so the planner and the engine asking for one
+        shard get one object, and its key equals `repro`'s.
+
+        Raises ``IndexError`` for a row out of range.
+
+        Examples
+        --------
+        >>> import numpy as np
+        >>> from repro_torch.compiler import compile_bank
+        >>> bank = np.zeros((3, 15), np.int64)
+        >>> bank[:, 7] = [64, 96, 160]
+        >>> prog = compile_bank(bank)
+        >>> sub = prog.select([2, 0])
+        >>> sub.n_filters, [int(w) for w in sub.qbank[:, 7]]
+        (2, [160, 64])
+        >>> prog.select([2, 0]) is sub               # memoized
+        True
+        """
+        rows = np.asarray(rows, np.int64)
+        memo = rows.tobytes()
+        if memo in self._subprograms:
+            return self._subprograms[memo]
+        qbank = np.ascontiguousarray(self.qbank[rows])
+        packed = np.ascontiguousarray(self.packed[rows])
+        qkey = _qbank_key(qbank, self.spec)
+        pkey = _packed_key(packed, self.taps, self.spec.sample_bits)
+        sub = PROGRAM_CACHE.get(pkey)
+        if sub is None:
+            sub = BlmacProgram(
+                qbank=qbank,
+                exponents=np.ascontiguousarray(self.exponents[rows]),
+                packed=packed,
+                occupancy=np.ascontiguousarray(self.occupancy[rows]),
+                signatures=np.ascontiguousarray(self.signatures[rows]),
+                pulse_counts=np.ascontiguousarray(self.pulse_counts[rows]),
+                spec=self.spec,
+                key=pkey[1].hex(),
+            )
+            PROGRAM_CACHE.put(sub, pkey, qkey)
+        _memo_put(self._subprograms, memo, sub, SUBPROGRAM_MEMO_MAX)
+        return sub
 
     # -- cost-model reads ----------------------------------------------------
 

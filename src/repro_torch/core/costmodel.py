@@ -367,6 +367,86 @@ def predict_combine_us(
 
 
 # ---------------------------------------------------------------------------
+# mesh-aware sharded-bank cost model (the reference's, unchanged)
+# ---------------------------------------------------------------------------
+#
+# Critical path over two resources: the slowest shard's device time
+# (shards on disjoint devices run concurrently) and the host's total
+# dispatch time (one thread feeds the whole mesh, so per-shard host work
+# sums), plus one queue hop per shard and, for time-sharded streams, one
+# halo exchange per data slot.  `SHARD_DISPATCH_US` and `HALO_EXCHANGE_US`
+# are the reference's priors on every lane: nothing fits them on the card
+# yet, and the model assumes distinct devices — slots that share a card
+# run one after another there, which the maximum does not see.
+
+SHARD_DISPATCH_US = 250.0  # per bank-shard program dispatch, per push
+HALO_EXCHANGE_US = 180.0  # per time-shard halo exchange, per push
+
+
+@dataclass(frozen=True)
+class ShardedBankPlan:
+    """The mesh-aware planner's verdict for one bank on one (bank, data)
+    mesh.  ``n_bank_shards`` of 1 means the planner declined to shard the
+    filter axis; ``data_mode`` is ``"none"`` (data axis idle),
+    ``"channels"`` (C split over the axis) or ``"time"`` (signal slices
+    with a halo exchange); ``shard_plans`` holds one `BankDispatchPlan`
+    per bank shard; ``predicted_us`` is the modelled critical path;
+    ``cse`` as in `BankDispatchPlan`."""
+
+    n_bank_shards: int
+    n_data: int
+    data_mode: str
+    shard_plans: tuple
+    predicted_us: float
+    cse: str = ""
+
+    @property
+    def sharded(self) -> bool:
+        return self.n_bank_shards > 1 or self.n_data > 1
+
+
+def predict_sharded_us(shard_us, n_data: int = 1, data_mode: str = "none",
+                       host_us=None) -> float:
+    """Critical-path latency of a sharded dispatch: the largest per-shard
+    device prediction or the sum of the per-shard host costs, whichever
+    is larger, plus `SHARD_DISPATCH_US` a shard and, for a time-sharded
+    row, `HALO_EXCHANGE_US` a data slot."""
+    shard_us = list(shard_us)
+    if not shard_us:
+        raise ValueError("predict_sharded_us needs at least one shard")
+    n_shards = len(shard_us)
+    us = max(shard_us)
+    if host_us is not None:
+        us = max(us, float(sum(host_us)))
+    us += n_shards * SHARD_DISPATCH_US
+    if data_mode == "time" and n_data > 1:
+        us += HALO_EXCHANGE_US * n_data
+    return us
+
+
+# The recovery target's price (the reference's constants): a one-time bill
+# for the candidate's fresh shard schedules and the in-flight replay,
+# against its steady-state push latency over an amortization horizon.
+# They rank candidates; they do not predict wall time.
+RECOVERY_REPLAN_US = 2500.0  # per fresh shard subprogram: select + schedule
+REPLAY_US_PER_SAMPLE = 0.5  # per in-flight output sample replayed
+RECOVERY_HORIZON_PUSHES = 50.0  # pushes the recovered mesh amortizes over
+
+
+def predict_recovery_us(steady_us: float, n_replanned_shards: int,
+                        replay_samples: int) -> float:
+    """Modelled total cost of adopting one recovery target: re-planning
+    ``n_replanned_shards`` shard schedules, replaying ``replay_samples``
+    in-flight output samples, and ``steady_us`` a push over
+    `RECOVERY_HORIZON_PUSHES`.  Lower is better."""
+    return (
+        n_replanned_shards * RECOVERY_REPLAN_US
+        + replay_samples * REPLAY_US_PER_SAMPLE
+        + RECOVERY_HORIZON_PUSHES * float(steady_us)
+    )
+
+
+# ---------------------------------------------------------------------------
 # the "cuda" lane's fit
 # ---------------------------------------------------------------------------
 

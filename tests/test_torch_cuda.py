@@ -1145,3 +1145,86 @@ def test_pulse_matmul_model_scale_weights(cuda, m):
     got = pulse_matmul(x.to(cuda), codes.to(cuda), ge.to(cuda), 4)
     want = x.double() @ pulse_dequantize(codes, ge)
     assert _rel_err(got.cpu().double(), want) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine on meshes of the card's slots
+# ---------------------------------------------------------------------------
+
+
+def _card_mesh(cuda, n_bank, n_data):
+    from repro_torch.distributed import bank_mesh
+
+    return bank_mesh(n_bank, n_data, devices=[cuda] * (n_bank * n_data))
+
+
+@pytest.mark.parametrize("data_mode,channels", [("time", 1), ("channels", 4)])
+def test_sharded_engine_on_a_card_mesh(cuda, data_mode, channels):
+    """A (4, 2) mesh of the card's slots, time slices with the halo
+    exchange or channel groups: every push equals the same engine on CPU
+    slots and the numpy oracle; each of the 4 scheduled shards launches
+    K1 once a data slot a push."""
+    from repro_torch.distributed import bank_mesh
+    from repro_torch.filters import ShardedFilterBankEngine
+
+    q = _sweep_rows(63, 40, seed=12)
+    rng = np.random.default_rng(13)
+    x = rng.integers(-128, 128, (channels, 4 * 1500))
+    kw = dict(channels=channels, n_bank_shards=4, data_mode=data_mode)
+    gpu = ShardedFilterBankEngine(q, mesh=_card_mesh(cuda, 4, 2), **kw)
+    cpu = ShardedFilterBankEngine(q, mesh=bank_mesh(
+        4, 2, devices=["cpu"] * 8), **kw)
+    assert gpu.data_mode == data_mode
+    assert all(p.mode == "scheduled" for p in gpu.plan.shard_plans)
+    outs = []
+    for k in range(4):
+        reset_launch_counts()
+        p = gpu.push_async(x[:, k * 1500:(k + 1) * 1500])
+        assert all(t.device == cuda for ts in p._shard_outs for t in ts)
+        assert bank_apply.launches == 4 * 2
+        outs.append(p.result())
+        assert np.array_equal(outs[-1], cpu.push(x[:, k * 1500:
+                                                     (k + 1) * 1500]))
+    assert np.array_equal(np.concatenate(outs, axis=2),
+                          fir_bit_layers_batch(x, q))
+    times = gpu.time_shards(x[:, :1500], repeats=2)
+    assert times.shape == (4,) and (times > 0).all()
+
+
+def test_sharded_specialized_shards_and_lowering_on_the_card(cuda):
+    """A narrow bank on a (2, 1) card mesh plans specialized shards (one
+    K2 launch each a push); `lower(..., "sharded")` of a CSE program folds
+    on the card after reassembly (one fold launch a call)."""
+    from repro_torch.compiler import cse_pass, lower
+    from repro_torch.filters import ShardedFilterBankEngine
+
+    q = _sweep_rows(127, 4, seed=14)
+    x = np.random.default_rng(15).integers(-128, 128, (2, 3000))
+    eng = ShardedFilterBankEngine(q, channels=2, mesh=_card_mesh(cuda, 2, 1),
+                                  n_bank_shards=2, chunk_hint=1500)
+    modes = [p.mode for p in eng.plan.shard_plans]
+    assert "specialized" in modes
+    reset_launch_counts()
+    y = eng.push(x)
+    assert bank_apply.launches == modes.count("scheduled")
+    assert specialized_call.launches == modes.count("specialized")
+    assert np.array_equal(y, fir_bit_layers_batch(x, q))
+    qq = _sweep_rows(63, 64, seed=16)
+    opt = cse_pass(compile_bank(qq))
+    exe = lower(opt, "sharded", channels=2, mesh=_card_mesh(cuda, 2, 2))
+    reset_launch_counts()
+    assert np.array_equal(exe(x), fir_bit_layers_batch(x, qq))
+    assert combine_fold.launches == 1
+
+
+def test_sharded_chaos_on_the_card(cuda):
+    """The chaos leg on a (4, 1) card mesh through `AsyncBankServer`:
+    two kills, the recovered stream equal to the oracle, every counter
+    equal to the kills, the integrity probe on."""
+    from torch_differential import port_chaos_check
+
+    q = _sweep_rows(63, 32, seed=17)
+    stats = port_chaos_check(q, [(1, 2), (0, 4)], n_chunks=7, chunk=1024,
+                             n_bank_shards=4, mesh=_card_mesh(cuda, 4, 1))
+    assert stats["lost_shards"] == stats["recoveries"] == 2
+    assert stats["n_bank_shards"] == 2 and not stats["degraded"]

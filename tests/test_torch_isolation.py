@@ -2,9 +2,11 @@
 
 A fresh interpreter imports `repro_torch`, runs an engine, the CSE pass
 with auto and packed engines on its program (the dispatch planner, the
-cost model, the fold), `lower()` on every ported backend, both machines
+cost model, the fold), `lower()` on every backend, both machines
 and `machine_cycles`, the pulse-code quantizer, matmul and
-`quantize_param_tree` on the CPU and must end with
+`quantize_param_tree`, the sharded engine behind `AsyncBankServer` with
+a shard killed, and the ``--fir-bank`` launcher on the CPU and must end
+with
 neither `jax` nor any `repro` module loaded; no source file
 of the port (nor `chip_smoke.py`, nor the port's examples) may import
 them; and an entry point
@@ -53,9 +55,23 @@ def test_import_and_engine_leave_jax_and_repro_unloaded():
         "    MachineSpec, machine_cycles_batch)\n"
         "prog = compile_bank(q)\n"
         "want = fir_bit_layers_batch(x, q)\n"
-        "for b in BACKENDS[:-1]:\n"
+        "for b in BACKENDS:\n"
         "    for p in (prog, opt):\n"
-        "        assert np.array_equal(lower(p, b, device='cpu')(x), want)\n"
+        "        y = lower(p, b, device='cpu', channels=2)(x)\n"
+        "        assert np.array_equal(y, want)\n"
+        "from repro_torch.distributed import FaultInjector, bank_mesh\n"
+        "from repro_torch.filters import ShardedFilterBankEngine\n"
+        "from repro_torch.serving import AsyncBankServer\n"
+        "inj = FaultInjector().kill_shard(1, at_chunk=1)\n"
+        "seng = ShardedFilterBankEngine(q, channels=2, n_bank_shards=4,\n"
+        "    mesh=bank_mesh(4, 2, devices=['cpu'] * 8), fault_injector=inj)\n"
+        "srv = AsyncBankServer(seng)\n"
+        "got = srv.submit(x[:, :350]) + srv.submit(x[:, 350:]) + srv.drain()\n"
+        "assert np.array_equal(np.concatenate(got, axis=2), want)\n"
+        "assert seng.fault_stats()['recoveries'] == 1\n"
+        "from repro_torch.launch.serve import main\n"
+        "main(['--fir-bank', '4', '--taps', '15', '--chunk', '256',\n"
+        "      '--chunks', '2', '--device', 'cpu'])\n"
         "spec = MachineSpec(taps=31)\n"
         "vm = FirBlmacVMachine(spec)\n"
         "fits = vm.program_bank(q)\n"
@@ -137,3 +153,25 @@ def test_pulse_entry_points_default_to_the_gpu(monkeypatch, entry):
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+def test_sharded_entry_points_default_to_the_gpu(monkeypatch):
+    """`bank_mesh()`, the sharded engine, `lower(..., "sharded")` and the
+    launcher take the card unless asked for the CPU, and raise without
+    one."""
+    from repro_torch.compiler import compile_bank, lower
+    from repro_torch.distributed import bank_mesh
+    from repro_torch.filters import ShardedFilterBankEngine
+    from repro_torch.launch.serve import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = np.zeros((2, 15), np.int64)
+    q[:, 7] = [3, 5]
+    for call in (lambda: bank_mesh(), lambda: ShardedFilterBankEngine(q),
+                 lambda: lower(compile_bank(q), "sharded"),
+                 lambda: bank_mesh(1, 1, devices=["cuda"]),
+                 lambda: main(["--fir-bank", "2", "--taps", "15",
+                               "--chunk", "64", "--chunks", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert bank_mesh(1, 1, devices=["cpu"]).devices[0][0].type == "cpu"

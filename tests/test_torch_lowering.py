@@ -7,8 +7,9 @@ backend (the fused ``xla`` lane at 8-bit samples, where it is exact;
 interpreted for full-range int32 samples), tolerance 0 (int32 backends
 modulo 2**32, as the reference's).  The kernel backends run here only
 because ``device="cpu"`` is passed: without it and without a card they
-raise.  ``"sharded"`` waits for queue 1, item 5; an unknown backend, a
-non-program and a reference lane name are refused.
+raise.  ``"sharded"`` runs the sharded engine on a mesh of CPU slots,
+and on the card by default; an unknown backend, a non-program and a
+reference lane name are refused.
 """
 import importlib
 
@@ -142,15 +143,17 @@ def test_geometry_and_machine_spec_are_passed_through():
     assert np.array_equal(vm(x), want)
 
 
-def test_refusals():
+def test_refusals(monkeypatch):
     port, _ = _programs("random", False)
     with pytest.raises(TypeError, match="BlmacProgram"):
         tc.lower(port.qbank, "oracle")
     with pytest.raises(ValueError, match="unknown backend"):
         tc.lower(port, "pallas")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tc.lower(port, "sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # the sharded backend's default mesh is every card: none here
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tc.lower(port, "sharded")
+    with pytest.raises(RuntimeError, match="CUDA"):
         tc.lower(tc.cse_pass(port), "sharded")
     assert "sharded" in tc.BACKENDS
     assert set(tc.BACKENDS) == set(rc.BACKENDS)
@@ -175,6 +178,30 @@ def test_kernel_backends_default_to_the_gpu(monkeypatch, backend):
     for host in ("oracle", "vmachine"):
         assert tc.lower(port, host, device="cuda")(x).shape == \
             (port.n_filters, 1, 70)
+
+
+@pytest.mark.parametrize("mesh", [(1, 1), (4, 2)], ids=["1x1", "4x2"])
+@pytest.mark.parametrize("optimized", [False, True], ids=["plain", "cse"])
+@pytest.mark.parametrize("bank", ["adversarial", "sweep127"])
+def test_sharded_backend_matches_the_reference(bank, optimized, mesh):
+    """The sharded engine over CPU slots (an optimized program shards its
+    augmented rows and folds them at reassembly) equals `repro`'s oracle, on a
+    one-shot call repeated (the engine resets between calls)."""
+    from repro_torch.distributed import bank_mesh
+
+    port, ref = _programs(bank, optimized)
+    x = _signal(port.taps, (2,), "8bit", seed=len(bank))
+    want = rc.lower(ref, "oracle")(x)
+    nb, nd = mesh
+    exe = tc.lower(port, "sharded", channels=2,
+                   mesh=bank_mesh(nb, nd, devices=["cpu"] * (nb * nd)))
+    assert exe.engine.program is (port.bank if optimized else port)
+    for _ in range(2):
+        y = exe(x)
+        assert y.dtype == np.int32 and np.array_equal(y, want)
+    one = tc.lower(port, "sharded", channels=2, device="cpu")
+    assert one.engine.n_bank_shards == 1
+    assert np.array_equal(one(x), want)
 
 
 def test_docstring_example_runs():

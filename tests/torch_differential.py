@@ -14,16 +14,26 @@ The counterpart of `tests/differential.py` (`five_way_check`,
   5. **specialized** — `lower(program, "specialized")`, K2 in one launch,
   6. **machine**   — the scalar cycle-accurate `FirBlmacMachine` on
                      sampled filters and outputs, and reject-parity on
-                     every filter the vmachine's fit mask flags.
+                     every filter the vmachine's fit mask flags,
+  7. **sharded**   — `lower(program, "sharded")`, the
+                     `ShardedFilterBankEngine` over a mesh (``mesh``, or
+                     one slot of ``device``): partition, per-shard
+                     programs, halo exchange or channel split, and the
+                     caller-order reassembly.
 
-The sharded leg of the reference joins with the port's sharded engine
-(ROADMAP.md, queue 1, item 5).  Each leg is then held against `repro`
-on the same program arrays (``reference=True``): `repro.compiler`
-compiles the same bank to the same ``key``, and its oracle, vmachine,
-cycle counts and ``"scheduled"`` backend must give the same numbers —
-on the fused ``xla`` lane for 8-bit samples, where that lane is exact,
-and interpreted (``lane=None``) for wider ones.  `repro` is imported
-inside those legs only, so the port's part runs without it.
+Each leg is then held against `repro` on the same program arrays
+(``reference=True``): `repro.compiler` compiles the same bank to the
+same ``key``, and its oracle, vmachine, cycle counts, ``"scheduled"``
+and ``"sharded"`` backends must give the same numbers — the scheduled
+one on the fused ``xla`` lane for 8-bit samples, where that lane is
+exact, and interpreted (``lane=None``) for wider ones — and its mesh
+planner (``compiled=False``) the same plan as the port's on the CPU for
+the sharded leg's mesh shape.  `repro` is imported inside those legs
+only, so the port's part runs without it.
+
+`port_chaos_check` is the counterpart of the reference's `chaos_check`:
+shards killed mid-stream behind `AsyncBankServer`, the recovered stream
+bit-exact against the oracle, the fault counters equal to the kills.
 
 ``device`` is where the kernel legs run; None is the GPU and raises
 without one, so a caller on a host without a card passes
@@ -43,8 +53,8 @@ from repro_torch.core import (FirBlmacMachine, MachineSpec,
                               machine_cycles_batch)
 from repro_torch.filters import FilterBankEngine
 
-__all__ = ["PortReport", "port_cse_check", "port_five_way_check",
-           "scalar_machine_legs"]
+__all__ = ["PortReport", "plan_fields", "port_chaos_check",
+           "port_cse_check", "port_five_way_check", "scalar_machine_legs"]
 
 
 @dataclass
@@ -56,6 +66,7 @@ class PortReport:
     scalar_checked: int  # filters the scalar machine replayed
     scalar_rejected: int  # filters the scalar machine refused to program
     reference_legs: int  # legs also held against `repro`
+    sharded_mesh: tuple = (1, 1)  # (n_bank_shards, n_data) of the leg
 
 
 def _signal(taps: int, n_out: int, sample_bits: int, seed: int):
@@ -100,6 +111,66 @@ def scalar_machine_legs(qbank, spec, fits, outputs, cycles, x, rows,
     return checked, rejected
 
 
+def plan_fields(plan) -> tuple:
+    """A sharded plan's fields as plain values (one tuple per shard plan),
+    comparable across the two packages."""
+    return (plan.n_bank_shards, plan.n_data, plan.data_mode,
+            plan.predicted_us, plan.cse,
+            tuple((p.mode, p.tile, p.bank_tile, p.merge, p.predicted_us,
+                   p.lane, p.cse) for p in plan.shard_plans))
+
+
+def _sharded_leg(program, x, oracle, mesh, device):
+    """`lower(program, "sharded")` against the oracle, and its partition a
+    permutation that restores the caller's order; returns the engine and
+    its output."""
+    sharded = lower(program, "sharded", mesh=mesh, device=device)
+    seng = sharded.engine
+    bank = program if program.combine is None else program.bank
+    assert seng.program is bank, "sharded engine did not adopt the program"
+    y = sharded(x)
+    assert y.dtype == np.int32, "sharded backend is not int32"
+    assert np.array_equal(y[:, 0, :].astype(np.int64), oracle), (
+        f"sharded engine != oracle (mesh {seng.n_bank_shards}x"
+        f"{seng.n_data}, data={seng.data_mode})")
+    order = np.concatenate(seng.partition.assign)
+    assert np.array_equal(np.sort(order), np.arange(bank.n_filters)), \
+        "sharded partition is not a permutation of the bank"
+    assert np.array_equal(order[seng.partition.inv],
+                          np.arange(bank.n_filters)), \
+        "sharded partition inverse does not restore caller order"
+    return seng, y
+
+
+def _ref_sharded_legs(program, rprog, x, y_port, seng) -> int:
+    """`repro`'s ``"sharded"`` backend gives the port's outputs, and its
+    mesh planner the port's plan for the port engine's mesh shape (CPU
+    slots only: the card plans with its own lane).  Returns the legs
+    checked."""
+    from repro.compiler import lower as ref_lower
+    from repro.kernels.runtime import autotune_sharded_dispatch as ref_plan
+
+    from repro_torch.distributed import mesh_bank_shape
+    from repro_torch.kernels.runtime import autotune_sharded_dispatch
+
+    assert np.array_equal(np.asarray(ref_lower(rprog, "sharded")(x)),
+                          y_port), "sharded != repro's sharded"
+    if seng.mesh is None or seng.mesh.devices[0][0].type != "cpu":
+        return 1
+    shape = mesh_bank_shape(seng.mesh)
+    mine, part, _ = autotune_sharded_dispatch(
+        program, mesh_shape=shape, chunk_hint=seng._chunk_hint,
+        device="cpu")
+    ref, rpart, _ = ref_plan(rprog, mesh_shape=shape,
+                             chunk_hint=seng._chunk_hint)
+    assert plan_fields(mine) == plan_fields(ref), \
+        f"sharded plan != repro's on a {shape} mesh"
+    assert all(np.array_equal(a, b) for a, b in zip(part.assign,
+                                                    rpart.assign)), \
+        "sharded partition != repro's"
+    return 2
+
+
 def _ref_spec(spec: MachineSpec):
     from repro.core import MachineSpec as RefSpec
 
@@ -133,10 +204,13 @@ def port_five_way_check(
     scalar_outputs: int = 8,
     seed: int = 0,
     device=None,
+    mesh=None,
     reference: bool = True,
 ) -> PortReport:
     """Assert every backend of the port agrees on one program (module doc)
-    and, with ``reference``, with `repro` on the same arrays.
+    and, with ``reference``, with `repro` on the same arrays.  ``mesh``
+    is the sharded leg's `BankMesh` (None: one slot of ``device``, or
+    every card).
 
     ``x`` defaults to a seeded signal of ``n_out`` outputs within the
     spec's sample range.  Raises AssertionError naming the leg on any
@@ -208,6 +282,9 @@ def port_five_way_check(
         qbank, spec, fits, vres.outputs, vres.cycles, x, rows,
         min(scalar_outputs, n_out))
 
+    # -- leg 7: the sharded engine over a mesh --------------------------------
+    seng, y_sh = _sharded_leg(program, x, oracle, mesh, device)
+
     # -- the reference on the same arrays -------------------------------------
     ref_legs = 0
     if reference:
@@ -231,12 +308,13 @@ def port_five_way_check(
             "program cycles != repro's"
         y_ref = _ref_scheduled(rprog, x, tile, _is_8bit(x))
         assert np.array_equal(y_ref, y), "scheduled != repro's scheduled"
-        ref_legs = 5
+        ref_legs = 5 + _ref_sharded_legs(program, rprog, x, y_sh, seng)
 
     return PortReport(
         n_filters=n_filters, n_out=n_out, fits=fits,
         mean_cycles=vres.mean_cycles, scalar_checked=checked,
-        scalar_rejected=rejected, reference_legs=ref_legs)
+        scalar_rejected=rejected, reference_legs=ref_legs,
+        sharded_mesh=(seng.n_bank_shards, seng.n_data))
 
 
 def port_cse_check(
@@ -250,6 +328,7 @@ def port_cse_check(
     scalar_outputs: int = 8,
     seed: int = 0,
     device=None,
+    mesh=None,
     level=2,
     max_shared: int | None = None,
     reference: bool = True,
@@ -258,14 +337,18 @@ def port_cse_check(
     `cse_pass` and assert the optimized program equals the parent's
     oracle on every backend — the weight-level ``effective_qbank``, K1
     and K2 on the augmented rows plus the fold, the vmachine (widened
-    spec, exact int64 fold) and the packed engine — and the pass's
+    spec, exact int64 fold), the sharded engine over ``mesh`` (the
+    augmented rows partitioned, the fold at reassembly, on its device)
+    and the packed engine — and the pass's
     accounting: no more pulses or §3.3 adds than the parent, and §4
     cycles equal to the augmented rows' plus one per combine use.  The
     scalar machine replays sampled augmented rows and rejects exactly
     the rows the widened vmachine flags.  With ``reference``, `repro`'s
     pass gives the same key and the same ``machine_cycles`` and
-    ``shared_cycles``, and its oracle and ``"scheduled"`` backend the
-    same outputs.  Returns a small report dict."""
+    ``shared_cycles``, its oracle, ``"scheduled"`` and ``"sharded"``
+    backends the same outputs, and its mesh planner the same plan for the
+    optimized program (the CSE verdict included).  Returns a small report
+    dict."""
     if program is None:
         if qbank is None:
             raise ValueError("port_cse_check needs qbank or program")
@@ -312,6 +395,8 @@ def port_cse_check(
             assert y.shape == (opt.n_real, 1, x.size - taps + 1), leg
             assert np.array_equal(y[:, 0, :].astype(np.int64), oracle), \
                 f"cse: optimized {leg} != parent oracle"
+        seng, y_sh = _sharded_leg(opt, x, oracle, mesh, device)
+        report["sharded_mesh"] = (seng.n_bank_shards, seng.n_data)
         eng = FilterBankEngine(opt, channels=1, tile=tile, mode="packed",
                                device=device)
         assert eng.n_filters == opt.out_filters
@@ -355,5 +440,78 @@ def port_cse_check(
             y = lower(opt, "scheduled", tile=tile, device=device)(x)
             assert np.array_equal(_ref_scheduled(ropt, x, tile, _is_8bit(x)),
                                   y), "cse: scheduled != repro's"
-            report["reference_legs"] = 4
+            report["reference_legs"] = 4 + _ref_sharded_legs(
+                opt, ropt, x, y_sh, seng)
     return report
+
+
+def port_chaos_check(
+    qbank: np.ndarray,
+    kills,
+    *,
+    n_chunks: int = 6,
+    chunk: int = 512,
+    mesh=None,
+    n_bank_shards: int | None = None,
+    data_mode: str | None = None,
+    depth: int = 2,
+    seed: int = 0,
+    device=None,
+    integrity_check: bool = True,
+) -> dict:
+    """Chaos leg of the harness, the reference's `chaos_check` on the
+    port: kill shards mid-stream and assert the recovered stream equals
+    the oracle and the fault counters equal the kills.
+
+    ``kills`` lists ``(shard, at_chunk)`` points for
+    `FaultInjector.kill_shard` (shard slots at fire time: survivors
+    renumber from 0 after a recovery).  The stream of ``n_chunks`` seeded
+    chunks runs through `AsyncBankServer` at ``depth``; every in-flight
+    chunk at a kill is replayed from its tail snapshot through the
+    re-partitioned mesh.  ``mesh`` is a `BankMesh` (None: one slot of
+    ``device``, or every card).  Returns the engine's ``fault_stats()``
+    with the final mesh's ``n_bank_shards``/``n_data``/``data_mode``.
+    """
+    from repro_torch.distributed import FaultInjector, bank_mesh
+    from repro_torch.filters import ShardedFilterBankEngine
+    from repro_torch.serving import AsyncBankServer
+
+    program = compile_bank(np.atleast_2d(np.asarray(qbank, np.int64)))
+    rng = np.random.default_rng(seed)
+    lim = 1 << (program.spec.sample_bits - 1)
+    x = rng.integers(-lim, lim, n_chunks * chunk)
+    oracle = lower(program, "oracle")(x)[:, 0, :]
+
+    injector = FaultInjector()
+    kills = list(kills)
+    for shard, at_chunk in kills:
+        injector.kill_shard(shard, at_chunk)
+    if mesh is None and device is not None:
+        mesh = bank_mesh(1, 1, devices=[device])
+    eng = ShardedFilterBankEngine(
+        program, mesh=mesh, n_bank_shards=n_bank_shards,
+        data_mode=data_mode, fault_injector=injector,
+        integrity_check=integrity_check,
+    )
+    server = AsyncBankServer(eng, depth=depth)
+    got = []
+    for k in range(n_chunks):
+        got += server.submit(x[k * chunk: (k + 1) * chunk])
+    got += server.drain()
+    y = np.concatenate([g for g in got if g.shape[2]], axis=2)[:, 0, :]
+    assert np.array_equal(np.asarray(y, np.int64), oracle), (
+        f"chaos: recovered stream != oracle after kills {kills} "
+        f"(final mesh {eng.n_bank_shards}x{eng.n_data})"
+    )
+    stats = eng.fault_stats()
+    assert stats["injected"]["kills"] == len(kills), (
+        f"chaos: {stats['injected']['kills']} of {len(kills)} kills fired "
+        f"— the grid points never hit a live (shard, chunk)"
+    )
+    assert stats["lost_shards"] == len(kills), stats
+    assert stats["recoveries"] == len(kills), stats
+    assert stats["detections"] == len(kills), stats
+    assert server.failed_chunks == 0 and server.chunks_out == n_chunks, (
+        "chaos: the server dropped chunks — recovery must be lossless"
+    )
+    return stats
