@@ -125,7 +125,31 @@ before it and read just after:
 Between them, with the serve leg's engine: its throughput, and its push
 broken down into the engine's own steps, timed by CUDA events (the
 chunk's upload, cat/pad/framing, the K1 launch, the device-to-host copy)
-against the push's host clock.
+against the push's host clock.  After those timings:
+
+  * sessions    — the reference's multi-tenant path: the ``--sessions``
+                  entry point (`repro_torch.launch.serve.serve_sessions`,
+                  256 × 63, 64 tenants of 4 rows, 8 lanes, 16 chunks of
+                  512, a `swap_filters` and a pause/resume), every tenant
+                  bit-exact against the numpy oracle for its rows, K1 + K2
+                  launches equal to the rounds; its steps by host clock,
+                  one round by CUDA events and host (and its kernel
+                  alone), bytes up, down and kept a round,
+                  `serve_stats()`, output and filter-samples/s (kept and
+                  computed), `predicted_step_us` beside the step; the
+                  dedicated arm (one engine a tenant) in turns with the
+                  shared server; the loop without a journal, with one
+                  without fsync and with fsync, in turns; a child process
+                  SIGKILLed with chunk 8 queued and recovered here by
+                  `BankSessionServer.recover`, every tenant bit-exact with
+                  no gap or duplicate; `swap_program` after chunk 7 to a
+                  12-bit bank, every tenant exact before and after; then
+                  sessions × shards (`port_session_chaos_check` from
+                  ``tests/torch_differential.py``) on a (4, 1) mesh of the
+                  card's slots, two kills and a journal, the counters equal
+                  to the kills and 8 tenants marked a kill, and full-range
+                  int32 samples with the integrity probe on, without and
+                  with a kill, bit-exact with no corruption read.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the main path's shapes (tolerance 0 for the FIR kernels, integer
@@ -139,8 +163,8 @@ fold's by its bytes or its multiply-adds at the int32 rate, with no
 library call: torch has no integer matmul on CUDA); the
 whole sweep call, and K1 into a contiguous result, are timed too.
 The cost model's calibration file goes to a temporary directory that is
-removed at exit.  Prints one JSON object per phase, the
-``{"kernels": [...]}`` line, the card's name and power limit as
+removed at exit.  Prints one JSON object per phase, the script's wall
+seconds (the ``total`` phase), the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before that line; without a CUDA device it exits 2 at once.
@@ -1649,6 +1673,336 @@ def sharded_leg(dev, smi, serve_prog, sweep_prog, x_sweep, y_sweep) -> dict:
     return total
 
 
+SESSIONS_ARGV = ["--fir-bank", str(SERVE_FILTERS), "--taps", str(SERVE_TAPS),
+                 "--sessions", "64", "--slots", "8", "--chunk", "512",
+                 "--chunks", "16"]  # the reference's documented --sessions
+SESSION_KILL_AT = 8  # the SIGKILLed child dies with chunk 8 queued
+SESSION_SWAP_AT = 8  # swap_program flips after chunk 7
+SESSION_CHAOS = dict(n_sessions=32, n_slots=8, rows_per_session=4,
+                     n_chunks=6, chunk=512, n_bank_shards=4)
+SESSION_CHAOS_KILLS = ((1, 5), (0, 14))  # dispatch rounds, 4 a step
+# a child that serves the launcher's tenants with a journal and SIGKILLs
+# itself with chunk KILL_AT journaled and queued, never stepped
+SESSION_VICTIM = """
+import os, signal, sys
+import numpy as np
+from repro_torch.compiler import compile_bank
+from repro_torch.filters import spread_lowpass_qbank
+from repro_torch.launch.serve import parser
+from repro_torch.serving import BankSessionServer
+
+wal, kill_at = sys.argv[1], int(sys.argv[2])
+a = parser().parse_args(sys.argv[3:])
+prog = compile_bank(spread_lowpass_qbank(a.fir_bank, a.taps))
+srv = BankSessionServer(prog, n_slots=a.slots, auto_step=False,
+                        device=a.device, chunk_hint=a.chunk, journal=wal)
+per = a.fir_bank // a.sessions
+rng = np.random.default_rng(0)  # the launcher's streams
+ss = [srv.open_session(np.arange(i * per, (i + 1) * per), session_id=f"t{i}")
+      for i in range(a.sessions)]
+streams = [rng.integers(-128, 128, a.chunk * a.chunks).astype(np.int32)
+           for _ in ss]
+for k in range(kill_at + 1):
+    for s, x in zip(ss, streams):
+        s.push(x[k * a.chunk:(k + 1) * a.chunk])
+    if k < kill_at:
+        srv.step()
+        for s in ss:
+            s.pull()
+print("VICTIM_OK", srv.serve_stats()["journal"], flush=True)
+os.kill(os.getpid(), signal.SIGKILL)
+"""
+
+
+def sessions_leg(dev, smi, serve_prog) -> dict:
+    """The ``sessions`` phase: the reference's multi-tenant serving path.
+
+    (1) the ``--sessions`` entry point (`serve_sessions`, 256 × 63, 64
+    tenants of 4 rows, 8 lanes, 16 chunks of 512, a `swap_filters` and a
+    pause/resume) with its launches counted, every tenant held against
+    the numpy oracle for its rows, K1 + K2 launches equal to the rounds;
+    its numbers: steps and one round (events, host), bytes a round,
+    `serve_stats()`, rates, the model's step; (2) the reference
+    benchmark's dedicated arm (one engine a tenant) in turns with the
+    shared server; (3) the loop with no journal, a journal without and
+    with fsync, in turns; (4) a child SIGKILLed with chunk 8 queued,
+    recovered here, every tenant bit-exact with no gap or duplicate; (5)
+    `swap_program` after chunk 7 to a 12-bit bank, every tenant exact
+    before and after; (6) sessions × shards: `port_session_chaos_check`
+    on a (4, 1) mesh of the card's slots with two kills and a journal,
+    then full-range int32 samples with the probe on, without and with a
+    kill.  Returns the launches by leg."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.compiler import compile_bank
+    from repro_torch.distributed import bank_mesh
+    from repro_torch.filters import (FilterBankEngine, fir_bit_layers_batch,
+                                     spread_lowpass_qbank)
+    from repro_torch.filters import bank as bank_mod
+    from repro_torch.launch.serve import parser, serve_sessions
+    from repro_torch.serving import BankSessionServer
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_differential import port_session_chaos_check
+
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+    launches = {}
+    legs = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_sessions")
+
+    def counted(name, fn):
+        bf.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {"bank_apply": bf.bank_apply.launches,
+                          "specialized_call": bf.specialized_call.launches,
+                          "combine_fold": bf.combine_fold.launches}
+        return out
+
+    def args_for(*extra):
+        return parser().parse_args(SESSIONS_ARGV + ["--device", str(dev),
+                                                    *extra])
+
+    args = args_for()
+    chunk, n_chunks, taps = args.chunk, args.chunks, args.taps
+    qbank = serve_prog.qbank
+    rounds_out = []  # (B, n_slots, n_out) of every shared round
+    lanes = bank_mod.FilterBankEngine.apply_lanes
+
+    def recording(self, buf):
+        y = lanes(self, buf)
+        rounds_out.append(y.shape)
+        return y
+
+    # -- (1) the entry point, counted and checked tenant by tenant ---------
+    bank_mod.FilterBankEngine.apply_lanes = recording
+    try:
+        run = counted("launcher", lambda: serve_sessions(args))
+    finally:
+        bank_mod.FilterBankEngine.apply_lanes = lanes
+    check(run.program.key == serve_prog.key, "the launcher compiled another "
+                                             "bank")
+    t0 = time.perf_counter()
+    oracle = [fir_bit_layers_batch(x[None, :], qbank[sel])[:, 0]
+              for x, sel in zip(run.streams, run.selections)]
+    oracle_s = time.perf_counter() - t0
+    for i in range(len(oracle)):
+        check(np.array_equal(run.tenant_output(i), oracle[i]),
+              f"tenant {i} differs from the numpy oracle")
+    st = run.stats
+    lk = launches["launcher"]
+    check(lk["bank_apply"] + lk["specialized_call"] == st["rounds"]
+          == len(rounds_out) and lk["combine_fold"] == 0,
+          f"launches {lk} for {st['rounds']} rounds")
+    eng = run.server.engine
+    n_rows = len(run.selections[0])
+    served = st["samples_out"] * n_rows  # the rows the tenants keep
+    computed = sum(b * c * n for b, c, n in rounds_out)
+    # one steady round: the 8 lanes of tail + one chunk each
+    buf = np.stack([x[:chunk + taps - 1] for x in run.streams[:args.slots]])
+    buf_dev = torch.as_tensor(buf, device=dev)
+    round_ms_events = cuda_ms(lambda: eng.apply_lanes(buf))
+    round_ms_host = host_ms(lambda: eng.apply_lanes(buf), reps=20)
+    kernel_ms = cuda_ms(lambda: eng._run(*eng._frame(buf_dev)))
+    n_round = buf.shape[1] - taps + 1
+    steps_ms = [t * 1e3 for t in run.step_seconds]
+    legs["launcher"] = {
+        "argv": SESSIONS_ARGV, "plan": (dataclasses.asdict(eng.dispatch_plan)
+                                        if eng.dispatch_plan else None),
+        "mode": eng.mode, "loop_s": run.seconds,
+        "step_ms_host": steps_ms,
+        "step_ms_host_median": statistics.median(steps_ms),
+        "predicted_step_us": run.server.predicted_step_us(),
+        "dispatch_us_model": run.server._dispatch_us(),
+        "round_ms_events": round_ms_events, "round_ms_host": round_ms_host,
+        "round_kernel_ms_events": kernel_ms,
+        "round_bytes_up": int(buf.nbytes),
+        "round_bytes_down": 4 * len(qbank) * args.slots * n_round,
+        "round_bytes_kept": 4 * n_rows * args.slots * n_round,
+        "rounds": st["rounds"], "steps": st["steps"],
+        "occupancy": st["occupancy"],
+        "latency_p50_ms": st["latency_p50_ms"],
+        "latency_p99_ms": st["latency_p99_ms"],
+        "output_samples_per_s": st["samples_out"] / run.seconds,
+        "filter_samples_per_s_served": served / run.seconds,
+        "filter_samples_per_s_computed": computed / run.seconds,
+        "oracle_host_s": oracle_s, "launches": lk, "nvidia_smi": smi}
+
+    # -- (2) the dedicated arm, in turns with the shared server ------------
+    dedicated = [FilterBankEngine(run.program, channels=1, device=dev,
+                                  chunk_hint=chunk) for _ in run.streams]
+
+    def dedicated_run():
+        for e in dedicated:
+            e.reset()
+        outs = [[] for _ in dedicated]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for k in range(n_chunks):
+            for i, (e, x) in enumerate(zip(dedicated, run.streams)):
+                y = e.push(x[k * chunk:(k + 1) * chunk])
+                outs[i].append(y[run.selections[i], 0])
+        dt = time.perf_counter() - t
+        for i, o in enumerate(outs):
+            check(np.array_equal(np.concatenate(o, axis=1), oracle[i]),
+                  f"dedicated tenant {i} differs from the oracle")
+        return dt
+
+    turns = []
+    for arm in ("shared", "dedicated", "dedicated", "shared"):
+        if arm == "shared":
+            r = serve_sessions(args)
+            turns.append((arm, r.seconds, r.stats["samples_out"]))
+        else:
+            turns.append((arm, dedicated_run(),
+                          sum(o.shape[1] for o in oracle)))
+    rate = {arm: statistics.median(n / t for a, t, n in turns if a == arm)
+            for arm in ("shared", "dedicated")}
+    legs["dedicated"] = {
+        "turns": [[a, t, n / t] for a, t, n in turns],
+        "shared_output_samples_per_s": rate["shared"],
+        "dedicated_output_samples_per_s": rate["dedicated"],
+        "shared_over_dedicated": rate["shared"] / rate["dedicated"],
+        "dedicated_mode": dedicated[0].mode, "nvidia_smi": smi}
+    del dedicated
+
+    # -- (3) the journal's cost: none, no fsync, fsync, in turns ------------
+    jruns = {"none": [], "nofsync": [], "fsync": []}
+    jstats, per_run = {}, []
+    for k, arm in enumerate(("none", "nofsync", "fsync", "fsync", "nofsync",
+                             "none")):
+        if arm == "none":
+            r = serve_sessions(args)
+        else:
+            r = serve_sessions(args_for("--journal-path",
+                                        os.path.join(work, f"wal{k}")),
+                               journal_fsync=arm == "fsync")
+            jstats[arm] = r.stats["journal"]
+        jruns[arm].extend(t * 1e3 for t in r.step_seconds)
+        per_run.append([arm, statistics.median(r.step_seconds) * 1e3])
+    med = {arm: statistics.median(v) for arm, v in jruns.items()}
+    legs["journal"] = {
+        "step_ms_host_median": med, "runs_step_ms_host_median": per_run,
+        "overhead_nofsync": med["nofsync"] / med["none"],
+        "overhead_fsync": med["fsync"] / med["none"],
+        "journal_stats": jstats, "nvidia_smi": smi}
+
+    # -- (4) a SIGKILLed child, recovered here ------------------------------
+    wal = os.path.join(work, "victim")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", SESSION_VICTIM, wal, str(SESSION_KILL_AT)]
+        + SESSIONS_ARGV + ["--device", str(dev)], env=env, cwd=HERE,
+        capture_output=True, text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    check(res.returncode == -9 and "VICTIM_OK" in res.stdout,
+          f"the victim exited {res.returncode}: {res.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    srv = counted("recover", lambda: BankSessionServer.recover(
+        wal, run.program, n_slots=args.slots, device=dev, auto_step=False,
+        chunk_hint=chunk))
+    recover_s = time.perf_counter() - t0
+    tenants = [srv.sessions[f"t{i}"] for i in range(len(run.streams))]
+    outs = [[t.pull()] for t in tenants]
+    for k in range(SESSION_KILL_AT + 1, n_chunks):
+        for t, x in zip(tenants, run.streams):
+            t.push(x[k * chunk:(k + 1) * chunk])
+        srv.step()
+        for o, t in zip(outs, tenants):
+            o.append(t.pull())
+    n_pre = SESSION_KILL_AT * chunk - (taps - 1)  # delivered by the child
+    for i, o in enumerate(outs):
+        got = np.concatenate(o, axis=1)
+        check(got.shape[1] == oracle[i].shape[1] - n_pre
+              and np.array_equal(got, oracle[i][:, n_pre:]),
+              f"recovered tenant {i}: a gap, a duplicate or a wrong sample")
+    legs["recovery"] = {
+        "child_process_s": child_s, "child_said": res.stdout.strip()[-400:],
+        "recover_s": recover_s, "recovered_sessions": len(tenants),
+        "regenerated_samples": int(outs[0][0].shape[1]),
+        "launches_in_recover": launches["recover"],
+        "journal_after": srv.journal.stats(), "nvidia_smi": smi}
+    srv.close()
+
+    # -- (5) swap_program mid-run -------------------------------------------
+    q12 = spread_lowpass_qbank(len(qbank), taps, coeff_bits=12)
+    t0 = time.perf_counter()
+    prog12 = compile_bank(q12)
+    compile_s = time.perf_counter() - t0
+    srv = BankSessionServer(run.program, n_slots=args.slots, auto_step=False,
+                            device=dev, chunk_hint=chunk)
+    tenants = [srv.open_session(sel) for sel in run.selections]
+    outs = [[] for _ in tenants]
+
+    def serve(k0, k1):
+        for k in range(k0, k1):
+            for t, x in zip(tenants, run.streams):
+                t.push(x[k * chunk:(k + 1) * chunk])
+            srv.step()
+            for o, t in zip(outs, tenants):
+                o.append(t.pull())
+
+    serve(0, SESSION_SWAP_AT)
+    t0 = time.perf_counter()
+    srv.swap_program(prog12)
+    swap_s = time.perf_counter() - t0
+    counted("swap_after", lambda: serve(SESSION_SWAP_AT, n_chunks))
+    cut = SESSION_SWAP_AT * chunk - (taps - 1)
+    for i, (o, x, sel) in enumerate(zip(outs, run.streams, run.selections)):
+        got = np.concatenate(o, axis=1)
+        after = fir_bit_layers_batch(x[None, cut:], q12[sel])[:, 0]
+        check(np.array_equal(got[:, :cut], oracle[i][:, :cut])
+              and np.array_equal(got[:, cut:], after),
+              f"tenant {i} differs across swap_program")
+    legs["swap_program"] = {
+        "compile_s": compile_s, "swap_s": swap_s,
+        "program_swaps": srv.program_swaps, "mode_after": srv.engine.mode,
+        "launches_after": launches["swap_after"], "nvidia_smi": smi}
+
+    # -- (6) sessions × shards: kills, then the probe on wide samples -------
+    def slots(n):
+        return bank_mesh(n, 1, devices=[dev] * n)
+
+    t0 = time.perf_counter()
+    chaos = counted("chaos", lambda: port_session_chaos_check(
+        qbank, SESSION_CHAOS_KILLS, mesh=slots(4), device=dev,
+        journal_path=os.path.join(work, "chaos"), **SESSION_CHAOS))
+    chaos_s = time.perf_counter() - t0
+    n_kills = len(SESSION_CHAOS_KILLS)
+    check(chaos["lost_shards"] == chaos["recoveries"] == chaos["detections"]
+          == chaos["session_faults"] == n_kills
+          and sum(chaos["per_session"].values())
+          == n_kills * SESSION_CHAOS["n_slots"],
+          f"sessions × shards counters: {chaos}")
+    probe = {}
+    for name, kills in (("wide_probe", ()), ("wide_probe_kill", ((1, 3),))):
+        st = counted(name, lambda: port_session_chaos_check(
+            qbank, kills, mesh=slots(4), device=dev, integrity_check=True,
+            sample_bits=32, **dict(SESSION_CHAOS, n_sessions=16,
+                                   n_chunks=4)))
+        check(st["corruptions"] == 0 and st["detections"] == len(kills),
+              f"{name}: {st}")
+        probe[name] = {k: st[k] for k in ("detections", "corruptions",
+                                          "lost_shards", "recoveries",
+                                          "n_bank_shards", "session_faults")}
+    legs["shards"] = {"chaos_s": chaos_s, "fault_stats": {
+        k: v for k, v in chaos.items() if k != "per_session"},
+        "attributed": sum(chaos["per_session"].values()),
+        "launches": launches["chaos"], **probe, "nvidia_smi": smi}
+    shutil.rmtree(work, ignore_errors=True)
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("bank_apply", "specialized_call", "combine_fold")}
+    emit({"phase": "sessions", "legs": legs, "launches": launches,
+          "launches_total": total, "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1656,6 +2010,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import numpy as np
 
     from repro_torch.compiler import compile_bank
@@ -2038,6 +2393,14 @@ def main() -> int:
     emit({"phase": "serve_push_breakdown", **breakdown,
           "device": kind, "nvidia_smi": smi})
 
+    # -- the session server, after the kernels' and the engine's timings
+    # (so those run where earlier versions of this script ran them) ------
+    session_launches = sessions_leg(dev, smi, serve_prog)["launcher"]
+    for row, key in ((kernels[0], "bank_apply"),
+                     (kernels[1], "specialized_call")):
+        row["launches"] += session_launches[key]
+        row["launches_by_leg"]["sessions"] = session_launches[key]
+
     fold_row["launches_by_leg"] = {"cse": fold_row["launches"],
                                    "machine": machine_launches["combine_fold"],
                                    "sharded": sharded_launches["combine_fold"]}
@@ -2046,6 +2409,8 @@ def main() -> int:
     kernels.append(fold_row)
     kernels.append(pulse_matmul_leg(dev, smi))
 
+    emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
+          "device": kind, "nvidia_smi": smi})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -83,6 +83,10 @@ __all__ = [
     "predict_combine_us",
     "predict_scheduled_us",
     "predict_specialized_us",
+    "JOURNAL_APPEND_US",
+    "JOURNAL_SYNC_US",
+    "SESSION_LANE_US",
+    "predict_session_step_us",
 ]
 
 def _half(wq: np.ndarray) -> np.ndarray:
@@ -444,6 +448,40 @@ def predict_recovery_us(steady_us: float, n_replanned_shards: int,
         + replay_samples * REPLAY_US_PER_SAMPLE
         + RECOVERY_HORIZON_PUSHES * float(steady_us)
     )
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant session step (admission control of `BankSessionServer`)
+# ---------------------------------------------------------------------------
+#
+# The reference's constants, unchanged, so the port admits, parks and
+# rejects as `repro` does.  A step packs the active sessions into the
+# server's n_slots lanes, ceil(active / n_slots) rounds, each a full bank
+# dispatch plus n_slots lane fills whether or not a lane carries a tenant;
+# a journal adds one record a session and one group-commit fsync a step.
+# They rank "admit vs reject"; fitted on the reference's host, not on the
+# card, they do not predict wall time there.
+
+SESSION_LANE_US = 45.0  # per channel lane staged + sliced, per round
+JOURNAL_APPEND_US = 15.0  # per chunk/pull WAL record framed + written
+JOURNAL_SYNC_US = 400.0  # per group-commit fsync at the end of a step
+
+
+def predict_session_step_us(dispatch_us: float, n_active: int, n_slots: int,
+                            journal_us: float = 0.0) -> float:
+    """Modelled latency of one session-server batching step with
+    ``n_active`` sessions packed into ``n_slots`` shared lanes:
+    ceil(n_active / n_slots) rounds, each a full ``dispatch_us`` bank
+    dispatch (the engine's current plan) plus the staging of every slot
+    of the round, plus the step's flat journal bill ``journal_us``.  The
+    server admits a session only while this stays inside its budget."""
+    if n_slots < 1:
+        raise ValueError("n_slots must be >= 1")
+    if n_active <= 0:
+        return 0.0
+    rounds = -(-int(n_active) // int(n_slots))
+    return rounds * (float(dispatch_us) + n_slots * SESSION_LANE_US) \
+        + float(journal_us)
 
 
 # ---------------------------------------------------------------------------

@@ -717,8 +717,10 @@ class ShardedFilterBankEngine:
     def _verify_part(self, s, part, p):
         """Boundary integrity probe: recompute this shard's outputs at
         t = 0, the last output and every data-slot boundary on the host
-        (int64 dot products over the snapshot tail + raw chunk) and
-        compare bit for bit."""
+        (int64 dot products over the snapshot tail + raw chunk, exact:
+        16-bit coefficients × 32-bit samples × 255 taps stay below 2**54)
+        and compare bit for bit modulo 2**32, the kernels' arithmetic
+        contract: an output that wrapped is not corruption."""
         rows = self.partition.assign[s]
         full = np.concatenate(
             [np.asarray(p.snapshot.tail, np.int64),
@@ -730,8 +732,10 @@ class ShardedFilterBankEngine:
             pos.add(min(max(j * n_out // self.n_data, 0), n_out - 1))
         pos = sorted(pos)
         wins = np.stack([full[:, t: t + self.taps] for t in pos])  # (P,C,taps)
-        expect = np.einsum("rj,pcj->rpc", self.qbank[rows], wins)
-        got = _to_host(part[:, :, pos]).astype(np.int64).transpose(0, 2, 1)
+        # astype wraps int64 to int32 (two's complement, modulo 2**32)
+        expect = np.einsum("rj,pcj->rpc", self.qbank[rows], wins) \
+            .astype(np.int32)
+        got = _to_host(part[:, :, pos]).astype(np.int32).transpose(0, 2, 1)
         if not np.array_equal(got, expect):
             raise ShardCorruption(
                 s, f"shard {s} failed the boundary integrity probe on "

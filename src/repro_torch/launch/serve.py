@@ -1,4 +1,5 @@
-"""Serving launcher of the port: a sharded BLMAC filter-bank stream.
+"""Serving launcher of the port: a sharded BLMAC filter-bank stream, or
+many tenant streams over one bank.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --fir-bank 256 \\
         --taps 63 --channels 1 --chunk 4096 --chunks 32
@@ -13,9 +14,25 @@ slot; without it and without a card the launcher refuses.
 disk: the first run compiles and saves, later runs load it (a file
 either package saved loads in the other under the same key).
 
-``--sessions`` (multi-tenant session serving) and ``--arch`` (language
-models) are not ported yet and exit with the ROADMAP item that takes
-them.
+Multi-tenant session serving, the counterpart of the reference's
+``--sessions``: N tenant streams, each on its own slice of the bank,
+continuously batched into the ``--slots`` shared lanes of one
+`BankSessionServer`::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fir-bank 256 \\
+        --taps 63 --sessions 64 --slots 8 --chunk 512 --chunks 16
+
+It hot-swaps tenant 1's selection a third of the way in, pauses tenant 2
+half way and resumes it at once, checks tenant 0's whole stream against
+the numpy oracle and prints `serve_stats()`.  ``--journal-path wal/``
+writes the server's state ahead to a journal that
+`BankSessionServer.recover` rebuilds after a crash (see
+``examples/port_session_recovery.py``); ``--bank-shards K`` runs the
+lanes on a K-shard `ShardedFilterBankEngine` over the launcher's mesh
+(one slot a card: on one card the shard count is clamped to 1).
+
+``--arch`` (language models) is not ported yet and exits with the
+ROADMAP item that takes it.
 """
 from __future__ import annotations
 
@@ -26,7 +43,8 @@ import time
 
 import numpy as np
 
-__all__ = ["FirBankRun", "main", "serve_fir_bank"]
+__all__ = ["FirBankRun", "SessionsRun", "main", "serve_fir_bank",
+           "serve_sessions"]
 
 
 @dataclasses.dataclass
@@ -40,6 +58,29 @@ class FirBankRun:
     stream: np.ndarray
     samples: int
     seconds: float
+
+
+@dataclasses.dataclass
+class SessionsRun:
+    """What one `serve_sessions` run served: the program and server, each
+    tenant's filter rows and input stream (n,), each tenant's outputs in
+    pull order (each (len(rows), n_i)), the host seconds of every
+    ``server.step()`` and of the whole serving loop, and the server's
+    `serve_stats()` at the loop's end (its journal's counters included:
+    the server is closed after it)."""
+
+    program: object
+    server: object
+    selections: list
+    streams: list
+    outputs: list
+    step_seconds: list
+    seconds: float
+    stats: dict
+
+    def tenant_output(self, i: int) -> np.ndarray:
+        """Tenant ``i``'s whole output stream, (len(rows), n)."""
+        return np.concatenate(self.outputs[i], axis=1)
 
 
 def _mesh_for(device):
@@ -122,10 +163,121 @@ def serve_fir_bank(args, consume=None) -> FirBankRun:
     return FirBankRun(engine, server, stream, done, dt)
 
 
+def serve_sessions(args, mesh=None, journal_fsync: bool = True) -> SessionsRun:
+    """The ``--sessions`` path: ``args.sessions`` tenant streams of
+    ``args.chunks`` seeded 8-bit chunks over one compiled bank, the
+    reference's schedule (one `swap_filters`, one pause and resume),
+    tenant 0 checked against the numpy oracle (a mismatch raises).
+    ``mesh`` is the `BankMesh` of ``--bank-shards`` (default: the
+    launcher's, one slot a card or ``--device``); ``journal_fsync=False``
+    keeps a journal's SIGKILL durability without its fsyncs."""
+    from ..compiler import compile_bank
+    from ..filters import fir_bit_layers_batch, spread_lowpass_qbank
+    from ..serving import BankSessionServer
+
+    n, n_sessions = args.fir_bank, args.sessions
+    program = compile_bank(spread_lowpass_qbank(n, args.taps))
+    engine = None
+    if args.bank_shards:
+        from ..filters import ShardedFilterBankEngine
+
+        engine = ShardedFilterBankEngine(
+            program, channels=args.slots,
+            mesh=mesh if mesh is not None else _mesh_for(args.device),
+            n_bank_shards=args.bank_shards, chunk_hint=args.chunk,
+        )
+        print(f"[serve] sessions × shards: {engine.describe()}")
+    server = BankSessionServer(
+        program, n_slots=args.slots, chunk_hint=args.chunk, auto_step=False,
+        engine=engine, device=args.device,
+        journal=args.journal_path or None, journal_fsync=journal_fsync,
+    )
+    if args.journal_path:
+        print(f"[serve] journaling session state to {args.journal_path}")
+    rng = np.random.default_rng(0)
+    # each session selects a distinct contiguous row slice of the bank
+    per = max(1, n // n_sessions)
+    selections = [np.arange((i * per) % n, (i * per) % n + per)
+                  for i in range(n_sessions)]
+    sessions = [server.open_session(sel) for sel in selections]
+    streams = [rng.integers(-128, 128, args.chunk * args.chunks)
+               .astype(np.int32) for _ in range(n_sessions)]
+    outs = [[] for _ in range(n_sessions)]
+    step_s = []
+
+    def step():
+        t = time.perf_counter()
+        server.step()
+        step_s.append(time.perf_counter() - t)
+
+    def pull_all():
+        for i, s in enumerate(sessions):
+            out = s.pull()
+            if out.shape[1]:
+                outs[i].append(out)
+
+    paused = None
+    t0 = time.perf_counter()
+    for k in range(args.chunks):
+        if k == args.chunks // 3 and n_sessions > 1:
+            # mid-run zero-downtime selection hot-swap on session 1
+            outs[1].append(sessions[1].swap_filters(selections[1]))
+        if k == args.chunks // 2 and n_sessions > 2:
+            # park tenant 2 mid-stream (nothing is queued: the pause
+            # flushes nothing, and its handle's outbox stays empty)
+            paused = (2, sessions[2].pause())
+        for i, s in enumerate(sessions):
+            if paused and i == paused[0]:
+                continue
+            s.push(streams[i][k * args.chunk:(k + 1) * args.chunk])
+        step()
+        if paused and k == args.chunks // 2:
+            # ...and resume it at once: a bit-exact continuation
+            sessions[paused[0]] = server.resume_session(
+                paused[1], selections[paused[0]])
+        pull_all()
+    # feed the paused session the chunks it missed, then drain everyone
+    if paused:
+        i = paused[0]
+        sessions[i].push(streams[i][(args.chunks // 2) * args.chunk:])
+    step()
+    pull_all()
+    dt = time.perf_counter() - t0
+    stats = server.serve_stats()
+    agg = stats["samples_out"]
+    print(f"[serve] sessions: {n_sessions} tenants × {per} filters over a "
+          f"{n}-filter bank, {args.slots} shared lanes")
+    print(f"[serve] {agg} output samples in {dt:.2f}s "
+          f"({agg / dt:.0f} samples/s aggregate), "
+          f"occupancy {stats['occupancy']:.2f}, "
+          f"rounds {stats['rounds']}, "
+          f"p50 {stats['latency_p50_ms']:.1f}ms / "
+          f"p99 {stats['latency_p99_ms']:.1f}ms")
+    # check one whole session stream against the exact numpy oracle
+    check = 0
+    got = np.concatenate(outs[check], axis=1)
+    ref = fir_bit_layers_batch(streams[check][None, :],
+                               program.qbank[selections[check]])[:, 0]
+    if not np.array_equal(got, ref):
+        raise RuntimeError(f"session {check} stream mismatch vs the numpy "
+                           f"oracle")
+    print(f"[serve] session {check} bit-exact vs numpy oracle "
+          f"({got.shape[1]} samples × {got.shape[0]} filters)")
+    if stats.get("journal"):
+        j = stats["journal"]
+        print(f"[serve] journal: {j['appends']} appends, {j['syncs']} "
+              f"fsyncs, {j['rotations']} rotations, live segment "
+              f"{j['segment_bytes']} bytes at {j['path']}")
+    server.close()
+    return SessionsRun(program, server, selections, streams, outs, step_s, dt,
+                       stats)
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Serve a sharded BLMAC filter bank on the GPU.")
+        description="Serve a sharded BLMAC filter bank, or many tenant "
+                    "streams over one, on the GPU.")
     ap.add_argument("--fir-bank", type=int, default=0, metavar="B",
                     help="serve a B-filter BLMAC bank")
     ap.add_argument("--taps", type=int, default=63)
@@ -142,7 +294,18 @@ def parser() -> argparse.ArgumentParser:
                     help="'cuda' (default: every visible card) or 'cpu' "
                          "(the kernels' plain versions on one CPU slot)")
     ap.add_argument("--sessions", type=int, default=0, metavar="N",
-                    help="multi-tenant session serving (not ported yet)")
+                    help="serve N multi-tenant session streams over the "
+                         "bank instead of one sharded stream")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="shared batching lanes of the session server")
+    ap.add_argument("--journal-path", default="",
+                    help="write-ahead session journal directory (sessions "
+                         "mode): makes the server crash-safe via "
+                         "BankSessionServer.recover()")
+    ap.add_argument("--bank-shards", type=int, default=0, metavar="K",
+                    help="run the session lanes on a K-shard sharded "
+                         "filter-bank engine (sessions mode, 0 = the plain "
+                         "engine)")
     ap.add_argument("--arch", help="language-model serving (not ported yet)")
     return ap
 
@@ -150,14 +313,14 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.sessions:
-        ap.error("--sessions (BankSessionServer) is not ported yet: "
-                 "ROADMAP.md, queue 1, item 6")
     if args.arch:
         ap.error("--arch (language-model serving) is not ported yet: "
                  "ROADMAP.md, queue 1, item 8")
     if not args.fir_bank:
         ap.error("--fir-bank is required")
+    if args.sessions:
+        serve_sessions(args)
+        return
     serve_fir_bank(args)
 
 

@@ -1228,3 +1228,86 @@ def test_sharded_chaos_on_the_card(cuda):
                              n_bank_shards=4, mesh=_card_mesh(cuda, 4, 1))
     assert stats["lost_shards"] == stats["recoveries"] == 2
     assert stats["n_bank_shards"] == 2 and not stats["degraded"]
+
+
+@pytest.mark.parametrize("n_filters", [8, 64])
+def test_session_server_on_the_card(cuda, n_filters):
+    """Tenants batched into the lanes of one engine on the card (K2 for 8
+    filters, K1 for 64, as planned): every tenant equals the same server
+    on the CPU and the oracle, one kernel launch a round; a pause and
+    resume, a filter swap and a program swap carry the stream."""
+    from repro_torch.serving import BankSessionServer
+
+    q = spread_lowpass_qbank(n_filters, 31)
+    q12 = spread_lowpass_qbank(n_filters, 31, coeff_bits=12)
+    rng = np.random.default_rng(17)
+    sels = [np.arange(i, i + 2) % n_filters for i in range(0, 10, 2)]
+    xs = rng.integers(-2 ** 31, 2 ** 31, (len(sels), 6 * 300))
+    outs = []
+    for dev in (cuda, "cpu"):
+        srv = BankSessionServer(q, n_slots=2, auto_step=False, device=dev)
+        ts = [srv.open_session(sel) for sel in sels]
+        got = [[] for _ in sels]
+        reset_launch_counts()
+        for k in range(6):
+            if k == 2:
+                got[1].append(ts[1].swap_filters(sels[1]))
+                snap = ts[2].pause()
+                ts[2] = srv.resume_session(snap, sels[2])
+            if k == 4:
+                srv.swap_program(q12)
+            for t, x in zip(ts, xs):
+                t.push(x[k * 300:(k + 1) * 300])
+            srv.step()
+            for g, t in zip(got, ts):
+                g.append(t.pull())
+        if dev is cuda:
+            assert bank_apply.launches + specialized_call.launches \
+                == srv.rounds == 6 * 3
+        outs.append([np.concatenate(g, axis=1) for g in got])
+    cut = 4 * 300 - 30
+    for i, sel in enumerate(sels):
+        assert np.array_equal(outs[0][i], outs[1][i])
+        want = np.concatenate(
+            [fir_bit_layers_batch(xs[i, :4 * 300], q[sel])[:, 0],
+             fir_bit_layers_batch(xs[i, cut:], q12[sel])[:, 0]], axis=1)
+        assert np.array_equal(outs[0][i], want.astype(np.int32))
+
+
+def test_session_server_recovers_on_the_card(cuda, tmp_path):
+    """A journal written by a server on the card recovers there, and
+    sessions over a (4, 1) card mesh survive two kills with each fault
+    attributed to its round's tenants."""
+    import sys
+
+    from repro_torch.distributed import bank_mesh
+    from repro_torch.serving import BankSessionServer
+
+    q = spread_lowpass_qbank(64, 31)
+    srv = BankSessionServer(q, n_slots=4, auto_step=False, device=cuda,
+                            journal=tmp_path / "wal", snapshot_every=2)
+    x = np.random.default_rng(18).integers(-128, 128, (6, 5 * 200))
+    ts = [srv.open_session([i, 63 - i], session_id=f"t{i}") for i in range(6)]
+    for k in range(4):
+        for t, xi in zip(ts, x):
+            t.push(xi[k * 200:(k + 1) * 200])
+        srv.step()
+        for t in ts:
+            t.pull()
+    for t, xi in zip(ts, x):
+        t.push(xi[800:])  # journaled, never stepped
+    del srv
+    rec = BankSessionServer.recover(tmp_path / "wal", compile_bank(q),
+                                    n_slots=4, device=cuda)
+    assert rec.engine.device == cuda
+    for i in range(6):
+        want = fir_bit_layers_batch(x[i], q[[i, 63 - i]])[:, 0, 800 - 30:]
+        assert np.array_equal(rec.sessions[f"t{i}"].pull(), want)
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from torch_differential import port_session_chaos_check
+
+    st = port_session_chaos_check(q, [(1, 3), (0, 7)], n_bank_shards=4,
+                                  mesh=bank_mesh(4, 1, devices=[cuda] * 4),
+                                  journal_path=tmp_path / "chaos",
+                                  integrity_check=True, sample_bits=32)
+    assert st["lost_shards"] == 2 and sum(st["per_session"].values()) == 8

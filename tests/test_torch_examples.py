@@ -1,6 +1,7 @@
-"""The port's examples and its ``--fir-bank`` launcher run end to end on
-the CPU (``--device cpu``) and end with their bit-exact line; what they
-print of the paper's counts, and the launcher's plan, equal what the
+"""The port's examples and its ``--fir-bank`` and ``--sessions``
+launchers run end to end on the CPU (``--device cpu``) and end with
+their bit-exact line; what they print of the paper's counts, the
+launcher's plan and the session server's schedule equal what the
 reference prints on the same inputs.  Without ``--device`` and without
 a card they refuse instead of running on the CPU."""
 import os
@@ -68,8 +69,23 @@ def test_port_fir_filtering_on_the_cpu_matches_the_reference(n_div):
     assert lines[3].endswith(share)
 
 
+def test_port_session_recovery_on_the_cpu():
+    """A SIGKILLed serving child, recovered in the example's process from
+    its journal: every tenant bit-exact, no duplicates, no gaps."""
+    res = _run("port_session_recovery.py", "--device", "cpu",
+               "--sessions", "6")
+    assert res.returncode == 0, res.stderr
+    lines = _lines(res.stdout)
+    assert "victim exited with -9 (SIGKILL)" in lines[1]
+    assert lines[2].startswith("recovered 6 sessions on cpu")
+    assert lines[-1] == ("all 6 tenants bit-exact across the crash (1024 "
+                         "post-crash samples each) — no duplicates, no "
+                         "gaps  OK")
+
+
 @pytest.mark.parametrize("script", ["port_quickstart.py",
-                                    "port_fir_filtering.py"])
+                                    "port_fir_filtering.py",
+                                    "port_session_recovery.py"])
 def test_port_examples_default_to_the_gpu(script):
     res = _run(script, "--n-div", "4") if "fir" in script else _run(script)
     if res.returncode == 0:  # a card is present: it ran there
@@ -101,11 +117,54 @@ def test_fir_bank_launcher_on_the_cpu_matches_the_reference(tmp_path):
     assert "B=16 C=1 mesh=(1x1)" in describe[0]
 
 
+SESSION_ARGS = ("--fir-bank", "16", "--taps", "31", "--sessions", "8",
+                "--slots", "4", "--chunk", "512", "--chunks", "6")
+
+
+def test_sessions_launcher_on_the_cpu_matches_the_reference():
+    """``--sessions`` serves the reference's schedule (a filter swap, a
+    pause and resume) to the same rounds and occupancy, and ends with
+    tenant 0 bit-exact against the oracle."""
+    ref = _module("repro.launch.serve", *SESSION_ARGS, drop_xla_flags=True)
+    assert ref.returncode == 0, ref.stderr
+    port = _module("repro_torch.launch.serve", *SESSION_ARGS,
+                   "--device", "cpu")
+    assert port.returncode == 0, port.stderr
+    lines, rlines = _lines(port.stdout), _lines(ref.stdout)
+    assert lines[-1] == rlines[-1] == ("[serve] session 0 bit-exact vs numpy "
+                                       "oracle (3042 samples × 2 filters)")
+    assert lines[0] == rlines[0]  # tenants, filters, lanes
+    # output samples, occupancy and rounds (not the host's seconds)
+    assert lines[1].split(" in ")[0] == rlines[1].split(" in ")[0]
+    assert lines[1].split("), ")[1].split(", p50")[0] \
+        == rlines[1].split("), ")[1].split(", p50")[0]
+
+
+def test_sessions_launcher_with_shards_and_journal(tmp_path):
+    """``--bank-shards`` on the launcher's one-slot mesh clamps to one
+    shard (as the reference does on one device); ``--journal-path``
+    writes a journal `recover` can read."""
+    wal = tmp_path / "wal"
+    res = _module("repro_torch.launch.serve", *SESSION_ARGS,
+                  "--bank-shards", "2", "--journal-path", str(wal),
+                  "--device", "cpu")
+    assert res.returncode == 0, res.stderr
+    lines = _lines(res.stdout)
+    assert lines[0].startswith("[serve] sessions × shards: sharded-bank "
+                               "B=16 C=4 mesh=(1x1)")
+    assert lines[-2].startswith("[serve] session 0 bit-exact")
+    assert lines[-1].startswith("[serve] journal: ")
+    from repro_torch.serving import SessionJournal
+
+    header, records = SessionJournal.replay(wal)
+    assert header["n_filters"] == 16
+    assert sorted({r["sid"] for r in records if r["t"] == "open"}) \
+        == [f"s{i}" for i in range(8)]
+
+
 def test_fir_bank_launcher_refuses_what_is_not_ported():
-    for extra, item in ((("--sessions", "4"), "item 6"),
-                        (("--arch", "qwen2.5-3b"), "item 8")):
-        res = _module("repro_torch.launch.serve", *SERVE_ARGS, *extra,
-                      "--device", "cpu")
-        assert res.returncode == 2 and item in res.stderr
+    res = _module("repro_torch.launch.serve", *SERVE_ARGS, "--arch",
+                  "qwen2.5-3b", "--device", "cpu")
+    assert res.returncode == 2 and "item 8" in res.stderr
     res = _module("repro_torch.launch.serve", "--device", "cpu")
     assert res.returncode == 2 and "--fir-bank" in res.stderr

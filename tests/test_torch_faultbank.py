@@ -235,6 +235,30 @@ def test_corruption_is_detected_and_replayed_bit_exactly():
     assert st["detections"] == 1 and st["recoveries"] == 0
 
 
+@pytest.mark.parametrize("n_bank", [2, 4])
+@pytest.mark.parametrize("kill", [False, True])
+def test_integrity_probe_wraps_full_range_int32_samples(n_bank, kill):
+    """Samples wider than the §2.1 bound wrap the int32 outputs; the probe
+    compares modulo 2**32, as the kernels compute, so a wrapped output is
+    not corruption (the reference's probe raises `ShardLost` here)."""
+    q = spread_lowpass_qbank(6, 7)
+    x = np.random.default_rng(11).integers(-2 ** 31, 2 ** 31, 1024) \
+        .astype(np.int32)
+    inj = FaultInjector()
+    if kill:
+        inj.kill_shard(1, at_chunk=1)
+    eng = _engine(q, mesh=_mesh(n_bank), n_bank_shards=n_bank,
+                  fault_injector=inj, integrity_check=True)
+    y = _joined([eng.push(x[k * 256:(k + 1) * 256]) for k in range(4)])
+    want = fir_bit_layers_batch(x, q)
+    assert np.abs(want).max() >= 2 ** 31  # the stream does wrap
+    assert np.array_equal(y, want.astype(np.int32))
+    st = eng.fault_stats()
+    assert st["corruptions"] == 0
+    assert st["detections"] == st["lost_shards"] == st["recoveries"] \
+        == int(kill)
+
+
 def test_persistent_corruption_escalates_to_loss():
     inj = FaultInjector().corrupt_output(0, at_chunk=0, times=10)
     eng = _engine(_qbank(4), fault_injector=inj, integrity_check=True)

@@ -5,7 +5,8 @@ with auto and packed engines on its program (the dispatch planner, the
 cost model, the fold), `lower()` on every backend, both machines
 and `machine_cycles`, the pulse-code quantizer, matmul and
 `quantize_param_tree`, the sharded engine behind `AsyncBankServer` with
-a shard killed, and the ``--fir-bank`` launcher on the CPU and must end
+a shard killed, the session server journaled and recovered, and the
+``--fir-bank`` and ``--sessions`` launchers on the CPU and must end
 with
 neither `jax` nor any `repro` module loaded; no source file
 of the port (nor `chip_smoke.py`, nor the port's examples) may import
@@ -72,6 +73,18 @@ def test_import_and_engine_leave_jax_and_repro_unloaded():
         "from repro_torch.launch.serve import main\n"
         "main(['--fir-bank', '4', '--taps', '15', '--chunk', '256',\n"
         "      '--chunks', '2', '--device', 'cpu'])\n"
+        "main(['--fir-bank', '8', '--taps', '15', '--sessions', '4',\n"
+        "      '--slots', '2', '--chunk', '64', '--chunks', '3',\n"
+        "      '--device', 'cpu'])\n"
+        "import tempfile\n"
+        "from repro_torch.serving import BankSessionServer\n"
+        "wal = tempfile.mkdtemp() + '/wal'\n"
+        "ss = BankSessionServer(q, n_slots=2, device='cpu', journal=wal)\n"
+        "t = ss.open_session([1, 3])\n"
+        "t.push(x[0])\n"
+        "del ss\n"
+        "rs = BankSessionServer.recover(wal, compile_bank(q), device='cpu')\n"
+        "assert np.array_equal(rs.sessions['s0'].pull(), want[[1, 3], 0])\n"
         "spec = MachineSpec(taps=31)\n"
         "vm = FirBlmacVMachine(spec)\n"
         "fits = vm.program_bank(q)\n"
@@ -156,13 +169,14 @@ def test_pulse_entry_points_default_to_the_gpu(monkeypatch, entry):
 
 
 def test_sharded_entry_points_default_to_the_gpu(monkeypatch):
-    """`bank_mesh()`, the sharded engine, `lower(..., "sharded")` and the
-    launcher take the card unless asked for the CPU, and raise without
-    one."""
+    """`bank_mesh()`, the sharded engine, `lower(..., "sharded")`, the
+    session server and the launcher take the card unless asked for the
+    CPU, and raise without one."""
     from repro_torch.compiler import compile_bank, lower
     from repro_torch.distributed import bank_mesh
     from repro_torch.filters import ShardedFilterBankEngine
     from repro_torch.launch.serve import main
+    from repro_torch.serving import BankSessionServer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     q = np.zeros((2, 15), np.int64)
@@ -170,8 +184,12 @@ def test_sharded_entry_points_default_to_the_gpu(monkeypatch):
     for call in (lambda: bank_mesh(), lambda: ShardedFilterBankEngine(q),
                  lambda: lower(compile_bank(q), "sharded"),
                  lambda: bank_mesh(1, 1, devices=["cuda"]),
+                 lambda: BankSessionServer(q, n_slots=2),
                  lambda: main(["--fir-bank", "2", "--taps", "15",
-                               "--chunk", "64", "--chunks", "1"])):
+                               "--chunk", "64", "--chunks", "1"]),
+                 lambda: main(["--fir-bank", "2", "--taps", "15",
+                               "--sessions", "2", "--chunk", "64",
+                               "--chunks", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert bank_mesh(1, 1, devices=["cpu"]).devices[0][0].type == "cpu"

@@ -34,6 +34,10 @@ only, so the port's part runs without it.
 `port_chaos_check` is the counterpart of the reference's `chaos_check`:
 shards killed mid-stream behind `AsyncBankServer`, the recovered stream
 bit-exact against the oracle, the fault counters equal to the kills.
+`port_session_chaos_check` is the counterpart of `session_chaos_check`:
+tenants batched into the lanes of a `BankSessionServer` over the sharded
+engine, shards killed mid-`step()`, every tenant bit-exact and each
+fault attributed to the tenants of its round only.
 
 ``device`` is where the kernel legs run; None is the GPU and raises
 without one, so a caller on a host without a card passes
@@ -54,7 +58,8 @@ from repro_torch.core import (FirBlmacMachine, MachineSpec,
 from repro_torch.filters import FilterBankEngine
 
 __all__ = ["PortReport", "plan_fields", "port_chaos_check",
-           "port_cse_check", "port_five_way_check", "scalar_machine_legs"]
+           "port_cse_check", "port_five_way_check",
+           "port_session_chaos_check", "scalar_machine_legs"]
 
 
 @dataclass
@@ -514,4 +519,102 @@ def port_chaos_check(
     assert server.failed_chunks == 0 and server.chunks_out == n_chunks, (
         "chaos: the server dropped chunks — recovery must be lossless"
     )
+    return stats
+
+
+def port_session_chaos_check(
+    qbank: np.ndarray,
+    kills,
+    *,
+    n_sessions: int = 8,
+    n_slots: int = 4,
+    rows_per_session: int = 2,
+    n_chunks: int = 6,
+    chunk: int = 256,
+    n_bank_shards: int | None = None,
+    mesh=None,
+    seed: int = 0,
+    journal_path=None,
+    device=None,
+    integrity_check: bool = False,
+    sample_bits: int | None = None,
+) -> dict:
+    """Sessions × shards chaos leg, the reference's `session_chaos_check`
+    on the port: ``n_sessions`` tenant streams batched into the
+    ``n_slots`` lanes of a `BankSessionServer` whose dispatches run
+    through a `ShardedFilterBankEngine`, with shards killed mid-`step()`.
+
+    Every tenant's joined stream must equal the oracle for its own
+    (stream, rows) to the last bit (modulo 2**32: ``sample_bits`` wider
+    than the program's bound wraps the int32 outputs, which the
+    integrity probe must not read as corruption), and each detected fault
+    is attributed to the tenants of the failed round only: ``kills`` ×
+    ``n_slots`` in all when every round is full.  ``mesh`` is a
+    `BankMesh` (None: one slot of ``device``, or every card);
+    ``journal_path`` journals the run.  Returns the server's
+    ``fault_stats()``."""
+    from repro_torch.distributed import FaultInjector, bank_mesh
+    from repro_torch.filters import ShardedFilterBankEngine
+    from repro_torch.serving import BankSessionServer
+
+    program = compile_bank(np.atleast_2d(np.asarray(qbank, np.int64)))
+    rng = np.random.default_rng(seed)
+    lim = 1 << ((sample_bits or program.spec.sample_bits) - 1)
+    n = program.n_filters
+    sels = [
+        np.sort(rng.choice(n, size=min(rows_per_session, n), replace=False))
+        for _ in range(n_sessions)
+    ]
+    streams = [
+        rng.integers(-lim, lim, n_chunks * chunk).astype(np.int32)
+        for _ in range(n_sessions)
+    ]
+
+    def oracle(x, rows):  # the numpy Eq. 2 loop over the tenant's rows
+        return lower(program.select(rows), "oracle")(x)[:, 0, :]
+
+    injector = FaultInjector()
+    kills = list(kills)
+    for shard, at_chunk in kills:
+        injector.kill_shard(shard, at_chunk)
+    if mesh is None and device is not None:
+        mesh = bank_mesh(1, 1, devices=[device])
+    eng = ShardedFilterBankEngine(
+        program, channels=n_slots, mesh=mesh, n_bank_shards=n_bank_shards,
+        fault_injector=injector, integrity_check=integrity_check,
+    )
+    server = BankSessionServer(
+        program, n_slots=n_slots, auto_step=False, engine=eng,
+        step_budget_us=1e12, journal=journal_path,
+    )
+    sessions = [server.open_session(sel) for sel in sels]
+    outs = [[] for _ in range(n_sessions)]
+    for k in range(n_chunks):
+        for i, s in enumerate(sessions):
+            s.push(streams[i][k * chunk: (k + 1) * chunk])
+        server.step()
+        for i, s in enumerate(sessions):
+            out = s.pull()
+            if out.shape[1]:
+                outs[i].append(out)
+    for i in range(n_sessions):
+        want = oracle(streams[i], sels[i]).astype(np.int32)
+        got = np.concatenate(outs[i], axis=1)
+        assert np.array_equal(got, want), (
+            f"session chaos: tenant {i} diverged from its oracle after "
+            f"kills {kills} (final mesh {eng.n_bank_shards}x{eng.n_data})"
+        )
+    stats = server.fault_stats()
+    assert stats["injected"]["kills"] == len(kills), stats
+    assert stats["lost_shards"] == len(kills), stats
+    assert stats["recoveries"] == len(kills), stats
+    assert stats["corruptions"] == 0, stats
+    # per-tenant isolation: each kill marked one round's tenants, and
+    # only them — total attributed faults = kills × round size
+    marked = sum(stats["per_session"].values())
+    assert marked <= len(kills) * n_slots, stats
+    if n_sessions % n_slots == 0:  # every round full
+        assert marked == len(kills) * n_slots, stats
+    assert stats["session_faults"] == len(kills), stats
+    server.close()
     return stats
