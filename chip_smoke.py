@@ -150,6 +150,34 @@ against the push's host clock.  After those timings:
                   to the kills and 8 tenants marked a kill, and full-range
                   int32 samples with the integrity probe on, without and
                   with a kill, bit-exact with no corruption read.
+  * lm          — the language-model serving stack (plain PyTorch; the
+                  reference's LM path reaches no Pallas kernel, so none
+                  of the four kernels runs: their counts, zeroed before
+                  it, must stay 0), in a fresh process (``--lm-leg``):
+                  qwen2.5-3b at its published widths (36 layers, 3.086e9
+                  float32 parameters from seed 0) through the launcher's
+                  `serve_lm` at ``--no-reduced --batch 4 --prompt-len 32
+                  --new-tokens 16 --cache-len 256``, bf16 compute: the
+                  tokens' shape and dtype, every emitted token's logits
+                  against one teacher-forced forward over prompt and
+                  prefix (within 5% of the logits' scale), the same in
+                  float32 with TF32 off (1e-4), bf16 against float32
+                  (prefill logits, greedy agreement), ``max_new_tokens=0``;
+                  prefill and decode steps by CUDA events, a warm
+                  `generate` by host clock, the decode step's bytes bound
+                  (the float32 weights read once; with the cast at use,
+                  twice) and a traced decode step's idle share; then
+                  ``--quant-planes 4`` (the quantized leaves counted from
+                  the stacked shapes by the reference's rule, its error,
+                  seconds and greedy agreement); mamba2-370m and
+                  recurrentgemma-2b at full width in bf16 and float32
+                  against their teacher-forced forwards (the SSD and
+                  RG-LRU decode states; bf16 within 25%, float32 within
+                  the reference's SSD tolerance 2e-3); and every
+                  registered arch reduced, float32, prefill and 4 decode
+                  steps on the card against the port on the CPU with the
+                  same parameters (within 1e-4 of the scale, tokens
+                  equal).
 
 Then each kernel is held against its plain PyTorch version on the card at
 the main path's shapes (tolerance 0 for the FIR kernels, integer
@@ -164,8 +192,9 @@ library call: torch has no integer matmul on CUDA); the
 whole sweep call, and K1 into a contiguous result, are timed too.
 The cost model's calibration file goes to a temporary directory that is
 removed at exit.  Prints one JSON object per phase, the script's wall
-seconds (the ``total`` phase), the ``{"kernels": [...]}`` line, the card's name and power limit as
-``nvidia-smi`` reports them, and as its last line
+seconds (the ``total`` phase), the ``{"kernels": [...]}`` line (each
+kernel's launches by leg, ``lm`` among them), the card's name and power
+limit as ``nvidia-smi`` reports them, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before that line; without a CUDA device it exits 2 at once.
 """
@@ -469,7 +498,9 @@ def profile_step(fn, launches: int, launch_count, steps: int = 5,
     reported beside them.  Fails the run when the wrapper counts another
     number of launches, the trace shows no kernel or more kernels than
     were launched in the traced steps, or the kernels were busy longer
-    than the spans."""
+    than the spans.  ``launch_count=None``: a step of library kernels no
+    wrapper counts (the ``lm`` phase); only the trace's kernels are
+    reported."""
     import statistics
 
     import torch
@@ -484,7 +515,7 @@ def profile_step(fn, launches: int, launch_count, steps: int = 5,
         fn()
         torch.cuda.synchronize()
     wall_unprofiled_us = (time.perf_counter() - t0) * 1e6 / reps
-    before = launch_count()
+    before = launch_count() if launch_count else 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=steps,
                                    repeat=1)) as prof:
@@ -493,10 +524,11 @@ def profile_step(fn, launches: int, launch_count, steps: int = 5,
                 fn()
                 torch.cuda.synchronize()
             prof.step()
-    made = launch_count() - before
-    check(made == (1 + steps) * launches,
-          f"{made} launches in {1 + steps} steps, want {launches} each")
-    traced = steps * launches
+    if launch_count:
+        made = launch_count() - before
+        check(made == (1 + steps) * launches,
+              f"{made} launches in {1 + steps} steps, want {launches} each")
+    traced = steps * launches if launch_count else float("inf")
     spans, kernels = [], []
     for e in prof.events():
         if e.name.startswith(STEP_SPAN):
@@ -519,7 +551,7 @@ def profile_step(fn, launches: int, launch_count, steps: int = 5,
     span = sum(spans)
     check(busy <= span, f"kernels busy {busy} us in spans of {span} us")
     return {"wall_us_unprofiled": wall_unprofiled_us,
-            "traced_steps": steps, "launches_traced": traced,
+            "traced_steps": steps, "launches_traced": traced if launch_count else None,
             "kernels_seen": len(kernels), "span_us_by_step": spans,
             "span_us_median": statistics.median(spans),
             "span_us_sum": span, "device_busy_us_sum": busy,
@@ -2003,6 +2035,339 @@ def sessions_leg(dev, smi, serve_prog) -> dict:
     return launches
 
 
+# -- the lm phase: the language-model serving stack -------------------------
+
+# `python -m repro_torch.launch.serve --arch qwen2.5-3b` at the published
+# widths (src/repro/configs/qwen2_5_3b.py), the reference's other defaults
+LM_ARGV = ["--arch", "qwen2.5-3b", "--no-reduced", "--batch", "4",
+           "--prompt-len", "32", "--new-tokens", "16", "--cache-len", "256"]
+LM_FULL_ARCHS = ("mamba2-370m", "recurrentgemma-2b")  # SSD, RG-LRU
+LM_FULL_NEW_TOKENS = 8
+LM_REDUCED_DECODE_STEPS = 4
+# decode logits against the teacher-forced forward, max |difference| over
+# max |logit|.  bf16 compute: two evaluation orders of one bf16 model;
+# the recurrent archs carry their decode state in bf16 step by step where
+# the forward sums a chunk at once, so theirs drift further.  float32
+# with TF32 off: the attention bound of the reduced archs' card-against-
+# CPU leg, and for the recurrent archs the reference's SSD tolerance
+# (tests/test_ssd_rglru.py:32, chunked prefill against stepwise decode)
+LM_BF16_REL, LM_BF16_REC_REL = 0.05, 0.25
+LM_F32_REL, LM_F32_REC_REL = 1e-4, 2e-3
+# `quantize_param_tree`'s rule (src/repro/core/serve_quant.py:55-57, 27-28)
+QUANT_MIN_SIZE, QUANT_GROUP = 4096, 32
+
+
+def quantized_leaf_count(decls) -> int:
+    """The leaves the reference's `quantize_param_tree` quantizes, from
+    the stacked shapes alone: float, ≥ 2 dims, ≥ 4,096 elements, no
+    "norm" in the key path, and a contraction axis (−2) that is a
+    multiple of the 32-weight group."""
+    import math
+
+    from repro_torch.nn import flatten_tree
+
+    return sum(1 for name, d in flatten_tree(decls).items()
+               if len(d.shape) >= 2 and math.prod(d.shape) >= QUANT_MIN_SIZE
+               and "norm" not in name.lower() and d.dtype.is_floating_point
+               and d.shape[-2] % QUANT_GROUP == 0)
+
+
+def logit_gap(got, want) -> dict:
+    """Max |got − want|, over max |want|, and how often their argmax
+    agrees, on (..., V) logits."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    return {"max_abs": diff, "scale": scale, "rel": diff / scale,
+            "argmax_agree": agree}
+
+
+def teacher_check(eng, prompts, tokens, steps, bound: float, what: str):
+    """Each emitted token's logits (``steps``: the prefill's last row,
+    then every decode step's) against one forward over the prompt and the
+    generated prefix, in the engine's compute dtype."""
+    import numpy as np
+    import torch
+
+    full = np.concatenate([prompts, tokens[:, :-1]], axis=1)
+    logits, _ = eng.prefill(full)
+    s = prompts.shape[1]
+    gap = logit_gap(torch.stack(steps, 1), logits[:, s - 1:])
+    check(gap["rel"] <= bound, f"{what}: decode logits {gap['rel']:.3g} of "
+                               f"the scale from the teacher-forced forward, "
+                               f"bound {bound}")
+    return {**gap, "bound_rel": bound, "steps": len(steps)}
+
+
+def lm_times(eng, prompts, decode_steps: int, new_tokens: int) -> dict:
+    """Prefill and decode steps by CUDA events (each from an idle card,
+    ended by a synchronise), and a warm `generate` by host clock."""
+    import statistics
+
+    import torch
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return res, a.elapsed_time(b)
+
+    pre = []
+    for _ in range(3):
+        (logits, state), ms = timed(lambda: eng.prefill(prompts))
+        pre.append(ms)
+    tok = logits[:, -1].argmax(-1)
+    dec = []
+    for _ in range(decode_steps):
+        (logits, state), ms = timed(lambda: eng.decode(tok, state))
+        dec.append(ms)
+        tok = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, new_tokens).cpu()
+    gen_s = time.perf_counter() - t0
+    return {"prefill_ms": statistics.median(pre), "prefill_ms_all": pre,
+            "decode_ms_median": statistics.median(dec),
+            "decode_ms_all": dec, "generate_s_warm": gen_s,
+            "tokens_per_s_warm": prompts.shape[0] * new_tokens / gen_s}
+
+
+def param_bytes(tree) -> int:
+    from repro_torch.nn import flatten_tree
+
+    return sum(t.numel() * t.element_size()
+               for t in flatten_tree(tree).values())
+
+
+def free_cuda() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_leg(dev, smi) -> dict:
+    """The language-model serving stack on the card (see the module
+    notes); returns the phase's numbers and the four kernels' launches
+    during it (zeroed just before)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import all_configs, get_config
+    from repro_torch.launch.serve import parser, serve_lm
+    from repro_torch.nn import count_params, init_params, model_decls
+    from repro_torch.serving import ServeEngine
+
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+    bmm = importlib.import_module("repro_torch.kernels.blmac_matmul")
+    # float32 means float32: no TF32 in any float32 leg below
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tf32 = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    bf.reset_launch_counts()
+    bmm.pulse_matmul.launches = 0
+    t_leg = time.perf_counter()
+
+    # -- 1. qwen2.5-3b at full width through the launcher ------------------
+    t0 = time.perf_counter()
+    run = serve_lm(parser().parse_args(LM_ARGV))
+    launch_s = time.perf_counter() - t0
+    cfg, eng, prompts = run.cfg, run.engine, run.prompts
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size) ==
+          (36, 2048, 16, 2, 128, 11008, 151936) and cfg.tie_embeddings
+          and cfg.attn_bias, f"not qwen2.5-3b's published widths: {cfg}")
+    n_params = count_params(model_decls(cfg))
+    nbytes = param_bytes(eng.params)
+    check(nbytes == 4 * n_params, f"{nbytes} parameter bytes for "
+                                  f"{n_params} float32 parameters")
+    check(run.tokens.shape == (4, 16) and run.tokens.dtype == np.int32
+          and run.tokens.min() >= 0 and run.tokens.max() < cfg.vocab_size,
+          f"tokens {run.tokens.shape} {run.tokens.dtype}")
+    toks, steps = eng.generate(prompts, 16, with_logits=True)
+    toks = toks.cpu().numpy()
+    tf_bf16 = teacher_check(eng, prompts, toks, steps, LM_BF16_REL,
+                            "qwen2.5-3b bf16")
+    zero = eng.generate(prompts, 0)
+    check(tuple(zero.shape) == (4, 0) and zero.dtype == torch.int32,
+          f"max_new_tokens=0 gave {tuple(zero.shape)} {zero.dtype}")
+    times = lm_times(eng, prompts, 15, 16)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    eng32 = ServeEngine(cfg32, eng.params, cache_len=256, device=dev)
+    toks32, steps32 = eng32.generate(prompts, 16, with_logits=True)
+    toks32 = toks32.cpu().numpy()
+    tf_f32 = teacher_check(eng32, prompts, toks32, steps32, LM_F32_REL,
+                           "qwen2.5-3b float32")
+    pre16, _ = eng.prefill(prompts)
+    pre32, _ = eng32.prefill(prompts)
+    bf16_vs_f32 = {"prefill": logit_gap(pre16, pre32),
+                   "greedy_token_agreement": float((toks == toks32).mean())}
+    times32 = lm_times(eng32, prompts, 15, 16)
+    del eng32, pre16, pre32, steps, steps32
+    state = {}
+
+    def decode_step_fn():
+        if not state or state["n"] >= 100:
+            logits, state["s"] = eng.prefill(prompts)
+            state["tok"], state["n"] = logits[:, -1].argmax(-1), 0
+        logits, state["s"] = eng.decode(state["tok"], state["s"])
+        state["tok"] = logits[:, -1].argmax(-1)
+        state["n"] += 1
+
+    decode_step_fn()
+    idle = profile_step(decode_step_fn, 0, None, steps=5, reps=10)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # a float32 weight cast at use: read 4 bytes, write 2, read those 2
+    cast_bound_ms = 2 * bound_ms
+    qwen = {
+        "argv": LM_ARGV, "params": n_params, "param_bytes": nbytes,
+        "launcher_s": launch_s, "launcher_generate_s": run.seconds,
+        "launcher_tokens_per_s": 4 * 16 / run.seconds,
+        "tokens_shape": list(run.tokens.shape),
+        "tokens_dtype": str(run.tokens.dtype),
+        "repeat_tokens_equal": bool(np.array_equal(toks, run.tokens)),
+        "decode_vs_teacher_bf16": tf_bf16,
+        "decode_vs_teacher_f32": tf_f32, "bf16_vs_f32": bf16_vs_f32,
+        "zero_new_tokens": [list(zero.shape), str(zero.dtype)],
+        "bf16": times, "f32": times32,
+        "decode_bound_ms_bytes": bound_ms,
+        "decode_bound_ms_with_cast": cast_bound_ms,
+        # the traced steps' float32 → bf16 weight casts, device ms a step
+        "decode_cast_ms_per_step": sum(
+            r["device_us"] for n, r in idle["kernels"].items()
+            if "bfloat16_copy" in n) / 1e3 / idle["traced_steps"],
+        "decode_share_of_bound": bound_ms / times["decode_ms_median"],
+        "decode_idle": {k: v for k, v in idle.items() if k != "kernels"},
+        "decode_kernels_top": sorted(
+            ({"name": n[:80], **r} for n, r in idle["kernels"].items()),
+            key=lambda r: -r["device_us"])[:8],
+        "tf32": tf32, "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi}
+    emit({"phase": "lm_qwen", **qwen})
+    tokens1 = run.tokens
+    del run, eng, state
+    free_cuda()
+
+    # -- 2. the same model, CSD-4 fake-quantized ---------------------------
+    runq = serve_lm(parser().parse_args(LM_ARGV + ["--quant-planes", "4"]))
+    want_q = quantized_leaf_count(model_decls(runq.cfg))
+    check(runq.quant_stats["n_quantized"] == want_q,
+          f"{runq.quant_stats['n_quantized']} leaves quantized, the "
+          f"reference's rule gives {want_q}")
+    quant = {"n_quantized": want_q, "stats": runq.quant_stats,
+             "quantize_s": runq.quant_seconds,
+             "generate_s": runq.seconds,
+             "greedy_token_agreement_vs_leg1": float(
+                 (runq.tokens == tokens1).mean()),
+             "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit({"phase": "lm_quant", **quant})
+    del runq
+    free_cuda()
+
+    # -- 3. the SSD and RG-LRU paths at full width -------------------------
+    full = {}
+    for arch in LM_FULL_ARCHS:
+        c = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(model_decls(c), gen, device=dev)
+        pr = np.random.default_rng(0).integers(
+            0, c.vocab_size, (4, 32)).astype(np.int32)
+        row = {"params": count_params(model_decls(c))}
+        for dt, bound in (("bfloat16", LM_BF16_REC_REL),
+                          ("float32", LM_F32_REC_REL)):
+            e = ServeEngine(dataclasses.replace(c, compute_dtype=dt), params,
+                            cache_len=256, device=dev)
+            tk, st = e.generate(pr, LM_FULL_NEW_TOKENS, with_logits=True)
+            tk = tk.cpu().numpy()
+            row[dt] = {"decode_vs_teacher": teacher_check(
+                e, pr, tk, st, bound, f"{arch} {dt}"),
+                **lm_times(e, pr, 7, LM_FULL_NEW_TOKENS)}
+            row[dt]["prefill_logits"], _ = e.prefill(pr)
+            row[dt]["tokens"] = tk
+            del e, st
+        pre = row["bfloat16"].pop("prefill_logits")
+        pre32 = row["float32"].pop("prefill_logits")
+        row["bf16_vs_f32"] = {
+            "prefill": logit_gap(pre, pre32),
+            "greedy_token_agreement": float(
+                (row["bfloat16"].pop("tokens")
+                 == row["float32"].pop("tokens")).mean())}
+        full[arch] = {**row, "device": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi}
+        del params, pre, pre32
+        free_cuda()
+    emit({"phase": "lm_full_recurrent", "tf32": tf32, **full})
+
+    # -- 4. every arch reduced: the card against the CPU, float32 ----------
+    reduced = {}
+    for arch in sorted(all_configs()):
+        c = get_config(arch).reduced(compute_dtype="float32")
+        if c.input_kind == "embeds":
+            c = dataclasses.replace(c, input_kind="tokens")
+        params = init_params(model_decls(c),
+                             torch.Generator().manual_seed(0), device="cpu")
+        pr = np.random.default_rng(1).integers(
+            0, c.vocab_size, (2, 16)).astype(np.int32)
+        n = 1 + LM_REDUCED_DECODE_STEPS
+        tc, lc = ServeEngine(c, params, 64, device="cpu").generate(
+            pr, n, with_logits=True)
+        tg, lg = ServeEngine(c, params, 64, device=dev).generate(
+            pr, n, with_logits=True)
+        gap = logit_gap(torch.stack(lg, 1).cpu(), torch.stack(lc, 1))
+        same = bool(torch.equal(tg.cpu(), tc))
+        check(gap["rel"] <= LM_F32_REL and same,
+              f"{arch} reduced: card vs CPU {gap['rel']:.3g} of the scale "
+              f"(bound {LM_F32_REL}), tokens equal {same}")
+        reduced[arch] = {"rel": gap["rel"], "max_abs": gap["max_abs"],
+                         "tokens_equal": same}
+    emit({"phase": "lm_reduced_card_vs_cpu", "bound_rel": LM_F32_REL,
+          "decode_steps": LM_REDUCED_DECODE_STEPS, "archs": reduced,
+          "tf32": tf32})
+
+    launches = {"bank_apply": bf.bank_apply.launches,
+                "specialized_call": bf.specialized_call.launches,
+                "combine_fold": bf.combine_fold.launches,
+                "pulse_matmul": bmm.pulse_matmul.launches}
+    check(not any(launches.values()),
+          f"the lm path launched the FIR or pulse kernels: {launches}")
+    return {"launches": launches, "wall_s": time.perf_counter() - t_leg,
+            "qwen_decode_ms": times["decode_ms_median"],
+            "qwen_prefill_ms": times["prefill_ms"]}
+
+
+LM_RESULT = "LM_RESULT "
+LM_LAUNCH_KEYS = {"blmac_bank_kernel": "bank_apply",
+                  "blmac_specialized_kernel": "specialized_call",
+                  "blmac_combine_kernel": "combine_fold",
+                  K3_KERNEL: "pulse_matmul"}
+
+
+def lm_child() -> dict:
+    """The ``lm`` phase in a fresh process on the card (``--lm-leg``): its
+    timings free of this process's profiler phases, its 12 GB of
+    parameters freed at its exit.  Its phase lines are printed here."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--lm-leg"], capture_output=True, text=True,
+                         timeout=900, cwd=HERE)
+    out = res.stdout.splitlines()
+    for ln in out:
+        if not ln.startswith(LM_RESULT):
+            print(ln, flush=True)
+    check(res.returncode == 0, f"the lm phase exited {res.returncode}: "
+                               f"{res.stderr[-3000:]}")
+    got = [ln for ln in out if ln.startswith(LM_RESULT)]
+    check(len(got) == 1, "the lm phase printed no result")
+    return json.loads(got[0][len(LM_RESULT):])
+
+
 def main() -> int:
     import torch
 
@@ -2407,7 +2772,18 @@ def main() -> int:
     fold_row["launches"] += (machine_launches["combine_fold"]
                              + sharded_launches["combine_fold"])
     kernels.append(fold_row)
-    kernels.append(pulse_matmul_leg(dev, smi))
+    k3_row = pulse_matmul_leg(dev, smi)
+    k3_row["launches_by_leg"] = {"pulse_matmul": k3_row["launches"]}
+    kernels.append(k3_row)
+
+    # -- the lm phase, in a fresh process: none of the four kernels runs on
+    # the language-model path (the reference's reaches no Pallas kernel) --
+    free_cuda()
+    lm = lm_child()
+    for row in kernels:
+        n = lm["launches"][LM_LAUNCH_KEYS[row["name"]]]
+        row.setdefault("launches_by_leg", {})["lm"] = n
+        row["launches"] += n
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
           "device": kind, "nvidia_smi": smi})
@@ -2418,8 +2794,24 @@ def main() -> int:
     return 0
 
 
+def lm_main() -> int:
+    """``--lm-leg``: the ``lm`` phase alone, its result on a line of its
+    own (read by `lm_child`)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    res = lm_leg(dev, nvidia_smi_line())
+    print(LM_RESULT + json.dumps(res), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     # the cost model's fitted constants go to a directory of this run only
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cache") as cache_dir:
         os.environ["REPRO_TORCH_CACHE_DIR"] = cache_dir
-        sys.exit(main())
+        sys.exit(lm_main() if sys.argv[1:] == ["--lm-leg"] else main())

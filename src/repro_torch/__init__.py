@@ -16,6 +16,10 @@ Layout (mirrors `repro`):
   filters/   filter design, sweep bank, oracles, FilterBankEngine
   kernels/   blmac_fir / blmac_fir_bank, the dispatch planner, the CUDA
              kernels and their plain PyTorch versions, the nvcc build
+  configs/   the ten language-model architectures (the reference's
+             registry)
+  nn/        the language models in plain PyTorch (the reference's LM
+             path runs no Pallas kernel); serving.ServeEngine serves them
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

@@ -1,5 +1,16 @@
-"""Serving launcher of the port: a sharded BLMAC filter-bank stream, or
-many tenant streams over one bank.
+"""Serving launcher of the port: a language model, a sharded BLMAC
+filter-bank stream, or many tenant streams over one bank.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b
+
+The counterpart of the reference's ``--arch`` path: the config (reduced
+unless ``--no-reduced``; an ``embeds`` backbone switched to tokens),
+parameters drawn from seed 0, optionally CSD-P fake-quantized
+(``--quant-planes``), and a `ServeEngine` generating ``--new-tokens``
+greedy tokens for ``--batch`` random prompts of ``--prompt-len``, with
+the reference's defaults and printout.  ``--no-reduced`` reaches the
+published widths (the reference's ``--reduced`` cannot be turned off).
+``--fir-bank`` wins over ``--arch``, as in the reference.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --fir-bank 256 \\
         --taps 63 --channels 1 --chunk 4096 --chunks 32
@@ -30,9 +41,6 @@ writes the server's state ahead to a journal that
 ``examples/port_session_recovery.py``); ``--bank-shards K`` runs the
 lanes on a K-shard `ShardedFilterBankEngine` over the launcher's mesh
 (one slot a card: on one card the shard count is clamped to 1).
-
-``--arch`` (language models) is not ported yet and exits with the
-ROADMAP item that takes it.
 """
 from __future__ import annotations
 
@@ -43,8 +51,67 @@ import time
 
 import numpy as np
 
-__all__ = ["FirBankRun", "SessionsRun", "main", "serve_fir_bank",
-           "serve_sessions"]
+__all__ = ["FirBankRun", "LmRun", "SessionsRun", "main", "serve_fir_bank",
+           "serve_lm", "serve_sessions"]
+
+
+@dataclasses.dataclass
+class LmRun:
+    """What one `serve_lm` run made and served: the config, the engine
+    (its parameters on the device), the prompts (B, S), the generated
+    tokens (B, n) on the host, the host seconds of ``generate`` (a copy
+    back included), and the quantizer's stats and seconds when
+    ``--quant-planes`` was given."""
+
+    cfg: object
+    engine: object
+    prompts: np.ndarray
+    tokens: np.ndarray
+    seconds: float
+    quant_stats: dict | None = None
+    quant_seconds: float = 0.0
+
+
+def serve_lm(args) -> LmRun:
+    """The reference's ``--arch`` serving path on ``args.device``."""
+    import torch
+
+    from ..configs import get_config
+    from ..core.serve_quant import quantize_param_tree
+    from ..kernels.runtime import resolve_device
+    from ..nn import flatten_tree, init_params, model_decls
+    from ..serving import ServeEngine
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if cfg.input_kind == "embeds":
+        cfg = dataclasses.replace(cfg, input_kind="tokens")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(model_decls(cfg), gen, device=dev)
+    stats, quant_s = None, 0.0
+    if args.quant_planes:
+        t0 = time.perf_counter()
+        params, stats = quantize_param_tree(flatten_tree(params),
+                                            args.quant_planes, device=dev)
+        quant_s = time.perf_counter() - t0
+        print(f"[serve] CSD-{args.quant_planes} quantized "
+              f"{stats['n_quantized']} matrices, mean rel err "
+              f"{stats['mean_rel_err']:.4f}, stored bits/weight "
+              f"{stats['bits_per_weight']:.1f}")
+    eng = ServeEngine(cfg, params, cache_len=args.cache_len, device=dev)
+    del params
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (args.batch, args.prompt_len)).astype(np.int32)
+    t0 = time.time()
+    out = eng.generate(prompts, max_new_tokens=args.new_tokens).cpu().numpy()
+    dt = time.time() - t0
+    print(f"[serve] {args.arch}: generated {out.shape} in {dt:.2f}s "
+          f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+    print(out[:2])
+    return LmRun(cfg, eng, prompts, out, dt, stats, quant_s)
 
 
 @dataclasses.dataclass
@@ -276,8 +343,19 @@ def serve_sessions(args, mesh=None, journal_fsync: bool = True) -> SessionsRun:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Serve a sharded BLMAC filter bank, or many tenant "
-                    "streams over one, on the GPU.")
+        description="Serve a language model, a sharded BLMAC filter bank, "
+                    "or many tenant streams over one, on the GPU.")
+    ap.add_argument("--arch", help="LM architecture (omit with --fir-bank)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--quant-planes", type=int, default=0,
+                    help="CSD-P pulse-code weight quantization (0 = off)")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="the config's reduced widths (default); "
+                         "--no-reduced serves the published widths")
     ap.add_argument("--fir-bank", type=int, default=0, metavar="B",
                     help="serve a B-filter BLMAC bank")
     ap.add_argument("--taps", type=int, default=63)
@@ -306,22 +384,21 @@ def parser() -> argparse.ArgumentParser:
                     help="run the session lanes on a K-shard sharded "
                          "filter-bank engine (sessions mode, 0 = the plain "
                          "engine)")
-    ap.add_argument("--arch", help="language-model serving (not ported yet)")
     return ap
 
 
 def main(argv=None) -> None:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.arch:
-        ap.error("--arch (language-model serving) is not ported yet: "
-                 "ROADMAP.md, queue 1, item 8")
-    if not args.fir_bank:
-        ap.error("--fir-bank is required")
-    if args.sessions:
+    if args.fir_bank and args.sessions:
         serve_sessions(args)
         return
-    serve_fir_bank(args)
+    if args.fir_bank:
+        serve_fir_bank(args)
+        return
+    if not args.arch:
+        ap.error("--arch is required unless --fir-bank is given")
+    serve_lm(args)
 
 
 if __name__ == "__main__":

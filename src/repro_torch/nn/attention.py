@@ -1,0 +1,281 @@
+"""GQA/MQA attention with chunked online-softmax (flash-style) evaluation.
+
+The port of `repro.nn.attention`, in plain PyTorch.  One code path
+serves every attention variant in the zoo: grouped KV heads, RoPE, QKV
+bias (qwen), attention-logit softcap (gemma2), sliding windows (mixtral
+/ gemma2-local / recurrentgemma), and ring-buffer KV caches whose masks
+are driven purely by *absolute positions* stored next to the cache — so
+a rotated ring never needs un-rotation; a slot at position −1 is empty.
+
+The evaluation walks KV chunks with a running (max, sum, accumulator) and
+never builds an (Sq × Skv) score matrix; for causal self-attention the
+triangular form gives each query chunk only the KV chunks its mask can
+reach.  The reference's chunk sizes are kept (``kv_chunk`` and its
+adaptive choice), so both packages sum in the same order.
+
+Decode writes the new token into the cache tensors **in place** (the
+reference returns updated copies); `decode_step` returns the same
+tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from .common import ParamDecl, ShardCtx, cast
+from .layers import rope
+
+NEG = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnMeta:
+    """Static per-instance attention settings (one per block-pattern slot)."""
+
+    window: int = 0  # 0 = global causal; >0 = sliding window
+    kv_chunk: int = 1024
+    triangular: bool = True  # skip fully-masked kv chunks (train/prefill)
+
+
+# ---------------------------------------------------------------------------
+# functional chunked attention
+# ---------------------------------------------------------------------------
+
+
+def _mask(q_pos, kv_pos, window):
+    """(B, Sq), (B, C) → (B, 1, 1, Sq, C) validity."""
+    qp = q_pos[:, None, None, :, None]
+    kp = kv_pos[:, None, None, None, :]
+    ok = (kp <= qp) & (kp >= 0)
+    if window > 0:
+        ok &= qp - kp < window
+    return ok
+
+
+def _chunk_scores(q, k_c, scale, softcap, kv_layout="bshd"):
+    # q: (B, Sq, Hkv, G, D) → scores (B, Hkv, G, Sq, C)
+    eq = "bqhgd,bhcd->bhgqc" if kv_layout == "bhsd" else "bqhgd,bchd->bhgqc"
+    s = torch.einsum(eq, q, k_c).float() * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
+def _combine(carry, qg, q_pos, kc, vc, pc, scale, softcap, window,
+             kv_layout="bshd"):
+    """Online-softmax merge of one kv chunk into the running (max,
+    denominator, accumulator)."""
+    m, den, acc = carry
+    s = _chunk_scores(qg, kc, scale, softcap, kv_layout)  # (B,Hkv,G,Sq,C)
+    ok = _mask(q_pos, pc, window)
+    s = torch.where(ok, s, NEG)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    p = torch.where(ok, p, 0.0)
+    den = den * alpha + p.sum(dim=-1)
+    ev = "bhgqc,bhcv->bhgqv" if kv_layout == "bhsd" else "bhgqc,bchv->bhgqv"
+    pv = torch.einsum(ev, p.to(vc.dtype), vc)
+    acc = acc * alpha[..., None] + pv.float()
+    return m_new, den, acc
+
+
+def _init_carry(b, hkv, g, sq, dv, device):
+    return (torch.full((b, hkv, g, sq), NEG, dtype=torch.float32, device=device),
+            torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=device),
+            torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32,
+                        device=device))
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, Hkv, D)
+    v: torch.Tensor,  # (B, Skv, Hkv, Dv)
+    q_pos: torch.Tensor,  # (B, Sq)
+    kv_pos: torch.Tensor,  # (B, Skv), -1 ⇒ invalid slot
+    *,
+    scale: float,
+    window: int = 0,
+    softcap: float | None = None,
+    kv_chunk: int = 1024,
+    triangular: bool = False,
+    kv_layout: str = "bshd",  # decode caches use "bhsd"
+) -> torch.Tensor:
+    b, sq, h, d = q.shape
+    if kv_layout == "bhsd":
+        _, hkv, skv, dv = v.shape
+    else:
+        _, skv, hkv, dv = v.shape
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, d)
+    c = min(kv_chunk, skv)
+    if skv % c:
+        raise ValueError(f"Skv={skv} not a multiple of kv_chunk={c}")
+    n_chunks = skv // c
+    s_axis = 2 if kv_layout == "bhsd" else 1
+
+    def kv_slice(t, i, n=c):
+        return t.narrow(s_axis, i * n, n)
+
+    if triangular and sq == skv and n_chunks > 1:
+        # Causal (optionally windowed) self-attention: process q in chunks
+        # and give each q chunk only the kv chunks its mask can reach.
+        out_chunks = []
+        for qi in range(n_chunks):
+            qc = qg[:, qi * c : (qi + 1) * c]
+            qp = q_pos[:, qi * c : (qi + 1) * c]
+            carry = _init_carry(b, hkv, g, c, dv, q.device)
+            for ki in range(qi + 1):
+                if window > 0 and qi * c - ((ki + 1) * c - 1) >= window:
+                    continue  # statically unreachable through the window
+                carry = _combine(carry, qc, qp, kv_slice(k, ki),
+                                 kv_slice(v, ki),
+                                 kv_pos[:, ki * c : (ki + 1) * c],
+                                 scale, softcap, window, kv_layout)
+            _, den, acc = carry
+            out_chunks.append(acc / torch.clamp(den, min=1e-30)[..., None])
+        out = torch.cat(out_chunks, dim=3)  # (B,Hkv,G,Sq,Dv)
+    else:
+        carry = _init_carry(b, hkv, g, sq, dv, q.device)
+        for i in range(n_chunks):
+            carry = _combine(carry, qg, q_pos, kv_slice(k, i), kv_slice(v, i),
+                             kv_pos[:, i * c : (i + 1) * c],
+                             scale, softcap, window, kv_layout)
+        _, den, acc = carry
+        out = acc / torch.clamp(den, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the attention mixer block
+# ---------------------------------------------------------------------------
+
+
+def attn_decls(cfg) -> dict:
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    f32 = torch.float32
+    decls: dict[str, Any] = {
+        "wq": ParamDecl((d, h, dh), f32, ("d_model", "heads", "head_dim"),
+                        "fan_in"),
+        "wk": ParamDecl((d, hkv, dh), f32,
+                        ("d_model", "kv_heads", "head_dim"), "fan_in"),
+        "wv": ParamDecl((d, hkv, dh), f32,
+                        ("d_model", "kv_heads", "head_dim"), "fan_in"),
+        "wo": ParamDecl((h, dh, d), f32, ("heads", "head_dim", "d_model"),
+                        "fan_in", fan_axis=1),
+    }
+    if cfg.attn_bias:
+        decls["bq"] = ParamDecl((h, dh), f32, ("heads", "head_dim"), "zeros")
+        decls["bk"] = ParamDecl((hkv, dh), f32, ("kv_heads", "head_dim"), "zeros")
+        decls["bv"] = ParamDecl((hkv, dh), f32, ("kv_heads", "head_dim"), "zeros")
+    return decls
+
+
+def _proj(x, w):
+    """x (B, S, d) × w (d, H, Dh) → (B, S, H, Dh)."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _out(out, wo):
+    """out (B, S, H, Dh) × wo (H, Dh, d) → (B, S, d)."""
+    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _qkv(p, x, cfg, positions):
+    dt = x.dtype
+    q = _proj(x, cast(p["wq"], dt))
+    k = _proj(x, cast(p["wk"], dt))
+    v = _proj(x, cast(p["wv"], dt))
+    if "bq" in p:
+        q = q + cast(p["bq"], dt)
+        k = k + cast(p["bk"], dt)
+        v = v + cast(p["bv"], dt)
+    if cfg.pos_emb == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _scale(cfg) -> float:
+    s = cfg.query_scale if cfg.query_scale else cfg.head_dim
+    return 1.0 / math.sqrt(s)
+
+
+def attn_apply(p, x, ctx: ShardCtx, cfg, meta: AttnMeta):
+    """Full-sequence path (train & prefill).  Returns (y, cache | None).
+    Unsharded, KV heads stay grouped (the reference's unsharded form)."""
+    b, s, _ = x.shape
+    pos = ctx.positions
+    q, k, v = _qkv(p, x, cfg, pos)
+    # adaptive chunk: the reference's (about 16 chunks per side)
+    kvc = min(meta.kv_chunk, s) if s <= meta.kv_chunk else max(meta.kv_chunk, s // 16)
+    if s % kvc:
+        kvc = s
+    out = chunked_attention(
+        q, k, v, pos, pos,
+        scale=_scale(cfg), window=meta.window, softcap=cfg.attn_softcap,
+        kv_chunk=kvc, triangular=meta.triangular,
+    )
+    y = _out(out, cast(p["wo"], x.dtype))
+    cache = None
+    if ctx.make_cache:
+        cache = build_kv_cache(k, v, pos, ctx.cache_len, meta.window)
+    return y, cache
+
+
+def cache_size(cache_len: int, window: int) -> int:
+    return min(cache_len, window) if window > 0 else cache_len
+
+
+def build_kv_cache(k, v, pos, cache_len: int, window: int) -> dict:
+    """Build a (ring) cache from prefilled K/V (rope already applied).
+
+    Layout is (B, Hkv, W, Dh): the decode einsums read it without
+    per-chunk transposes; the one transpose here is paid once."""
+    b, s, hkv, dh = k.shape
+    w = cache_size(cache_len, window)
+    dev = k.device
+    ck = torch.zeros((b, hkv, w, dh), dtype=k.dtype, device=dev)
+    cv = torch.zeros((b, hkv, w, v.shape[-1]), dtype=v.dtype, device=dev)
+    cp = torch.full((b, w), -1, dtype=torch.int32, device=dev)
+    take = min(s, w)
+    ks = k[:, s - take :].transpose(1, 2)  # (B, Hkv, take, Dh)
+    vs = v[:, s - take :].transpose(1, 2)
+    ps = pos[:, s - take :].long()
+    slots = ps % w  # unique because positions are consecutive, take <= w
+    bidx = torch.arange(b, device=dev)[:, None, None]
+    hidx = torch.arange(hkv, device=dev)[None, :, None]
+    ck[bidx, hidx, slots[:, None, :]] = ks
+    cv[bidx, hidx, slots[:, None, :]] = vs
+    cp[torch.arange(b, device=dev)[:, None], slots] = ps.to(torch.int32)
+    return {"k": ck, "v": cv, "pos": cp}
+
+
+def attn_decode(p, x, cache: dict, ctx: ShardCtx, cfg, meta: AttnMeta):
+    """Single-token decode: x (B, 1, d); cache slots addressed pos % W,
+    written in place."""
+    b = x.shape[0]
+    pos = ctx.positions  # (B, 1) current absolute position
+    q, k, v = _qkv(p, x, cfg, pos)
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    hkv, w = ck.shape[1], ck.shape[2]
+    slot = pos[:, 0].long() % w
+    bidx = torch.arange(b, device=x.device)
+    ck[bidx[:, None], torch.arange(hkv, device=x.device)[None, :],
+       slot[:, None]] = k[:, 0]
+    cv[bidx[:, None], torch.arange(hkv, device=x.device)[None, :],
+       slot[:, None]] = v[:, 0]
+    cp[bidx, slot] = pos[:, 0].to(cp.dtype)
+    kvc = min(meta.kv_chunk, w) if w <= meta.kv_chunk else max(meta.kv_chunk, w // 64)
+    if w % kvc:
+        kvc = w
+    out = chunked_attention(
+        q, ck, cv, pos, cp,
+        scale=_scale(cfg), window=meta.window, softcap=cfg.attn_softcap,
+        kv_chunk=kvc, triangular=False, kv_layout="bhsd",
+    )
+    y = _out(out, cast(p["wo"], x.dtype))
+    return y, cache

@@ -1,0 +1,124 @@
+"""Multi-head Latent Attention (DeepSeek-V2/V3).
+
+The port of `repro.nn.mla`.  Train/prefill: queries go through a
+low-rank bottleneck (q_lora), K/V are generated from a shared compressed
+latent c_kv (kv_lora_rank) plus a decoupled shared RoPE key.  Decode: the
+*latent* is cached (kv_lora + qk_rope_dim per token) and the
+up-projections are **absorbed** into the query/output paths, so
+attention runs directly against the latent cache:
+
+    score(t, s) = q_nopeᵀ·(W_uk c_s) + q_ropeᵀ·k_rope_s
+                = (W_ukᵀ q_nope)ᵀ·c_s + q_ropeᵀ·k_rope_s
+    out_h       = W_uv Σ_s a_s c_s
+
+The latent cache carries absolute positions and is written in place.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .attention import chunked_attention
+from .common import ParamDecl, ShardCtx, cast
+from .layers import apply_norm, norm_decls, rope
+
+NEG = -1e30
+
+
+def mla_decls(cfg) -> dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dvh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    f32 = torch.float32
+    return {
+        "wq_a": ParamDecl((d, qr), f32, ("d_model", None), "fan_in"),
+        "q_norm": norm_decls(qr, "rmsnorm_unit"),
+        "wq_b": ParamDecl((qr, h, dn + dr), f32, (None, "heads", "head_dim"), "fan_in"),
+        "wkv_a": ParamDecl((d, kr + dr), f32, ("d_model", None), "fan_in"),
+        "kv_norm": norm_decls(kr, "rmsnorm_unit"),
+        "wk_b": ParamDecl((kr, h, dn), f32, (None, "heads", "head_dim"), "fan_in"),
+        "wv_b": ParamDecl((kr, h, dvh), f32, (None, "heads", "head_dim"), "fan_in"),
+        "wo": ParamDecl((h, dvh, d), f32, ("heads", "head_dim", "d_model"),
+                        "fan_in", fan_axis=1),
+    }
+
+
+def _latent(p, x, cfg, positions):
+    """x → (c_kv normed, k_rope rotated, q_nope, q_rope)."""
+    dt = x.dtype
+    kr = cfg.kv_lora_rank
+    qa = x @ cast(p["wq_a"], dt)
+    qa = apply_norm(p["q_norm"], qa, "rmsnorm_unit")
+    q = torch.einsum("bsr,rhk->bshk", qa, cast(p["wq_b"], dt))
+    q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim :]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    kv = x @ cast(p["wkv_a"], dt)
+    c_kv, k_rope = kv[..., :kr], kv[..., kr:]
+    c_kv = apply_norm(p["kv_norm"], c_kv, "rmsnorm_unit")
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope, q_nope, q_rope
+
+
+def _scale(cfg) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_apply(p, x, ctx: ShardCtx, cfg, meta):
+    """Full-sequence path: expand K/V per head (standard formulation)."""
+    b, s, _ = x.shape
+    pos = ctx.positions
+    c_kv, k_rope, q_nope, q_rope = _latent(p, x, cfg, pos)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, cast(p["wk_b"], x.dtype))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, cast(p["wv_b"], x.dtype))
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat(
+        [k_nope, k_rope[:, :, None, :].expand(b, s, cfg.n_heads,
+                                              cfg.qk_rope_dim)], -1
+    )
+    kvc = min(1024, s) if s <= 1024 else max(1024, s // 16)
+    if s % kvc:
+        kvc = s
+    out = chunked_attention(
+        q, k, v, pos, pos, scale=_scale(cfg), window=0, softcap=None,
+        kv_chunk=kvc, triangular=True,
+    )
+    y = torch.einsum("bshk,hkd->bsd", out, cast(p["wo"], x.dtype))
+    cache = None
+    if ctx.make_cache:
+        pad = ctx.cache_len - s
+        cache = {
+            "c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
+            "k_rope": torch.nn.functional.pad(k_rope, (0, 0, 0, pad)),
+            "pos": torch.nn.functional.pad(pos, (0, pad), value=-1),
+        }
+    return y, cache
+
+
+def mla_decode(p, x, cache, ctx: ShardCtx, cfg, meta):
+    """Absorbed decode against the latent cache.  x: (B, 1, d)."""
+    b = x.shape[0]
+    pos = ctx.positions  # (B, 1)
+    dt = x.dtype
+    c_new, kr_new, q_nope, q_rope = _latent(p, x, cfg, pos)
+    slot = pos[:, 0].long()
+    bidx = torch.arange(b, device=x.device)
+    c, krope, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+    c[bidx, slot] = c_new[:, 0]
+    krope[bidx, slot] = kr_new[:, 0]
+    cpos[bidx, slot] = pos[:, 0].to(cpos.dtype)
+    # absorb W_uk into q:  (B,1,H,dn) × (kr,H,dn) → (B,H,kr); fp32
+    # accumulation keeps the absorbed path within ~1e-2 of the expanded one
+    q_abs = torch.einsum("bohk,rhk->bhr", q_nope.float(),
+                         cast(p["wk_b"], dt).float())
+    s_lat = torch.einsum("bhr,bsr->bhs", q_abs, c.float())
+    s_rope = torch.einsum("bohk,bsk->bhs", q_rope.float(), krope.float())
+    s = (s_lat + s_rope) * _scale(cfg)
+    valid = (cpos[:, None, :] <= pos[:, :1][:, None, :]) & (cpos[:, None, :] >= 0)
+    s = torch.where(valid, s, NEG)
+    a = torch.softmax(s, dim=-1).to(dt)  # (B,H,S)
+    out_lat = torch.einsum("bhs,bsr->bhr", a, c)  # (B,H,kr)
+    out = torch.einsum("bhr,rhk->bhk", out_lat, cast(p["wv_b"], dt))
+    y = torch.einsum("bhk,hkd->bd", out, cast(p["wo"], dt))[:, None, :]
+    return y, cache

@@ -1,0 +1,231 @@
+"""The language model: embed → staged residual blocks → head.
+
+The port of `repro.nn.model`.  Heterogeneous layer stacks (gemma2's
+local/global alternation, Griffin's R-R-A pattern, DeepSeek's
+dense-then-MoE split) are grouped into *stages*: maximal runs of a
+repeating layer unit (`stage_plan`, the reference's).  Each stage's
+params are stacked along a leading `layers` axis — the reference's
+layout, leaf for leaf and name for name (``stage0/slot0/ffn/down``), so
+`quantize_param_tree` sees the same leaves — and the model walks the
+repeats in Python where the reference scans them.
+
+Caches have the reference's stacked layout (``scan_layers=True``): one
+list entry a stage, one dict a slot, a leading repeat axis on every
+tensor.  `decode_step` writes into them in place.
+
+`LanguageModel` is the `torch.nn.Module` that holds such a tree; its
+parameter names are the reference's key paths, so ``state_dict()`` is
+the flat tree `quantize_param_tree` takes and ``load_state_dict`` takes
+back.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+from typing import Any
+
+import torch
+
+from .blocks import BlockMeta, block_apply, block_decls, block_decode
+from .common import (ParamDecl, ShardCtx, flatten_tree, map_tree, torch_dtype,
+                     unflatten_tree)
+from .layers import (apply_norm, embed_decls, embed_lookup, norm_decls,
+                     sinusoidal, unembed, unembed_decls)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    metas: tuple[BlockMeta, ...]
+    repeat: int
+
+
+def _layer_meta(cfg, idx: int) -> BlockMeta:
+    mixer = cfg.block_pattern[idx % len(cfg.block_pattern)]
+    if mixer == "attn" and cfg.attn_kind == "mla":
+        mixer = "mla"
+    window = 0
+    if mixer in ("attn", "mla"):
+        window = cfg.window_pattern[idx % len(cfg.window_pattern)]
+    if cfg.ffn_pattern == "none":
+        ffn = "none"
+    elif cfg.n_experts and idx >= cfg.first_dense_layers:
+        ffn = "moe"
+    else:
+        ffn = "mlp"
+    return BlockMeta(mixer=mixer, window=window, ffn=ffn, d_ff=cfg.d_ff)
+
+
+def stage_plan(cfg) -> tuple[Stage, ...]:
+    metas = [_layer_meta(cfg, i) for i in range(cfg.n_layers)]
+    stages: list[Stage] = []
+    i = 0
+    n = len(metas)
+    while i < n:
+        best_u, best_r = 1, 1
+        for u in (1, 2, 3, 4, 6):
+            if i + u > n:
+                break
+            r = 1
+            while (i + (r + 1) * u <= n
+                   and metas[i + r * u : i + (r + 1) * u] == metas[i : i + u]):
+                r += 1
+            if r >= 2 and u * r > best_u * best_r:
+                best_u, best_r = u, r
+        stages.append(Stage(tuple(metas[i : i + best_u]), best_r))
+        i += best_u * best_r
+    return tuple(stages)
+
+
+def _stack_decl(d: ParamDecl, repeat: int) -> ParamDecl:
+    axes = d.axes or (None,) * len(d.shape)
+    return ParamDecl((repeat,) + d.shape, d.dtype, ("layers",) + tuple(axes),
+                     d.init, d.scale, d.fan_axis + 1)
+
+
+def model_decls(cfg) -> dict:
+    decls: dict[str, Any] = {}
+    if cfg.input_kind == "tokens":
+        decls["embed"] = embed_decls(cfg.vocab_size, cfg.d_model)
+    for si, st in enumerate(stage_plan(cfg)):
+        unit = {f"slot{j}": block_decls(cfg, m) for j, m in enumerate(st.metas)}
+        decls[f"stage{si}"] = map_tree(lambda d, r=st.repeat: _stack_decl(d, r),
+                                       unit)
+    decls["final_norm"] = norm_decls(cfg.d_model, cfg.norm)
+    if not (cfg.tie_embeddings and cfg.input_kind == "tokens"):
+        decls["lm_head"] = unembed_decls(cfg.d_model, cfg.vocab_size)
+    return decls
+
+
+def as_tree(params) -> dict:
+    """A `LanguageModel`, a nested tree or a flat ``"/"``-keyed dict of
+    parameters → the nested tree."""
+    if isinstance(params, LanguageModel):
+        return params.tree()
+    if isinstance(params, Mapping) and all(
+            not isinstance(v, Mapping) for v in params.values()):
+        return unflatten_tree(params)
+    return params
+
+
+def _embed_in(params, batch, cfg, ctx: ShardCtx):
+    dt = torch_dtype(cfg.compute_dtype)
+    if cfg.input_kind == "embeds":
+        x = batch.get("embeds", batch.get("embed")).to(dt)
+    else:
+        tokens = batch.get("tokens", batch.get("token"))
+        x = embed_lookup(params["embed"], tokens, ctx,
+                         scale_by_sqrt_d=cfg.embed_scale)
+        x = x.to(dt)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal(ctx.positions, cfg.d_model).to(dt)
+    return x
+
+
+def _head(params, x, cfg, ctx: ShardCtx):
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    tied = params["embed"]["table"] if (
+        cfg.tie_embeddings and cfg.input_kind == "tokens") else None
+    return unembed(params.get("lm_head"), x, ctx, tied_table=tied,
+                   softcap=cfg.logit_softcap or None)
+
+
+def _layer(tree: dict, r: int) -> dict:
+    """Repeat ``r``'s slice (views) of a stacked tree."""
+    return map_tree(lambda t: t[r], tree)
+
+
+def forward(params, batch, cfg, ctx: ShardCtx):
+    """Full-sequence pass.  Returns (logits, aux_loss, caches|None)."""
+    params = as_tree(params)
+    x = _embed_in(params, batch, cfg, ctx)
+    caches = [] if ctx.make_cache else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for si, st in enumerate(stage_plan(cfg)):
+        sp = params[f"stage{si}"]
+        per_repeat = []
+        for r in range(st.repeat):
+            unit = _layer(sp, r)
+            cs = []
+            for j, meta in enumerate(st.metas):
+                x, c, a = block_apply(unit[f"slot{j}"], x, ctx, cfg, meta)
+                cs.append(c)
+                aux_total = aux_total + a
+            per_repeat.append(cs)
+        if caches is not None:
+            caches.append(tuple(
+                {k: torch.stack([cs[j][k] for cs in per_repeat])
+                 for k in per_repeat[0][j]}
+                for j in range(len(st.metas))))
+    logits = _head(params, x, cfg, ctx)
+    return logits, aux_total, caches
+
+
+def decode_step(params, batch, caches, ctx: ShardCtx, cfg):
+    """One-token step against the cache.  Returns (logits, caches): the
+    new token's entries are written into ``caches`` in place."""
+    params = as_tree(params)
+    x = _embed_in(params, batch, cfg, ctx)
+    for si, st in enumerate(stage_plan(cfg)):
+        sp = params[f"stage{si}"]
+        cache_si = caches[si]
+        for r in range(st.repeat):
+            unit = _layer(sp, r)
+            for j, meta in enumerate(st.metas):
+                x, _ = block_decode(unit[f"slot{j}"], x,
+                                    _layer(cache_si[j], r), ctx, cfg, meta)
+    logits = _head(params, x, cfg, ctx)
+    return logits, caches
+
+
+def loss_fn(params, batch, cfg, ctx: ShardCtx):
+    """Masked token cross-entropy (+ MoE aux, + z-loss): its value, with
+    the reference's metrics."""
+    logits, aux, _ = forward(params, batch, cfg, ctx)
+    labels = batch["labels"].long()
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=logits.device)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    xent = (logz - ll) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = xent.sum() / denom
+    zloss = 1e-4 * ((logz * mask) ** 2).sum() / denom
+    total = loss + zloss + cfg.aux_loss_coef * aux
+    metrics = {"xent": loss, "zloss": zloss, "aux": aux}
+    return total, metrics
+
+
+class LanguageModel(torch.nn.Module):
+    """The model's stacked parameters as a `torch.nn.Module`, named by the
+    reference's key paths (``stage0/slot0/ffn/down``); ``forward`` and
+    ``decode_step`` run the functions above on them."""
+
+    def __init__(self, cfg, params):
+        super().__init__()
+        self.cfg = cfg
+        flat = flatten_tree(as_tree(params))
+        want = flatten_tree(model_decls(cfg))
+        if set(flat) != set(want):
+            raise ValueError(f"parameters do not match {cfg.name}'s "
+                             f"declarations: missing "
+                             f"{sorted(set(want) - set(flat))[:4]}, extra "
+                             f"{sorted(set(flat) - set(want))[:4]}")
+        for name in want:
+            t = flat[name]
+            if tuple(t.shape) != want[name].shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, declared "
+                                 f"{want[name].shape}")
+            self.register_parameter(
+                name, torch.nn.Parameter(t, requires_grad=False))
+
+    def tree(self) -> dict:
+        return unflatten_tree(dict(self.named_parameters()))
+
+    def forward(self, batch, ctx: ShardCtx):
+        return forward(self.tree(), batch, self.cfg, ctx)
+
+    def decode_step(self, batch, caches, ctx: ShardCtx):
+        return decode_step(self.tree(), batch, caches, ctx, self.cfg)

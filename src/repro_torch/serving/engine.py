@@ -1,9 +1,165 @@
-"""Double-buffered serving over a sharded BLMAC filter bank — the port's
-copy of `repro.serving.engine.AsyncBankServer` (pure Python over the
-engine's ``push_async → PendingChunk`` contract; no JAX)."""
+"""Serving: prefill and decode steps and a batched greedy LM engine
+(`ServeEngine`), the port of `repro.serving.engine`'s LM half; and the
+double-buffered request path over a sharded BLMAC filter bank
+(`AsyncBankServer`, pure Python over the engine's ``push_async →
+PendingChunk`` contract).
+
+Caches are the per-stage stacked trees `forward` returns with
+``make_cache``; decode walks (stage params, stage cache) in lock-step and
+writes each token's entries into the cache in place.  Variable prompt
+lengths are supported for attention archs by voiding the cache positions
+past each prompt (pos = −1 ⇒ masked); recurrent archs (ssd / rglru) take
+equal-length prompts only — their state cannot be position-masked after
+the fact.  The mesh (``cache_pspecs``, a `ServeEngine` over several
+cards) waits for the LM sharding rules.
+"""
 from __future__ import annotations
 
-__all__ = ["AsyncBankServer"]
+import torch
+
+from ..kernels.runtime import as_device_tensor, resolve_device
+from ..nn.common import ShardCtx, map_tree, torch_dtype
+from ..nn.model import as_tree, decode_step, forward
+
+__all__ = ["AsyncBankServer", "ServeEngine", "abstract_caches",
+           "make_decode_fn", "make_prefill_fn"]
+
+
+def make_prefill_fn(cfg, cache_len: int):
+    recurrent = any(k in ("ssd", "rglru") for k in cfg.block_pattern)
+
+    def prefill(params, batch):
+        leaf = batch.get("tokens", batch.get("embeds"))
+        b, s, dev = leaf.shape[0], leaf.shape[1], leaf.device
+        lengths = batch.get("lengths")
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        if lengths is not None and not recurrent:
+            lengths = lengths.to(device=dev, dtype=torch.int32)
+            pos = torch.where(pos < lengths[:, None], pos, -1)
+            next_pos = lengths
+        else:
+            next_pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+        ctx = ShardCtx(positions=pos,
+                       compute_dtype=torch_dtype(cfg.compute_dtype),
+                       make_cache=True, cache_len=cache_len)
+        logits, _, caches = forward(params, batch, cfg, ctx)
+        return logits, {"caches": caches, "pos": next_pos}
+
+    return prefill
+
+
+def make_decode_fn(cfg):
+    def decode(params, batch, state):
+        pos = state["pos"]  # (B,)
+        ctx = ShardCtx(positions=pos[:, None],
+                       compute_dtype=torch_dtype(cfg.compute_dtype))
+        logits, caches = decode_step(params, batch, state["caches"], ctx, cfg)
+        return logits, {"caches": caches, "pos": pos + 1}
+
+    return decode
+
+
+def abstract_caches(cfg, batch: int, cache_len: int):
+    """``meta``-tensor cache tree matching `forward(make_cache=True)`:
+    shapes and dtypes, never allocated."""
+    from ..nn.attention import cache_size
+    from ..nn.model import stage_plan
+
+    dt = torch_dtype(cfg.compute_dtype)
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def slot_cache(meta, repeat):
+        b = batch
+        if meta.mixer == "attn":
+            w = cache_size(cache_len, meta.window)
+            hkv, dh = cfg.n_kv_heads, cfg.head_dim_
+            # (B, Hkv, W, Dh): the decode layout
+            return {
+                "k": sds((repeat, b, hkv, w, dh), dt),
+                "v": sds((repeat, b, hkv, w, dh), dt),
+                "pos": sds((repeat, b, w), torch.int32),
+            }
+        if meta.mixer == "mla":
+            return {
+                "c_kv": sds((repeat, b, cache_len, cfg.kv_lora_rank), dt),
+                "k_rope": sds((repeat, b, cache_len, cfg.qk_rope_dim), dt),
+                "pos": sds((repeat, b, cache_len), torch.int32),
+            }
+        if meta.mixer == "ssd":
+            ch = cfg.ssm_heads * cfg.ssm_head_dim + 2 * cfg.ssm_state
+            return {
+                "state": sds((repeat, b, cfg.ssm_heads, cfg.ssm_state,
+                              cfg.ssm_head_dim), dt),
+                "conv_tail": sds((repeat, b, cfg.conv_width - 1, ch), dt),
+            }
+        # rglru
+        return {
+            "h": sds((repeat, b, cfg.rglru_width), torch.float32),
+            "conv_tail": sds((repeat, b, cfg.conv_width - 1,
+                              cfg.rglru_width), dt),
+        }
+
+    return [
+        tuple(slot_cache(m, st.repeat) for m in st.metas)
+        for st in stage_plan(cfg)
+    ]
+
+
+class ServeEngine:
+    """Minimal batched greedy engine over the prefill/decode steps, on
+    ``device`` (``None``: the GPU, raising without one).  ``params``: a
+    `LanguageModel`, a nested tree or a flat ``"/"``-keyed dict (what
+    `quantize_param_tree` returns), moved to the device; float32
+    parameters are cast to ``cfg.compute_dtype`` where they are used."""
+
+    def __init__(self, cfg, params, cache_len: int = 4096, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = map_tree(lambda t: torch.as_tensor(t).to(self.device),
+                               as_tree(params))
+        self.cache_len = cache_len
+        self._prefill = make_prefill_fn(cfg, cache_len)
+        self._decode = make_decode_fn(cfg)
+
+    @torch.inference_mode()
+    def prefill(self, prompts):
+        """(B, S) int tokens → (logits (B, S, V) float32, decode state)."""
+        tokens = as_device_tensor(prompts, self.device).to(torch.int32)
+        return self._prefill(self.params, {"tokens": tokens})
+
+    @torch.inference_mode()
+    def decode(self, tokens, state):
+        """(B,) tokens at ``state``'s positions → (logits (B, 1, V),
+        the next state); the state's caches are updated in place."""
+        tok = as_device_tensor(tokens, self.device).to(torch.int32)
+        return self._decode(self.params, {"token": tok.reshape(-1, 1)}, state)
+
+    @torch.inference_mode()
+    def generate(self, prompts, max_new_tokens: int = 16,
+                 with_logits: bool = False):
+        """prompts: (B, S) int tokens (equal length).  Greedy argmax;
+        returns int32 (B, max_new_tokens) on the engine's device.
+        ``max_new_tokens=0`` returns an empty (B, 0) tensor — the prefill
+        argmax is NOT an emitted token.  ``with_logits``: also the (B, V)
+        float32 logits each emitted token was chosen from."""
+        tokens = as_device_tensor(prompts, self.device).to(torch.int32)
+        if max_new_tokens <= 0:
+            out = torch.zeros((tokens.shape[0], 0), dtype=torch.int32,
+                              device=self.device)
+            return (out, []) if with_logits else out
+        logits, state = self.prefill(tokens)
+        steps = [logits[:, -1, :]]
+        tok = torch.argmax(steps[0], dim=-1).to(torch.int32)
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            logits, state = self.decode(tok, state)
+            steps.append(logits[:, -1, :])
+            tok = torch.argmax(steps[-1], dim=-1).to(torch.int32)
+            out.append(tok)
+        out = torch.stack(out, dim=1)  # (B, max_new_tokens)
+        return (out, steps) if with_logits else out
 
 
 class AsyncBankServer:

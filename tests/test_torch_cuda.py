@@ -11,10 +11,14 @@ modulo 2**32.  The
 pulse-code matmul sums in another order than its plain version, so it is
 held to the reference's bound, max|y − y_plain| / max|y_plain| < 1e-5;
 its decode is exact, and the device quantizer's codes equal the CPU's bit
-for bit.  This file imports only the port (the card's machine has no
+for bit.  The language-model stack (plain PyTorch, no kernel of
+ours): every reduced arch on the card within 1e-4 of the logits' scale
+of the CPU's in float32 with TF32 off, tokens equal; bf16 decode steps
+within 5% of a teacher-forced forward.  This file imports only the port (the card's machine has no
 JAX); the banks and weights come from the port's own generators and
 seeded numpy draws.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -1311,3 +1315,72 @@ def test_session_server_recovers_on_the_card(cuda, tmp_path):
                                   journal_path=tmp_path / "chaos",
                                   integrity_check=True, sample_bits=32)
     assert st["lost_shards"] == 2 and sum(st["per_session"].values()) == 8
+
+
+# -- the language-model serving stack (plain PyTorch on the card) -----------
+
+LM_ARCHS = ("deepseek-coder-33b", "deepseek-v3-671b", "gemma2-27b",
+            "internvl2-76b", "mamba2-370m", "mixtral-8x22b", "musicgen-large",
+            "qwen2.5-3b", "recurrentgemma-2b", "starcoder2-3b")
+
+
+def _lm_engine_pair(arch, cuda, compute_dtype="float32"):
+    from repro_torch.configs import get_config
+    from repro_torch.nn import init_params, model_decls
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(arch).reduced(compute_dtype=compute_dtype)
+    if cfg.input_kind == "embeds":
+        cfg = dataclasses.replace(cfg, input_kind="tokens")
+    params = init_params(model_decls(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    return (cfg, params, ServeEngine(cfg, params, 64, device="cpu"),
+            ServeEngine(cfg, params, 64, device=cuda))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_reduced_arch_on_the_card_matches_the_cpu(cuda, arch,
+                                                     monkeypatch):
+    """Prefill and 4 decode steps in float32 with TF32 off: logits within
+    1e-4 of their scale of the CPU's, tokens equal."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg, _, cpu, card = _lm_engine_pair(arch, cuda)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16))
+    tc, lc = cpu.generate(prompts, 5, with_logits=True)
+    tg, lg = card.generate(prompts, 5, with_logits=True)
+    assert tg.device == cuda and tg.dtype == torch.int32
+    want = torch.stack(lc, 1)
+    got = torch.stack(lg, 1).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(tg.cpu(), tc)
+
+
+def test_lm_decode_matches_a_teacher_forced_forward_on_the_card(cuda):
+    """bf16: each decode step's logits within 5% of the scale of one
+    forward over prompt + generated prefix."""
+    cfg, _, _, card = _lm_engine_pair("qwen2.5-3b", cuda, "bfloat16")
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 12))
+    toks, steps = card.generate(prompts, 6, with_logits=True)
+    full = np.concatenate([prompts, toks[:, :-1].cpu().numpy()], 1)
+    logits, _ = card.prefill(full)
+    want = logits[:, prompts.shape[1] - 1:].float()
+    got = torch.stack(steps, 1)
+    assert float((got - want).abs().max()) <= 0.05 * float(want.abs().max())
+
+
+def test_lm_engine_defaults_to_the_card_and_quantizes_there(cuda):
+    from repro_torch.core.serve_quant import quantize_param_tree
+    from repro_torch.nn import flatten_tree
+    from repro_torch.serving import ServeEngine
+
+    cfg, params, _, _ = _lm_engine_pair("qwen2.5-3b", cuda)
+    eng = ServeEngine(cfg, params, 32)
+    assert eng.device.type == "cuda"
+    flat = flatten_tree(params)
+    q_card, s_card = quantize_param_tree(flat, 4)
+    q_cpu, s_cpu = quantize_param_tree(flat, 4, device="cpu")
+    assert s_card == s_cpu
+    assert all(torch.equal(q_card[k].cpu(), q_cpu[k]) for k in q_cpu)
+    out = ServeEngine(cfg, q_card, 32).generate(np.zeros((2, 4), np.int32), 3)
+    assert out.device.type == "cuda" and tuple(out.shape) == (2, 3)

@@ -2,8 +2,9 @@
 launchers run end to end on the CPU (``--device cpu``) and end with
 their bit-exact line; what they print of the paper's counts, the
 launcher's plan and the session server's schedule equal what the
-reference prints on the same inputs.  Without ``--device`` and without
-a card they refuse instead of running on the CPU."""
+reference prints on the same inputs; the language-model example ends
+with its greedy-token agreement.  Without ``--device`` and without a
+card they refuse instead of running on the CPU."""
 import os
 import pathlib
 import subprocess
@@ -85,11 +86,13 @@ def test_port_session_recovery_on_the_cpu():
 
 @pytest.mark.parametrize("script", ["port_quickstart.py",
                                     "port_fir_filtering.py",
-                                    "port_session_recovery.py"])
+                                    "port_session_recovery.py",
+                                    "port_serve_lm.py"])
 def test_port_examples_default_to_the_gpu(script):
     res = _run(script, "--n-div", "4") if "fir" in script else _run(script)
     if res.returncode == 0:  # a card is present: it ran there
-        assert "bit-exact  OK" in res.stdout
+        assert ("greedy-token agreement" if "lm" in script
+                else "bit-exact  OK") in res.stdout
         return
     assert "no CUDA device" in res.stderr
 
@@ -163,8 +166,26 @@ def test_sessions_launcher_with_shards_and_journal(tmp_path):
 
 
 def test_fir_bank_launcher_refuses_what_is_not_ported():
+    """``--fir-bank`` wins over ``--arch`` (the reference's precedence:
+    the bank is served, no model); with neither, the launcher exits 2."""
     res = _module("repro_torch.launch.serve", *SERVE_ARGS, "--arch",
                   "qwen2.5-3b", "--device", "cpu")
-    assert res.returncode == 2 and "item 8" in res.stderr
+    assert res.returncode == 0, res.stderr
+    lines = _lines(res.stdout)
+    assert lines[-1] == "[serve] tail chunk bit-exact vs numpy oracle"
+    assert not any("qwen" in ln for ln in lines)
     res = _module("repro_torch.launch.serve", "--device", "cpu")
     assert res.returncode == 2 and "--fir-bank" in res.stderr
+    assert "--arch is required" in res.stderr
+
+
+def test_port_serve_lm_on_the_cpu():
+    res = _run("port_serve_lm.py", "--device", "cpu", "--new-tokens", "6")
+    assert res.returncode == 0, res.stderr
+    lines = _lines(res.stdout)
+    assert lines[0].startswith("bf16 baseline: ")
+    assert lines[3].startswith("CSD-4: 5 matrices quantized, mean rel err ")
+    assert lines[3].endswith(" bits/weight stored (24.2 achievable) vs "
+                             "16 bf16")
+    assert lines[-1].startswith("greedy-token agreement vs bf16: ")
+    assert float(lines[-1].split(": ")[1].rstrip("%")) > 70.0

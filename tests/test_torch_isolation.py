@@ -6,9 +6,10 @@ cost model, the fold), `lower()` on every backend, both machines
 and `machine_cycles`, the pulse-code quantizer, matmul and
 `quantize_param_tree`, the sharded engine behind `AsyncBankServer` with
 a shard killed, the session server journaled and recovered, and the
-``--fir-bank`` and ``--sessions`` launchers on the CPU and must end
-with
-neither `jax` nor any `repro` module loaded; no source file
+``--fir-bank`` and ``--sessions`` launchers on the CPU, and another the
+language-model stack (configs, `repro_torch.nn`, `ServeEngine`, the
+quantized engine, ``--arch``); each must end with neither `jax` nor
+any `repro` module loaded; no source file
 of the port (nor `chip_smoke.py`, nor the port's examples) may import
 them; and an entry point
 called without ``device`` on a host without CUDA raises instead of
@@ -127,6 +128,72 @@ def test_no_port_source_imports_jax_or_repro():
     assert len(files) > 10
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not offenders
+
+
+def test_language_model_stack_leaves_jax_and_repro_unloaded():
+    """`repro_torch.configs`, `.nn` and the LM half of `.serving`: every
+    arch's declarations, a reduced model's forward, loss and decode, the
+    engine, the quantized engine and the ``--arch`` launcher."""
+    out = run_py(
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.configs import all_configs, get_config\n"
+        "from repro_torch.nn import (LanguageModel, ShardCtx,\n"
+        "    count_params, flatten_tree, init_params, loss_fn, model_decls)\n"
+        "from repro_torch.serving import ServeEngine, abstract_caches\n"
+        "from repro_torch.core.serve_quant import quantize_param_tree\n"
+        "for name, cfg in all_configs().items():\n"
+        "    assert count_params(model_decls(cfg)) > 0\n"
+        "    abstract_caches(cfg, 2, 64)\n"
+        "for arch in ('qwen2.5-3b', 'mamba2-370m', 'recurrentgemma-2b'):\n"
+        "    cfg = get_config(arch).reduced(n_layers=3)\n"
+        "    p = init_params(model_decls(cfg), torch.Generator(), 'cpu')\n"
+        "    m = LanguageModel(cfg, p)\n"
+        "    tok = torch.zeros((2, 8), dtype=torch.int32)\n"
+        "    pos = torch.arange(8)[None].expand(2, 8)\n"
+        "    loss_fn(m, {'tokens': tok, 'labels': tok}, cfg,\n"
+        "            ShardCtx(positions=pos))\n"
+        "    eng = ServeEngine(cfg, m, cache_len=16, device='cpu')\n"
+        "    assert eng.generate(tok, 3).shape == (2, 3)\n"
+        "    q, _ = quantize_param_tree(m.state_dict(), 4, device='cpu')\n"
+        "    ServeEngine(cfg, q, cache_len=16, device='cpu').generate(tok, 2)\n"
+        "from repro_torch.launch.serve import main\n"
+        "main(['--arch', 'starcoder2-3b', '--new-tokens', '2',\n"
+        "      '--device', 'cpu'])\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print('LOADED', bad)\n",
+        devices=1, timeout=300,
+    )
+    assert "LOADED []" in out
+
+
+def test_language_model_entry_points_default_to_the_gpu(monkeypatch):
+    """`ServeEngine`, `init_params`, `params_from_arrays` and the
+    ``--arch`` launcher take the card unless asked for the CPU, and
+    raise without one."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main
+    from repro_torch.nn import (flatten_tree, init_params, model_decls,
+                                params_from_arrays)
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config("qwen2.5-3b").reduced(n_layers=2, vocab_size=64)
+    params = init_params(model_decls(cfg), torch.Generator(), device="cpu")
+    arrays = {k: v.numpy() for k, v in flatten_tree(params).items()}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: ServeEngine(cfg, params),
+                 lambda: ServeEngine(cfg, params, device="cuda"),
+                 lambda: init_params(model_decls(cfg), torch.Generator()),
+                 lambda: params_from_arrays(cfg, arrays),
+                 lambda: main(["--arch", "qwen2.5-3b"]),
+                 lambda: main(["--arch", "qwen2.5-3b", "--quant-planes",
+                               "4"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    eng = ServeEngine(cfg, params, cache_len=16, device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng.generate(np.zeros((1, 4), np.int32), 2).device.type == "cpu"
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

@@ -39,6 +39,10 @@ tenants batched into the lanes of a `BankSessionServer` over the sharded
 engine, shards killed mid-`step()`, every tenant bit-exact and each
 fault attributed to the tenants of its round only.
 
+`ref_param_arrays` and `ref_lm_params` carry `repro`'s language-model
+parameters across (numpy arrays under the reference's key paths, then
+`repro_torch.nn.params_from_arrays`) for the ``test_torch_lm_*`` files.
+
 ``device`` is where the kernel legs run; None is the GPU and raises
 without one, so a caller on a host without a card passes
 ``device="cpu"`` (the kernels' plain versions) explicitly.  Tolerance 0
@@ -59,7 +63,39 @@ from repro_torch.filters import FilterBankEngine
 
 __all__ = ["PortReport", "plan_fields", "port_chaos_check",
            "port_cse_check", "port_five_way_check",
-           "port_session_chaos_check", "scalar_machine_legs"]
+           "port_session_chaos_check", "ref_config", "ref_lm_params",
+           "ref_param_arrays", "scalar_machine_legs"]
+
+
+def ref_param_arrays(params) -> dict:
+    """`repro`'s parameter tree as ``{key path: numpy array}``, the
+    path's keys joined by ``"/"`` (as its `quantize_param_tree` names
+    them)."""
+    import jax
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(params)
+    return {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(leaf)
+            for path, leaf in flat}
+
+
+def ref_config(cfg):
+    """The port's `ModelConfig` as `repro`'s, field for field."""
+    from repro.configs import ModelConfig
+
+    return ModelConfig(**{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(cfg)})
+
+
+def ref_lm_params(cfg, seed: int = 0, device="cpu"):
+    """(`repro`'s parameters of ``cfg`` from ``jax.random.key(seed)``, the
+    same values as the port's tree on ``device``)."""
+    import jax
+
+    from repro.nn import init_params, model_decls
+    from repro_torch.nn import params_from_arrays
+
+    params = init_params(model_decls(ref_config(cfg)), jax.random.key(seed))
+    return params, params_from_arrays(cfg, ref_param_arrays(params), device)
 
 
 @dataclass
@@ -618,3 +654,112 @@ def port_session_chaos_check(
     assert stats["session_faults"] == len(kills), stats
     server.close()
     return stats
+
+
+# ---------------------------------------------------------------------------
+# language models: one reduced arch through `repro` and the port
+# ---------------------------------------------------------------------------
+
+LM_BATCH, LM_PROMPT, LM_CACHE, LM_DECODE_STEPS = 2, 12, 32, 4
+
+
+@dataclass
+class LmCase:
+    """One reduced arch in float32 through both packages on the CPU: the
+    prefill (`forward` with a cache), `LM_DECODE_STEPS` decode steps, the
+    loss and `ServeEngine.generate` — the reference's outputs (numpy) and
+    the port's (tensors)."""
+
+    cfg: object
+    ref: dict
+    port: dict
+
+
+def _lm_inputs(cfg, rng):
+    b, s = LM_BATCH, LM_PROMPT
+    inp = {"labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+           "mask": (rng.uniform(size=(b, s)) < 0.8).astype(np.float32)}
+    if cfg.input_kind == "embeds":
+        inp["embeds"] = rng.standard_normal((b, s, cfg.d_model)) \
+            .astype(np.float32)
+        steps = [{"embed": rng.standard_normal((b, 1, cfg.d_model))
+                  .astype(np.float32)} for _ in range(LM_DECODE_STEPS)]
+    else:
+        inp["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)) \
+            .astype(np.int32)
+        steps = [{"token": rng.integers(0, cfg.vocab_size, (b, 1))
+                  .astype(np.int32)} for _ in range(LM_DECODE_STEPS)]
+    return inp, steps
+
+
+def lm_case(arch: str, seed: int = 0) -> LmCase:
+    """`arch` reduced, compute float32, with the same converted
+    parameters in both packages (`ref_lm_params`)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.nn import ShardCtx as RCtx
+    from repro.nn import loss_fn as r_loss
+    from repro.serving import ServeEngine as RServe
+    from repro_torch.configs import get_config
+    from repro_torch.nn import ShardCtx, loss_fn
+    from repro_torch.serving import ServeEngine
+
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    rparams, tparams = ref_lm_params(cfg, seed)
+    inp, steps = _lm_inputs(cfg, np.random.default_rng(seed))
+    key = "embeds" if cfg.input_kind == "embeds" else "tokens"
+    ref, port = {}, {}
+    # prefill and decode: the engines' own steps
+    reng = RServe(ref_config(cfg), rparams, cache_len=LM_CACHE)
+    teng = ServeEngine(cfg, tparams, cache_len=LM_CACHE, device="cpu")
+    rlog, rstate = reng._prefill(rparams, {key: jnp.asarray(inp[key])})
+    with torch.inference_mode():
+        tlog, tstate = teng._prefill(teng.params,
+                                     {key: torch.tensor(inp[key])})
+    ref["prefill"] = np.asarray(rlog)
+    port["prefill"] = tlog
+    ref["caches"] = jax.tree_util.tree_map(np.asarray, rstate["caches"])
+    port["caches"] = [tuple({k: t.clone() for k, t in c.items()} for c in st)
+                      for st in tstate["caches"]]
+    ref["decode"], port["decode"] = [], []
+    for step in steps:
+        rlog, rstate = reng._decode(
+            rparams, {k: jnp.asarray(v) for k, v in step.items()}, rstate)
+        with torch.inference_mode():
+            tlog, tstate = teng._decode(
+                teng.params, {k: torch.tensor(v) for k, v in step.items()},
+                tstate)
+        ref["decode"].append(np.asarray(rlog))
+        port["decode"].append(tlog)
+    ref["decode_caches"] = jax.tree_util.tree_map(np.asarray,
+                                                  rstate["caches"])
+    port["decode_caches"] = tstate["caches"]
+    # the loss (its value) and the forward's aux
+    pos = np.broadcast_to(np.arange(LM_PROMPT)[None],
+                          (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    rloss, rmet = jax.jit(lambda p, b: r_loss(p, b, ref_config(cfg), RCtx(
+        positions=jnp.asarray(pos), compute_dtype=jnp.float32)))(
+            rparams, {k: jnp.asarray(v) for k, v in inp.items()})
+    tloss, tmet = loss_fn(tparams, {k: torch.tensor(v) for k, v in
+                                    inp.items()}, cfg,
+                          ShardCtx(positions=torch.tensor(pos),
+                                   compute_dtype=torch.float32))
+    ref["loss"], ref["metrics"] = float(rloss), {k: float(v) for k, v in
+                                                 rmet.items()}
+    port["loss"], port["metrics"] = float(tloss), {k: float(v) for k, v in
+                                                   tmet.items()}
+    # greedy generation (an embeds backbone served on tokens, as the
+    # launchers do)
+    if cfg.input_kind == "embeds":
+        gcfg = dataclasses.replace(cfg, input_kind="tokens")
+        rparams, tparams = ref_lm_params(gcfg, seed)
+        reng = RServe(ref_config(gcfg), rparams, cache_len=LM_CACHE)
+        teng = ServeEngine(gcfg, tparams, cache_len=LM_CACHE, device="cpu")
+    prompts = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    ref["generate"] = np.asarray(reng.generate(prompts, LM_DECODE_STEPS + 1))
+    port["generate"] = teng.generate(prompts, LM_DECODE_STEPS + 1)
+    return LmCase(cfg, ref, port)
