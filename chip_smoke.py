@@ -178,6 +178,36 @@ against the push's host clock.  After those timings:
                   steps on the card against the port on the CPU with the
                   same parameters (within 1e-4 of the scale, tokens
                   equal).
+  * train       — the language model's training half (plain PyTorch;
+                  the reference's training path reaches no Pallas kernel
+                  either, so the four counts, zeroed before it, must stay
+                  0), in a fresh process (``--train-leg``): qwen2.5-3b at
+                  its published widths (3.086e9 float32 master weights
+                  from a CUDA generator with seed 0, bf16 compute, remat
+                  full), the reference launcher's B = 16 × S = 256 markov
+                  batch repeated for 5 AdamW steps (warmup 1, lr 3e-4)
+                  through `make_train_step`: step 0's loss against a
+                  forward-only `loss_fn` (1e-3), every loss and grad norm
+                  finite, the loss falling; each step by CUDA events,
+                  tokens/s, MFU against 989 TFLOP/s, the step's FLOPs
+                  (8·N·D with remat) and optimizer-bytes bounds, the peak
+                  memory, the bytes a checkpoint would write (none is
+                  written); the step's parts (grads, clip, optimizer) by
+                  events and each traced alone, and a whole step traced
+                  (idle share, kernels); then the launcher (``python -m
+                  repro_torch.launch.train --arch qwen2.5-3b --steps 20``,
+                  its checkpoint restored on the card) and
+                  ``examples/port_train_lm.py --size 100m --steps 50`` in
+                  fresh processes, the loss falling in both; `TrainLoop`'s
+                  crash at step 13 resumed from 10 and bit-exact
+                  (`torch.equal`) with the uninterrupted run; every arch
+                  reduced, float32, TF32 off, two steps on the card
+                  against the CPU (metrics, params and optimizer state
+                  within 1e-4 of each leaf's scale; Adam-amplified
+                  elements counted, each within the most two AdamW runs
+                  can part, in key-bias leaves or at most 1% of a leaf);
+                  and the int8 all-reduce on four slots of the card
+                  against the exact mean (0.02) and gradient (0.05).
 
 Then each kernel is held against its plain PyTorch version on the card at
 the main path's shapes (tolerance 0 for the FIR kernels, integer
@@ -193,8 +223,8 @@ whole sweep call, and K1 into a contiguous result, are timed too.
 The cost model's calibration file goes to a temporary directory that is
 removed at exit.  Prints one JSON object per phase, the script's wall
 seconds (the ``total`` phase), the ``{"kernels": [...]}`` line (each
-kernel's launches by leg, ``lm`` among them), the card's name and power
-limit as ``nvidia-smi`` reports them, and as its last line
+kernel's launches by leg, ``lm`` and ``train`` among them), the card's
+name and power limit as ``nvidia-smi`` reports them, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before that line; without a CUDA device it exits 2 at once.
 """
@@ -203,6 +233,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2343,29 +2374,372 @@ def lm_leg(dev, smi) -> dict:
             "qwen_prefill_ms": times["prefill_ms"]}
 
 
-LM_RESULT = "LM_RESULT "
+LEG_RESULT = "LEG_RESULT "
 LM_LAUNCH_KEYS = {"blmac_bank_kernel": "bank_apply",
                   "blmac_specialized_kernel": "specialized_call",
                   "blmac_combine_kernel": "combine_fold",
                   K3_KERNEL: "pulse_matmul"}
 
 
-def lm_child() -> dict:
-    """The ``lm`` phase in a fresh process on the card (``--lm-leg``): its
-    timings free of this process's profiler phases, its 12 GB of
-    parameters freed at its exit.  Its phase lines are printed here."""
-    res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--lm-leg"], capture_output=True, text=True,
-                         timeout=900, cwd=HERE)
+def leg_child(flag: str) -> dict:
+    """A phase in a fresh process on the card (``--lm-leg``,
+    ``--train-leg``): its timings free of this process's profiler phases,
+    its tens of GB freed at its exit.  Its phase lines are printed here."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                         capture_output=True, text=True, timeout=900,
+                         cwd=HERE)
     out = res.stdout.splitlines()
     for ln in out:
-        if not ln.startswith(LM_RESULT):
+        if not ln.startswith(LEG_RESULT):
             print(ln, flush=True)
-    check(res.returncode == 0, f"the lm phase exited {res.returncode}: "
+    check(res.returncode == 0, f"{flag} exited {res.returncode}: "
                                f"{res.stderr[-3000:]}")
-    got = [ln for ln in out if ln.startswith(LM_RESULT)]
-    check(len(got) == 1, "the lm phase printed no result")
-    return json.loads(got[0][len(LM_RESULT):])
+    got = [ln for ln in out if ln.startswith(LEG_RESULT)]
+    check(len(got) == 1, f"{flag} printed no result")
+    return json.loads(got[0][len(LEG_RESULT):])
+
+
+# -- the train phase -----------------------------------------------------------
+# `python -m repro_torch.launch.train --full-config`'s defaults for
+# qwen2.5-3b (src/repro/launch/train.py): B = 16, S = 256
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 256, 5
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (data sheet)
+TRAIN_LOSS_REL = 1e-3  # step 0's loss against a forward-only loss_fn
+TRAIN_CARD_CPU_REL = 1e-4
+TRAIN_LAUNCHER_ARGV = ["-m", "repro_torch.launch.train", "--arch",
+                       "qwen2.5-3b", "--steps", "20"]
+TRAIN_EXAMPLE_ARGV = ["examples/port_train_lm.py", "--size", "100m",
+                      "--steps", "50"]
+DP_SLOTS, DP_REL, DP_GRAD_REL = 4, 0.02, 0.05  # tests/test_collectives.py
+
+
+def run_fresh(argv, what: str) -> list[str]:
+    """``python argv`` in a fresh process from the repo root, the port on
+    its path; its stdout lines."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    res = subprocess.run([sys.executable] + argv, env=env, cwd=HERE,
+                         capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"{what} exited {res.returncode}: "
+                               f"{res.stderr[-3000:]}")
+    return [ln for ln in res.stdout.splitlines() if ln.strip()]
+
+
+def train_full_width(dev, smi) -> dict:
+    """qwen2.5-3b at its published widths: 5 AdamW steps on one repeated
+    markov batch (see the module notes)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.nn import (ShardCtx, count_params, init_params, loss_fn,
+                                model_decls)
+    from repro_torch.training import (OptHParams, TrainHParams,
+                                      make_positions, make_train_step,
+                                      train_state_init)
+    from repro_torch.training.optimizer import (clip_by_global_norm,
+                                                make_optimizer)
+    from repro_torch.training.train_step import make_grad_fn
+
+    cfg = get_config("qwen2.5-3b")
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size,
+           cfg.compute_dtype, cfg.param_dtype, cfg.remat, cfg.optimizer) ==
+          (36, 2048, 11008, 151936, "bfloat16", "float32", "full", "adamw"),
+          f"not qwen2.5-3b's published training config: {cfg}")
+    n_params = count_params(model_decls(cfg))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    t0 = time.perf_counter()
+    params = init_params(model_decls(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                    kind="markov"))
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in pipe.global_batch_at(0).items()}
+    with torch.no_grad():
+        fwd_loss, _ = loss_fn(params, batch, cfg, ShardCtx(
+            positions=make_positions(batch), compute_dtype=torch.bfloat16))
+    fwd_loss = fwd_loss.item()
+    hp = TrainHParams(opt=OptHParams(learning_rate=TRAIN_LR,
+                                     warmup_steps=TRAIN_WARMUP,
+                                     total_steps=TRAIN_STEPS))
+    state = train_state_init(params, cfg)
+    step = make_train_step(cfg, hp)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, gnorms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"full width: loss {losses}, grad_norm {gnorms}")
+    rel0 = abs(losses[0] - fwd_loss) / abs(fwd_loss)
+    check(rel0 <= TRAIN_LOSS_REL, f"full width: step 0's loss {losses[0]} "
+                                  f"vs forward-only {fwd_loss}")
+    check(losses[-1] < losses[0], f"full width: loss {losses} does not fall "
+                                  f"on one repeated batch")
+    step_ms = statistics.median(ms[1:])
+    flops_bound_ms = 8 * n_params * tokens / BF16_TC_FLOPS_PER_S * 1e3
+    # the optimizer reads g, m, v, p and writes m, v, p: 7 float32 passes
+    opt_bound_ms = 7 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+
+    # the step's three parts by CUDA events, each from an idle card, then
+    # each traced alone, then a whole step traced: the same functions the
+    # step composes, on its state
+    _, opt_update = make_optimizer(cfg.optimizer)
+    grad_fn = make_grad_fn(cfg, hp)
+    parts = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b), (time.perf_counter() - t) * 1e3
+
+    (_, _, grads), parts["grads_ms"], parts["grads_host_ms"] = timed(
+        lambda: grad_fn(state["params"], batch))
+    _, parts["clip_ms"], parts["clip_host_ms"] = timed(
+        lambda: clip_by_global_norm(grads, hp.opt.grad_clip))
+    with torch.no_grad():
+        _, parts["opt_ms"], parts["opt_host_ms"] = timed(lambda: opt_update(
+            grads, state["opt"], state["params"], state["step"], hp.opt))
+
+    def summary(trace):
+        return {k: trace[k] for k in ("idle_share", "kernels_seen",
+                                      "device_busy_us_per_step",
+                                      "span_us_median")}
+
+    traced = {
+        "clip": summary(profile_step(
+            lambda: clip_by_global_norm(grads, hp.opt.grad_clip), 0, None,
+            steps=1, reps=1)),
+        "optimizer": summary(profile_step(
+            lambda: opt_update(grads, state["opt"], state["params"],
+                               state["step"], hp.opt), 0, None, steps=1,
+            reps=1))}
+    del grads
+    free_cuda()
+    traced["grads"] = summary(profile_step(
+        lambda: grad_fn(state["params"], batch), 0, None, steps=1, reps=1))
+
+    def whole():
+        step(state, batch)
+
+    trace = profile_step(whole, 0, None, steps=2, reps=1)
+    top = sorted(({"name": n[:80], **r} for n, r in trace["kernels"].items()),
+                 key=lambda r: -r["device_us"])[:8]
+    out = {
+        "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "tokens_per_step": tokens, "steps": TRAIN_STEPS,
+        "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP, "optimizer": "adamw",
+        "compute_dtype": cfg.compute_dtype, "param_dtype": cfg.param_dtype,
+        "remat": cfg.remat, "init_s": init_s,
+        "forward_only_loss": fwd_loss, "step0_loss_rel": rel0,
+        "losses": losses, "grad_norms": gnorms, "step_ms": ms,
+        "step_ms_median_1_4": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "mfu": 6 * n_params * tokens / (step_ms * 1e-3 * BF16_TC_FLOPS_PER_S),
+        "flops_bound_ms": flops_bound_ms, "optimizer_bytes_bound_ms":
+        opt_bound_ms, "share_of_flops_bound": flops_bound_ms / step_ms,
+        "peak_bytes": peak, "state_bytes": param_bytes(
+            {"p": state["params"], "o": state["opt"]}),
+        "checkpoint_bytes_not_written": param_bytes(state),
+        "parts": parts, "parts_traced": traced,
+        "step_traced": {k: v for k, v in trace.items() if k != "kernels"},
+        "step_kernels_top": top,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    del state, params, batch, step
+    free_cuda()
+    return out
+
+
+def train_loop_legs(dev) -> dict:
+    """The launcher and the example in fresh processes, the launcher's
+    checkpoint restored, and `TrainLoop`'s crash → resume on the card."""
+    import torch
+
+    from repro_torch.checkpoint import all_steps, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import SimulatedFailure, TrainLoop
+    from repro_torch.nn import flatten_tree, model_decls
+    from repro_torch.training import (OptHParams, TrainHParams,
+                                      abstract_train_state)
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train") as d:
+        t0 = time.perf_counter()
+        lines = run_fresh(TRAIN_LAUNCHER_ARGV + ["--ckpt-dir", d],
+                          "the train launcher")
+        out["launcher_s"] = time.perf_counter() - t0
+        last = lines[-1]
+        check(last.startswith("[train] qwen2.5-3b: step 0 loss ")
+              and " -> step 19 loss " in last, f"launcher said {last!r}")
+        l0 = float(last.split("step 0 loss ")[1].split(" ")[0])
+        l19 = float(last.split("step 19 loss ")[1].split(";")[0])
+        check(l19 < l0, f"launcher: loss {l0} -> {l19}")
+        cfg = get_config("qwen2.5-3b").reduced()
+        state, step = restore_checkpoint(
+            d, abstract_train_state(cfg, model_decls(cfg)), device=dev)
+        leaves = flatten_tree(state)
+        check(step == 20 and int(state["step"]) == 20 and all(
+            t.device == dev and bool(torch.isfinite(t).all())
+            for t in leaves.values()), "launcher checkpoint restore")
+        out.update(launcher_line=last, launcher_loss=[l0, l19],
+                   checkpoints=all_steps(d), restored_leaves=len(leaves))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_example") as d:
+        t0 = time.perf_counter()
+        lines = run_fresh(TRAIN_EXAMPLE_ARGV + ["--ckpt-dir", d],
+                          "examples/port_train_lm.py")
+        out["example_s"] = time.perf_counter() - t0
+        summary = [ln for ln in lines if ln.startswith("step 0: loss ")]
+        check(len(summary) == 1, f"example said {lines!r}")
+        first, last = (float(x.split("loss ")[1]) for x in
+                       summary[0].split("  ->  "))
+        check(last < first, f"example said {summary[0]!r}")
+        out.update(example_lines=lines, example_loss=[first, last])
+
+    # crash → resume, as tests/test_fault.py, on the card
+    def mk(path):
+        c = get_config("qwen2.5-3b").reduced(n_layers=2, vocab_size=128,
+                                             d_model=64, d_ff=128)
+        hp = TrainHParams(opt=OptHParams(learning_rate=3e-3, warmup_steps=5,
+                                         total_steps=40))
+        return TrainLoop(c, hp, TokenPipeline(DataConfig(128, 8, 32, seed=1)),
+                         path, ckpt_every=5, device=dev)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_crash") as d:
+        a = mk(os.path.join(d, "a"))
+        a.run(20)
+        b = mk(os.path.join(d, "b"))
+        try:
+            b.run(20, fail_at=13)
+            check(False, "the injected failure did not raise")
+        except SimulatedFailure:
+            pass
+        b2 = mk(os.path.join(d, "b"))
+        check(b2.step == 10, f"resumed at {b2.step}, want 10")
+        b2.run(20)
+        pa, pb = flatten_tree(a.state), flatten_tree(b2.state)
+        same = [k for k in pa if torch.equal(pa[k], pb[k])]
+        check(len(same) == len(pa), f"crash-resume: {len(pa) - len(same)} "
+                                    f"leaves differ from the uninterrupted "
+                                    f"run")
+        out["crash_resume"] = {"bit_exact_leaves": len(same),
+                               "losses_tail": [h["loss"] for h in
+                                               b2.metrics_history[-3:]]}
+    return out
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """Every arch reduced, float32 with TF32 off, two steps on the card
+    and on the CPU from one parameter tree (the first at the schedule's
+    lr 0, the second at its peak): metrics, params and optimizer state
+    within 1e-4 (`tests/torch_differential.py` `train_card_vs_cpu`, which
+    the card tests run too; Adam's amplified rounding counted within its
+    limits, as the CPU tests count it against the reference)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_differential import train_card_vs_cpu as card_vs_cpu
+
+    from repro_torch.configs import all_configs
+
+    out = card_vs_cpu(sorted(all_configs()), dev, bound=TRAIN_CARD_CPU_REL)
+    bad = {arch: r for arch, r in out.items() if not r["ok"]}
+    check(not bad, f"card vs CPU train step: {bad}")
+    return out
+
+
+def train_dp_allreduce(dev) -> dict:
+    """`compressed_psum` and `make_compressed_dp_grad_fn` on four slots of
+    the card against the exact mean and gradient (the reference's
+    bounds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import (compressed_psum,
+                                         make_compressed_dp_grad_fn)
+
+    rng = np.random.default_rng(0)
+    g = torch.tensor(rng.standard_normal((DP_SLOTS, 1 << 20)),
+                     dtype=torch.float32, device=dev)
+    got = compressed_psum(list(g))
+    exact = g.mean(0)
+    rel = max(float((x - exact).abs().max()) for x in got) / float(
+        exact.abs().max())
+    check(rel < DP_REL and all(x.device == dev for x in got),
+          f"compressed_psum on {DP_SLOTS} card slots: {rel}")
+    w = torch.tensor(rng.standard_normal((16, 4)), dtype=torch.float32,
+                     device=dev)
+    x = torch.tensor(rng.standard_normal((32, 16)), dtype=torch.float32,
+                     device=dev)
+    y = torch.tensor(rng.standard_normal((32, 4)), dtype=torch.float32,
+                     device=dev)
+
+    def loss(w, batch):
+        xx, yy = batch
+        return torch.mean((xx @ w - yy) ** 2)
+
+    _, gq = make_compressed_dp_grad_fn(loss, [dev] * DP_SLOTS)(w, (x, y))
+    wt = w.clone().requires_grad_(True)
+    ge, = torch.autograd.grad(loss(wt, (x, y)), wt)
+    grel = float((gq - ge).abs().max() / ge.abs().max())
+    check(grel < DP_GRAD_REL, f"compressed DP grads: {grel}")
+    return {"slots": DP_SLOTS, "elements": g.shape[1], "psum_rel": rel,
+            "bound": DP_REL, "dp_grad_rel": grel, "grad_bound": DP_GRAD_REL}
+
+
+def train_leg(dev, smi) -> dict:
+    """The language model's training half on the card (see the module
+    notes); returns the phase's numbers and the four kernels' launches
+    during it (zeroed just before)."""
+    import torch
+
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+    bmm = importlib.import_module("repro_torch.kernels.blmac_matmul")
+    bf.reset_launch_counts()
+    bmm.pulse_matmul.launches = 0
+    t_leg = time.perf_counter()
+    full = train_full_width(dev, smi)
+    emit({"phase": "train_full_width", **full})
+    loops = train_loop_legs(dev)
+    emit({"phase": "train_loop", **loops, "nvidia_smi": smi})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cvc = train_card_vs_cpu(dev)
+    emit({"phase": "train_reduced_card_vs_cpu",
+          "bound_rel": TRAIN_CARD_CPU_REL, "steps": 2, "archs": cvc,
+          "tf32": {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}})
+    dp = train_dp_allreduce(dev)
+    emit({"phase": "train_dp_allreduce", **dp, "nvidia_smi": smi})
+    launches = {"bank_apply": bf.bank_apply.launches,
+                "specialized_call": bf.specialized_call.launches,
+                "combine_fold": bf.combine_fold.launches,
+                "pulse_matmul": bmm.pulse_matmul.launches}
+    check(not any(launches.values()),
+          f"the train path launched the FIR or pulse kernels: {launches}")
+    return {"launches": launches, "wall_s": time.perf_counter() - t_leg,
+            "step_ms": full["step_ms_median_1_4"],
+            "peak_bytes": full["peak_bytes"]}
 
 
 def main() -> int:
@@ -2779,11 +3153,12 @@ def main() -> int:
     # -- the lm phase, in a fresh process: none of the four kernels runs on
     # the language-model path (the reference's reaches no Pallas kernel) --
     free_cuda()
-    lm = lm_child()
-    for row in kernels:
-        n = lm["launches"][LM_LAUNCH_KEYS[row["name"]]]
-        row.setdefault("launches_by_leg", {})["lm"] = n
-        row["launches"] += n
+    for leg in ("lm", "train"):
+        res = leg_child(f"--{leg}-leg")
+        for row in kernels:
+            n = res["launches"][LM_LAUNCH_KEYS[row["name"]]]
+            row.setdefault("launches_by_leg", {})[leg] = n
+            row["launches"] += n
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
           "device": kind, "nvidia_smi": smi})
@@ -2794,9 +3169,12 @@ def main() -> int:
     return 0
 
 
-def lm_main() -> int:
-    """``--lm-leg``: the ``lm`` phase alone, its result on a line of its
-    own (read by `lm_child`)."""
+LEGS = {"--lm-leg": lm_leg, "--train-leg": train_leg}
+
+
+def leg_main(flag: str) -> int:
+    """``--lm-leg`` or ``--train-leg``: that phase alone, its result on a
+    line of its own (read by `leg_child`)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2805,8 +3183,8 @@ def lm_main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    res = lm_leg(dev, nvidia_smi_line())
-    print(LM_RESULT + json.dumps(res), flush=True)
+    res = LEGS[flag](dev, nvidia_smi_line())
+    print(LEG_RESULT + json.dumps(res), flush=True)
     return 0
 
 
@@ -2814,4 +3192,6 @@ if __name__ == "__main__":
     # the cost model's fitted constants go to a directory of this run only
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cache") as cache_dir:
         os.environ["REPRO_TORCH_CACHE_DIR"] = cache_dir
-        sys.exit(lm_main() if sys.argv[1:] == ["--lm-leg"] else main())
+        args = sys.argv[1:]
+        sys.exit(leg_main(args[0]) if len(args) == 1 and args[0] in LEGS
+                 else main())

@@ -20,6 +20,10 @@ Layout (mirrors `repro`):
              registry)
   nn/        the language models in plain PyTorch (the reference's LM
              path runs no Pallas kernel); serving.ServeEngine serves them
+  training/  the optimizers (AdamW, Adafactor, in place) and the train
+             step; data/ the synthetic token pipeline; checkpoint/
+             keep-k checkpoints in the reference's format;
+             distributed.TrainLoop the fault-tolerant loop
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

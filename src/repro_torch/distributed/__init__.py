@@ -1,9 +1,11 @@
-"""Sharded filter-bank serving substrate of the port: the (bank, data)
-mesh of device slots and the bank partition (`sharding`), the halo
-exchange of a time-sharded stream (`collectives`) and the fault
-taxonomy, injector, watchdog and counters (`faultbank`) — the filter-bank
-parts of `repro.distributed`, without JAX."""
-from .collectives import halo_exchange_left
+"""Distributed substrate of the port: the (bank, data) mesh of device
+slots and the bank partition (`sharding`), the halo exchange of a
+time-sharded stream and the int8-compressed data-parallel all-reduce
+(`collectives`), the fault taxonomy, injector, watchdog and counters
+(`faultbank`) and the fault-tolerant train loop (`fault`) — the parts of
+`repro.distributed` the port has taken, without JAX."""
+from .collectives import (compressed_psum, compressed_psum_tree,
+                          halo_exchange_left, make_compressed_dp_grad_fn)
 from .faultbank import (
     DeadlineExceeded,
     FaultInjector,
@@ -19,6 +21,7 @@ from .faultbank import (
     StragglerStats,
     TransientShardError,
 )
+from .fault import TrainLoop
 from .sharding import (
     BANK_AXIS,
     DATA_AXIS,
@@ -47,10 +50,14 @@ __all__ = [
     "ShardTimeout",
     "SimulatedFailure",
     "StragglerStats",
+    "TrainLoop",
     "TransientShardError",
     "bank_filter_costs",
     "bank_mesh",
+    "compressed_psum",
+    "compressed_psum_tree",
     "halo_exchange_left",
+    "make_compressed_dp_grad_fn",
     "mesh_bank_shape",
     "partition_bank",
 ]

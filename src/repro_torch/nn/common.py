@@ -79,10 +79,19 @@ def unflatten_tree(flat: Mapping[str, Any]) -> dict:
 
 
 def map_tree(fn, tree: Tree) -> Tree:
-    """``fn`` applied to every leaf of nested dicts."""
+    """``fn`` applied to every leaf of nested dicts, lists and tuples."""
     if isinstance(tree, Mapping):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of ``tree`` in the order `map_tree` visits them."""
+    out: list = []
+    map_tree(out.append, tree)
+    return out
 
 
 def _draw(d: ParamDecl, generator: torch.Generator, dev) -> torch.Tensor:

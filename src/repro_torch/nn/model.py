@@ -25,6 +25,7 @@ from collections.abc import Mapping
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import BlockMeta, block_apply, block_decls, block_decode
 from .common import (ParamDecl, ShardCtx, flatten_tree, map_tree, torch_dtype,
@@ -129,27 +130,51 @@ def _head(params, x, cfg, ctx: ShardCtx):
                    softcap=cfg.logit_softcap or None)
 
 
-def _layer(tree: dict, r: int) -> dict:
-    """Repeat ``r``'s slice (views) of a stacked tree."""
+def _layer(tree, r: int) -> dict:
+    """Repeat ``r``'s slice (views) of a stacked tree, or entry ``r`` of
+    a list of the repeats' trees."""
+    if isinstance(tree, list):
+        return tree[r]
     return map_tree(lambda t: t[r], tree)
 
 
+def _unit_apply(x, unit: dict, metas, ctx: ShardCtx, cfg):
+    """One repeat unit of a stage: its blocks in order.  Returns (x, the
+    blocks' caches, the unit's aux loss)."""
+    cs, aux = [], None
+    for j, meta in enumerate(metas):
+        x, c, a = block_apply(unit[f"slot{j}"], x, ctx, cfg, meta)
+        cs.append(c)
+        aux = a if aux is None else aux + a
+    return x, cs, aux
+
+
 def forward(params, batch, cfg, ctx: ShardCtx):
-    """Full-sequence pass.  Returns (logits, aux_loss, caches|None)."""
+    """Full-sequence pass.  Returns (logits, aux_loss, caches|None).
+
+    A stage's entry of ``params`` may also be the list of its repeats'
+    unit trees (the train step's per-layer leaves).  With
+    ``cfg.scan_layers`` and ``cfg.remat == "full"``, and gradients on,
+    each repeat unit is checkpointed (the reference's `jax.checkpoint`
+    with ``nothing_saveable``): only its input is kept, and the backward
+    recomputes the rest.  The values do not change."""
     params = as_tree(params)
     x = _embed_in(params, batch, cfg, ctx)
     caches = [] if ctx.make_cache else None
+    remat = (cfg.scan_layers and cfg.remat == "full"
+             and torch.is_grad_enabled())
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, st in enumerate(stage_plan(cfg)):
         sp = params[f"stage{si}"]
         per_repeat = []
         for r in range(st.repeat):
             unit = _layer(sp, r)
-            cs = []
-            for j, meta in enumerate(st.metas):
-                x, c, a = block_apply(unit[f"slot{j}"], x, ctx, cfg, meta)
-                cs.append(c)
-                aux_total = aux_total + a
+            if remat:
+                x, cs, a = checkpoint(_unit_apply, x, unit, st.metas, ctx,
+                                      cfg, use_reentrant=False)
+            else:
+                x, cs, a = _unit_apply(x, unit, st.metas, ctx, cfg)
+            aux_total = aux_total + a
             per_repeat.append(cs)
         if caches is not None:
             caches.append(tuple(
@@ -177,9 +202,10 @@ def decode_step(params, batch, caches, ctx: ShardCtx, cfg):
     return logits, caches
 
 
-def loss_fn(params, batch, cfg, ctx: ShardCtx):
-    """Masked token cross-entropy (+ MoE aux, + z-loss): its value, with
-    the reference's metrics."""
+def loss_fn(params, batch, cfg, ctx: ShardCtx, z_loss: float = 1e-4):
+    """Masked token cross-entropy (+ MoE aux, + ``z_loss`` × mean logZ²):
+    its value, with the reference's metrics (``zloss`` is the weighted
+    term)."""
     logits, aux, _ = forward(params, batch, cfg, ctx)
     labels = batch["labels"].long()
     mask = batch.get("mask")
@@ -192,7 +218,7 @@ def loss_fn(params, batch, cfg, ctx: ShardCtx):
     xent = (logz - ll) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = xent.sum() / denom
-    zloss = 1e-4 * ((logz * mask) ** 2).sum() / denom
+    zloss = z_loss * ((logz * mask) ** 2).sum() / denom
     total = loss + zloss + cfg.aux_loss_coef * aux
     metrics = {"xent": loss, "zloss": zloss, "aux": aux}
     return total, metrics

@@ -1,0 +1,9 @@
+"""Training of the port: the optimizers and the train step
+(`repro.training` in PyTorch, unsharded)."""
+from .optimizer import OptHParams, global_norm, make_optimizer, schedule
+from .train_step import (TrainHParams, abstract_train_state, make_positions,
+                         make_train_step, train_state_init)
+
+__all__ = ["OptHParams", "make_optimizer", "schedule", "global_norm",
+           "TrainHParams", "make_train_step", "train_state_init",
+           "make_positions", "abstract_train_state"]

@@ -1384,3 +1384,52 @@ def test_lm_engine_defaults_to_the_card_and_quantizes_there(cuda):
     assert all(torch.equal(q_card[k].cpu(), q_cpu[k]) for k in q_cpu)
     out = ServeEngine(cfg, q_card, 32).generate(np.zeros((2, 4), np.int32), 3)
     assert out.device.type == "cuda" and tuple(out.shape) == (2, 3)
+
+
+# -- the language model's training half (plain PyTorch on the card) ---------
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mamba2-370m",
+                                  "qwen2.5-3b", "recurrentgemma-2b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Two steps (the schedule's lr 0, then its peak) of a reduced arch
+    in float32 with TF32 off, on the card and on the CPU from one
+    parameter tree: the metrics, the params and the optimizer state
+    within 1e-4 (`train_card_vs_cpu`, which `chip_smoke.py` runs on every
+    arch)."""
+    from torch_differential import train_card_vs_cpu
+
+    rep = train_card_vs_cpu([arch], cuda)[arch]
+    assert rep["ok"], rep
+
+
+def test_train_loop_crash_resume_is_bit_exact_on_the_card(cuda, tmp_path):
+    """`TrainLoop` on the card (its default device): a run crashed at
+    step 13 resumes from step 10 and ends equal, leaf for leaf, to the
+    uninterrupted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import SimulatedFailure, TrainLoop
+    from repro_torch.nn import flatten_tree
+    from repro_torch.training import OptHParams, TrainHParams
+
+    def mk(path):
+        cfg = get_config("qwen2.5-3b").reduced(n_layers=2, vocab_size=128,
+                                               d_model=64, d_ff=128)
+        hp = TrainHParams(opt=OptHParams(learning_rate=3e-3, warmup_steps=5,
+                                         total_steps=40))
+        return TrainLoop(cfg, hp, TokenPipeline(DataConfig(128, 8, 32,
+                                                           seed=1)),
+                         str(path), ckpt_every=5)
+
+    a = mk(tmp_path / "a")
+    assert a.device.type == "cuda"
+    a.run(20)
+    b = mk(tmp_path / "b")
+    with pytest.raises(SimulatedFailure):
+        b.run(20, fail_at=13)
+    b2 = mk(tmp_path / "b")
+    assert b2.step == 10
+    b2.run(20)
+    pa, pb = flatten_tree(a.state), flatten_tree(b2.state)
+    assert all(t.device.type == "cuda" for t in pb.values())
+    assert all(torch.equal(pa[k], pb[k]) for k in pa)

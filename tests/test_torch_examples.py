@@ -15,8 +15,13 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def _run(script, *args):
-    env = dict(os.environ)
+# a training subprocess on one thread: beside the other test workers, a
+# pool of spinning OpenMP threads a process slows it by tens of times
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
+def _run(script, *args, env_extra=None):
+    env = dict(os.environ, **(env_extra or {}))
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
     return subprocess.run([sys.executable, str(ROOT / "examples" / script),
@@ -24,8 +29,8 @@ def _run(script, *args):
                           timeout=300)
 
 
-def _module(name, *args, drop_xla_flags=False):
-    env = dict(os.environ)
+def _module(name, *args, drop_xla_flags=False, env_extra=None):
+    env = dict(os.environ, **(env_extra or {}))
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
     if drop_xla_flags:  # the reference's mesh: this host's one CPU device
@@ -87,11 +92,20 @@ def test_port_session_recovery_on_the_cpu():
 @pytest.mark.parametrize("script", ["port_quickstart.py",
                                     "port_fir_filtering.py",
                                     "port_session_recovery.py",
-                                    "port_serve_lm.py"])
-def test_port_examples_default_to_the_gpu(script):
-    res = _run(script, "--n-div", "4") if "fir" in script else _run(script)
+                                    "port_serve_lm.py",
+                                    "port_train_lm.py"])
+def test_port_examples_default_to_the_gpu(script, tmp_path):
+    if "fir" in script:
+        res = _run(script, "--n-div", "4")
+    elif "train" in script:
+        res = _run(script, "--steps", "2", "--ckpt-dir", str(tmp_path),
+                   env_extra=ONE_THREAD)
+    else:
+        res = _run(script)
     if res.returncode == 0:  # a card is present: it ran there
-        assert ("greedy-token agreement" if "lm" in script
+        assert ("greedy-token agreement" if "serve_lm" in script
+                else "stragglers flagged" if "train_lm" in script
+                else "no duplicates, no gaps  OK" if "session" in script
                 else "bit-exact  OK") in res.stdout
         return
     assert "no CUDA device" in res.stderr
@@ -189,3 +203,58 @@ def test_port_serve_lm_on_the_cpu():
                              "16 bf16")
     assert lines[-1].startswith("greedy-token agreement vs bf16: ")
     assert float(lines[-1].split(": ")[1].rstrip("%")) > 70.0
+
+
+def test_port_train_lm_on_the_cpu(tmp_path):
+    """The 10m model learns the markov map's first steps on the host and
+    leaves its checkpoints where it was told."""
+    res = _run("port_train_lm.py", "--device", "cpu", "--steps", "30",
+               "--seq", "32", "--ckpt-dir", str(tmp_path),
+               env_extra=ONE_THREAD)
+    assert res.returncode == 0, res.stderr
+    lines = _lines(res.stdout)
+    from repro.configs import get_config
+    from repro.nn import count_params, model_decls
+
+    ref = get_config("qwen2.5-3b").reduced(
+        n_layers=4, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+        d_ff=768, vocab_size=4096)  # the examples' "10m" size
+    assert lines[0] == f"model: {count_params(model_decls(ref))/1e6:.1f}M " \
+                       f"params"
+    # the straggler watchdog may print a line between them
+    summary = [ln for ln in lines if ln.startswith("step 0: loss ")]
+    assert len(summary) == 1 and "  ->  step 29: loss " in summary[0]
+    first, last = (float(x.split("loss ")[1]) for x in
+                   summary[0].split("  ->  "))
+    assert last < first
+    assert lines[-1].startswith(f"checkpoints in {tmp_path}; stragglers "
+                                f"flagged: ")
+    from repro_torch.checkpoint import all_steps
+
+    assert all_steps(str(tmp_path)) == [25, 30]
+
+
+def test_train_launcher_on_the_cpu(tmp_path):
+    """``python -m repro_torch.launch.train --device cpu``: the
+    reference's summary line, the loss falling, keep-k checkpoints; run
+    again on its directory, it resumes there and has nothing left."""
+    args = ("--arch", "qwen2.5-3b", "--steps", "12", "--batch", "4",
+            "--seq", "32", "--lr", "3e-3", "--ckpt-every", "5",
+            "--ckpt-dir", str(tmp_path), "--device", "cpu")
+    res = _module("repro_torch.launch.train", *args, env_extra=ONE_THREAD)
+    assert res.returncode == 0, res.stderr
+    last = _lines(res.stdout)[-1]
+    assert last.startswith("[train] qwen2.5-3b: step 0 loss ")
+    assert " -> step 11 loss " in last and "; stragglers=" in last
+    l0 = float(last.split("step 0 loss ")[1].split(" ")[0])
+    l11 = float(last.split("step 11 loss ")[1].split(";")[0])
+    assert l11 < l0
+    from repro_torch.checkpoint import all_steps
+
+    assert all_steps(str(tmp_path)) == [5, 10, 12]
+    again = _module("repro_torch.launch.train", *args, env_extra=ONE_THREAD)
+    assert again.returncode == 0, again.stderr
+    assert _lines(again.stdout) == [
+        "[fault] resumed from checkpoint at step 12",
+        f"[train] qwen2.5-3b: already at step 12 in {tmp_path}; nothing to "
+        f"run"]

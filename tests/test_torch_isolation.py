@@ -8,8 +8,10 @@ and `machine_cycles`, the pulse-code quantizer, matmul and
 a shard killed, the session server journaled and recovered, and the
 ``--fir-bank`` and ``--sessions`` launchers on the CPU, and another the
 language-model stack (configs, `repro_torch.nn`, `ServeEngine`, the
-quantized engine, ``--arch``); each must end with neither `jax` nor
-any `repro` module loaded; no source file
+quantized engine, ``--arch``), and a third the training half
+(`repro_torch.training`, `.checkpoint`, `.data`, `.distributed.fault`,
+the compressed all-reduce, ``launch.train``); each must end with neither
+`jax` nor any `repro` module loaded; no source file
 of the port (nor `chip_smoke.py`, nor the port's examples) may import
 them; and an entry point
 called without ``device`` on a host without CUDA raises instead of
@@ -194,6 +196,94 @@ def test_language_model_entry_points_default_to_the_gpu(monkeypatch):
     eng = ServeEngine(cfg, params, cache_len=16, device="cpu")
     assert eng.device.type == "cpu"
     assert eng.generate(np.zeros((1, 4), np.int32), 2).device.type == "cpu"
+
+
+def test_training_stack_leaves_jax_and_repro_unloaded():
+    """The train step (AdamW and Adafactor), a checkpoint written and
+    restored, the pipeline, `TrainLoop` with a crash and a resume, the
+    compressed all-reduce and ``launch.train`` on the CPU."""
+    out = run_py(
+        "import sys, tempfile\n"
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.data import DataConfig, TokenPipeline\n"
+        "from repro_torch.training import (OptHParams, TrainHParams,\n"
+        "    abstract_train_state, make_train_step, train_state_init)\n"
+        "from repro_torch.checkpoint import (restore_checkpoint,\n"
+        "    save_checkpoint)\n"
+        "from repro_torch.distributed.fault import (SimulatedFailure,\n"
+        "    TrainLoop)\n"
+        "from repro_torch.distributed import (compressed_psum,\n"
+        "    make_compressed_dp_grad_fn)\n"
+        "from repro_torch.nn import init_params, model_decls\n"
+        "pipe = TokenPipeline(DataConfig(64, 4, 16))\n"
+        "for arch in ('qwen2.5-3b', 'deepseek-v3-671b'):\n"
+        "    cfg = get_config(arch).reduced(n_layers=2, vocab_size=64)\n"
+        "    p = init_params(model_decls(cfg), torch.Generator(), 'cpu')\n"
+        "    st = train_state_init(p, cfg)\n"
+        "    b = {k: torch.as_tensor(v) for k, v in\n"
+        "         pipe.global_batch_at(0).items()}\n"
+        "    st, m = make_train_step(cfg, TrainHParams())(st, b)\n"
+        "    d = tempfile.mkdtemp()\n"
+        "    save_checkpoint(d, 1, st)\n"
+        "    restore_checkpoint(d, abstract_train_state(cfg,\n"
+        "        model_decls(cfg)), device='cpu')\n"
+        "cfg = get_config('qwen2.5-3b').reduced(n_layers=2, vocab_size=64)\n"
+        "d = tempfile.mkdtemp()\n"
+        "loop = TrainLoop(cfg, TrainHParams(), pipe, d, ckpt_every=2,\n"
+        "                 device='cpu')\n"
+        "try:\n"
+        "    loop.run(4, fail_at=3)\n"
+        "except SimulatedFailure:\n"
+        "    pass\n"
+        "assert TrainLoop(cfg, TrainHParams(), pipe, d,\n"
+        "                 device='cpu').step == 2\n"
+        "compressed_psum([torch.ones(3), torch.zeros(3)])\n"
+        "make_compressed_dp_grad_fn(lambda w, x: (x @ w).sum(),\n"
+        "    ['cpu', 'cpu'])(torch.ones(3), torch.ones(4, 3))\n"
+        "from repro_torch.launch.train import main\n"
+        "main(['--arch', 'mamba2-370m', '--steps', '2', '--batch', '2',\n"
+        "      '--seq', '16', '--ckpt-dir', tempfile.mkdtemp(),\n"
+        "      '--device', 'cpu'])\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print('LOADED', bad)\n",
+        devices=1, timeout=300,
+    )
+    assert "LOADED []" in out
+
+
+def test_training_entry_points_default_to_the_gpu(monkeypatch, tmp_path):
+    """`TrainLoop`, ``launch.train`` and a checkpoint restored into
+    ``meta`` leaves take the card unless asked for the CPU, and raise
+    without one."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed import TrainLoop
+    from repro_torch.launch.train import main
+    from repro_torch.training import TrainHParams
+
+    cfg = get_config("qwen2.5-3b").reduced(n_layers=2, vocab_size=64)
+    pipe = TokenPipeline(DataConfig(64, 2, 8))
+    save_checkpoint(str(tmp_path / "c"), 1, {"w": torch.ones(2)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: TrainLoop(cfg, TrainHParams(), pipe,
+                                   str(tmp_path / "a")),
+                 lambda: TrainLoop(cfg, TrainHParams(), pipe,
+                                   str(tmp_path / "a"), device="cuda"),
+                 lambda: main(["--arch", "qwen2.5-3b", "--steps", "1",
+                               "--ckpt-dir", str(tmp_path / "b")]),
+                 lambda: restore_checkpoint(str(tmp_path / "c"),
+                                            {"w": torch.ones(2)},
+                                            device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    loop = TrainLoop(cfg, TrainHParams(), pipe, str(tmp_path / "a"),
+                     device="cpu")
+    assert loop.device.type == "cpu"
+    assert {t.device.type for t in loop.state["params"]["embed"].values()} \
+        == {"cpu"}
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

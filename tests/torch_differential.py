@@ -41,7 +41,12 @@ fault attributed to the tenants of its round only.
 
 `ref_param_arrays` and `ref_lm_params` carry `repro`'s language-model
 parameters across (numpy arrays under the reference's key paths, then
-`repro_torch.nn.params_from_arrays`) for the ``test_torch_lm_*`` files.
+`repro_torch.nn.params_from_arrays`) for the ``test_torch_lm_*`` files;
+`lm_train_batch`, `adam_drift_bound` and `train_tree_gap` serve the
+``test_torch_train_*`` files (a batch for both packages, and a
+train-state tree of the port held against `repro`'s leaf by leaf);
+`train_card_vs_cpu` holds the port's train step on the card against its
+own on the CPU, for the card tests and `chip_smoke.py`.
 
 ``device`` is where the kernel legs run; None is the GPU and raises
 without one, so a caller on a host without a card passes
@@ -64,7 +69,8 @@ from repro_torch.filters import FilterBankEngine
 __all__ = ["PortReport", "plan_fields", "port_chaos_check",
            "port_cse_check", "port_five_way_check",
            "port_session_chaos_check", "ref_config", "ref_lm_params",
-           "ref_param_arrays", "scalar_machine_legs"]
+           "ref_param_arrays", "scalar_machine_legs", "lm_train_batch",
+           "adam_drift_bound", "train_card_vs_cpu", "train_tree_gap"]
 
 
 def ref_param_arrays(params) -> dict:
@@ -763,3 +769,192 @@ def lm_case(arch: str, seed: int = 0) -> LmCase:
     ref["generate"] = np.asarray(reng.generate(prompts, LM_DECODE_STEPS + 1))
     port["generate"] = teng.generate(prompts, LM_DECODE_STEPS + 1)
     return LmCase(cfg, ref, port)
+
+
+# training: one batch for both packages, and a state held leaf by leaf
+# ---------------------------------------------------------------------------
+
+
+def lm_train_batch(cfg, rows: int, seq: int, seed: int) -> dict:
+    """A training batch of numpy arrays for ``cfg``: tokens (or embeds),
+    labels, and a mask with about a fifth of its entries 0."""
+    rng = np.random.default_rng(seed)
+    batch = {"labels": rng.integers(0, cfg.vocab_size, (rows, seq))
+             .astype(np.int32),
+             "mask": (rng.uniform(size=(rows, seq)) < 0.8).astype(np.float32)}
+    if cfg.input_kind == "embeds":
+        batch["embeds"] = rng.standard_normal((rows, seq, cfg.d_model)) \
+            .astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (rows, seq)) \
+            .astype(np.int32)
+    return batch
+
+
+# leaves whose gradient is tiny beside their scale after a step, so that
+# Adam turns the rounding of most of their elements into lr-sized updates:
+# the attention key bias (zero at init; the softmax over keys cancels
+# every part of q·bk that does not vary with the key's position)
+NEAR_ZERO_GRAD_LEAVES = ("mixer/bk",)
+# elsewhere, at most this share of a leaf's elements may be so excused
+AMPLIFIED_SHARE = 0.01
+
+
+def adam_drift_bound(hp, steps) -> float:
+    """The most one parameter element can differ between two AdamW runs
+    from the same state through the optimizer steps ``steps`` (the
+    ``step`` values before each update), whatever their gradients.
+
+    A step moves an element by lr_t·|m̂/(√v̂ + eps)| (plus the decay,
+    which shrinks a difference), and by Cauchy–Schwarz over the moments'
+    weights aᵢ = (1−b1)·b1^(t−i), cᵢ = (1−b2)·b2^(t−i),
+    |m̂|/√v̂ ≤ √(Σ aᵢ²/cᵢ) · √(1−b2^t) / (1−b1^t) =: ρ_t (1 at t = 1,
+    1.17 at most for b1 0.9, b2 0.95); so two runs part by at most
+    2·Σ lr_t·ρ_t.  ``hp``: the port's `OptHParams`."""
+    import torch
+
+    from repro_torch.training import schedule
+
+    total = 0.0
+    for step in steps:
+        t = step + 1
+        s = sum((1 - hp.b1) ** 2 * hp.b1 ** (2 * (t - i))
+                / ((1 - hp.b2) * hp.b2 ** (t - i)) for i in range(1, t + 1))
+        rho = np.sqrt(s) * np.sqrt(1 - hp.b2 ** t) / (1 - hp.b1 ** t)
+        total += float(schedule(hp, torch.tensor(step))) * rho
+    return 2.0 * total
+
+
+def train_tree_gap(port: dict, ref: dict, bound: float, opt=None,
+                   drift: float | None = None) -> dict:
+    """``port`` (a flat tree of tensors) against ``ref`` (numpy arrays
+    or tensors under the same ``"/"`` keys), each leaf's max |difference|
+    over its max |ref|.
+
+    AdamW normalises each element by its own moments
+    (``m / (√v + eps)``), so an element's update is only as precise as
+    that element's moments, while they are held to ``bound`` of their
+    *leaf's* scale: an element whose gradient is small beside its leaf's
+    largest carries its rounding, relatively large, into an update of
+    order ``lr``.  With ``opt = (port's optimizer state, ref's)`` (flat,
+    ``"m/<leaf>"`` and ``"v/<leaf>"`` keys), an element beyond ``bound``
+    of its leaf's scale is counted under ``"amplified"`` instead of
+    failing the bound when all of these hold:
+
+      * its own ``m`` differs by more than ``bound`` of itself, or its
+        ``v`` by more than twice that (it enters through a square root);
+      * its difference is at most ``drift``, the most two AdamW runs can
+        part (`adam_drift_bound`, required with ``opt``);
+      * its leaf is one of `NEAR_ZERO_GRAD_LEAVES`, or such elements are
+        at most `AMPLIFIED_SHARE` of the leaf's.
+
+    Otherwise the element counts against the bound.  Returns
+    ``{"worst": max gap of the other elements, "worst_leaf",
+    "amplified": count, "amplified_leaves", "amplified_max": the largest
+    excused difference, "drift"}``."""
+    if opt is not None and drift is None:
+        raise ValueError("an excuse for Adam's amplified rounding needs "
+                         "drift= (adam_drift_bound)")
+    out = {"worst": 0.0, "worst_leaf": None, "amplified": 0,
+           "amplified_leaves": [], "amplified_max": 0.0, "drift": drift}
+
+    def host(t):
+        return np.asarray(t.detach().double().cpu().numpy()
+                          if hasattr(t, "detach") else t, np.float64)
+
+    for k, t in port.items():
+        r = host(ref[k])
+        d = np.abs(host(t) - r)
+        scale = max(float(np.abs(r).max()), 1e-30)
+        if opt is not None and f"m/{k}" in opt[1]:
+            loose = np.zeros(r.shape, bool)
+            for mom, tol in (("m", bound), ("v", 2 * bound)):
+                mp, mr = host(opt[0][f"{mom}/{k}"]), host(opt[1][f"{mom}/{k}"])
+                loose |= np.abs(mp - mr) > tol * np.abs(mr)
+            amp = (d > bound * scale) & loose & (d <= drift)
+            whole = any(k.endswith(s) for s in NEAR_ZERO_GRAD_LEAVES)
+            if amp.any() and (whole or amp.sum() <= AMPLIFIED_SHARE * d.size):
+                out["amplified"] += int(amp.sum())
+                out["amplified_leaves"].append(k)
+                out["amplified_max"] = max(out["amplified_max"],
+                                           float(d[amp].max()))
+                d = np.where(amp, 0.0, d)
+        gap = float(d.max()) / scale if d.size else 0.0
+        if gap > out["worst"]:
+            out["worst"], out["worst_leaf"] = gap, k
+    return out
+
+
+def train_card_vs_cpu(archs, device, bound: float = 1e-4,
+                      steps: int = 2) -> dict:
+    """``steps`` train steps of each reduced arch in float32, TF32 off, on
+    the card ``device`` and on the CPU from one parameter tree (from a CPU
+    generator, seed 0), on the same batches; the first step runs at the
+    schedule's lr 0, the next at its peak 1e-3.
+
+    Returns ``{arch: report}``: ``"ok"`` when every step's metrics are
+    within ``bound`` of the CPU's (relative, over a floor of 0.01), the
+    params within ``bound`` of each leaf's scale (`train_tree_gap`, Adam's
+    amplified rounding counted within its limits) and the optimizer
+    state within ``bound`` of each leaf's scale; the gaps themselves
+    beside it.  Adafactor (deepseek-v3-671b's own optimizer) has no
+    ``m``: its params get no excuse."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn import flatten_tree, init_params, model_decls
+    from repro_torch.nn.common import map_tree
+    from repro_torch.training import (OptHParams, TrainHParams,
+                                      make_train_step, train_state_init)
+
+    opt_hp = OptHParams(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for arch in archs:
+            cfg = get_config(arch).reduced(compute_dtype="float32")
+            params = init_params(model_decls(cfg),
+                                 torch.Generator().manual_seed(0),
+                                 device="cpu")
+            states = {"cpu": train_state_init(params, cfg),
+                      "card": train_state_init(
+                          map_tree(lambda t: t.to(device, copy=True),
+                                   params), cfg)}
+            step = make_train_step(cfg, TrainHParams(opt=opt_hp))
+            met_rel = 0.0
+            for i in range(steps):
+                batch = lm_train_batch(cfg, 4, 16, seed=i)
+                met = {}
+                for name, dev in (("cpu", "cpu"), ("card", device)):
+                    states[name], met[name] = step(states[name], {
+                        k: torch.as_tensor(v).to(dev)
+                        for k, v in batch.items()})
+                for k, v in met["cpu"].items():
+                    met_rel = max(met_rel, abs(float(met["card"][k])
+                                               - float(v))
+                                  / max(abs(float(v)), 1e-2))
+            card_opt = flatten_tree(states["card"]["opt"])
+            cpu_opt = flatten_tree(states["cpu"]["opt"])
+            gp = train_tree_gap(flatten_tree(states["card"]["params"]),
+                                flatten_tree(states["cpu"]["params"]), bound,
+                                opt=(card_opt, cpu_opt),
+                                drift=adam_drift_bound(opt_hp, range(steps)))
+            go = train_tree_gap(card_opt, cpu_opt, bound)
+            on_card = all(t.device.type == torch.device(device).type
+                          for t in card_opt.values())
+            out[arch] = {
+                "ok": bool(met_rel <= bound and gp["worst"] <= bound
+                           and go["worst"] <= bound and on_card),
+                "optimizer": cfg.optimizer, "metrics_rel": met_rel,
+                "params_rel": gp["worst"], "params_worst_leaf":
+                gp["worst_leaf"], "amplified": gp["amplified"],
+                "amplified_leaves": gp["amplified_leaves"],
+                "amplified_max": gp["amplified_max"], "drift": gp["drift"],
+                "opt_rel": go["worst"], "opt_worst_leaf": go["worst_leaf"]}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return out
