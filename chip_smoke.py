@@ -208,6 +208,44 @@ against the push's host clock.  After those timings:
                   can part, in key-bias leaves or at most 1% of a leaf);
                   and the int8 all-reduce on four slots of the card
                   against the exact mean (0.02) and gradient (0.05).
+  * mesh        — the language model on a (2, 4) mesh of the card's slots
+                  (``cuda:0`` in all eight; plain PyTorch, the four
+                  counts zeroed before it must stay 0), in a fresh process
+                  (``--mesh-leg``): qwen2.5-3b at its published widths in
+                  the train phase's shape (B 16 × S 256, AdamW, bf16,
+                  remat), 5 steps unsharded and then 5 on the mesh from
+                  the same init (train rules: data-parallel over the two
+                  data slots, weights stored in pieces over data and
+                  model and gathered a repeat unit at a time): each step
+                  by CUDA events, the peak memory, the state's bytes a
+                  slot from the placement, the bytes one step's
+                  all-gathers and reduce-scatters move, a traced mesh
+                  step (the unsharded one is the train phase's); step 0's
+                  loss against the unsharded one (1e-3), every step's
+                  loss and grad norm (1e-3), and the direction of step
+                  1's update (the sign of each element's first moment)
+                  agreeing in all but 1% of the elements; then the same
+                  at full width cut to 8 layers in float32, TF32 off,
+                  two steps each way with both states on the card: the
+                  params and moments a layer at a time within 1e-4 of the
+                  layer's scale (`train_tree_gap`: elements whose own
+                  moments part by more than keeps their update within
+                  half the bound held to the most two AdamW runs can
+                  part, and counted by layer beyond the bound, in
+                  key-bias leaves or at most 1% of a layer; the largest
+                  gap of the others printed with its headroom);
+                  qwen2.5-3b served at full
+                  width in decode rules (B 4 over data, prompt 32, the
+                  caches' ring over model: sequence-parallel decode),
+                  bf16 and float32, teacher-forced by the unsharded
+                  engine's greedy tokens (logits within 5% / 1e-4 of
+                  their scale, every float32 argmax equal), decode steps
+                  by events beside the unsharded engine's; every arch
+                  reduced, float32, TF32 off, two train steps and greedy
+                  decoding in both decode cases on the mesh against the
+                  card unsharded (1e-4, `tests/torch_differential.py`
+                  `mesh_vs`); and a reduced train state written sharded
+                  on (2, 4), restored on (4, 1) and back, bit-exact.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the main path's shapes (tolerance 0 for the FIR kernels, integer
@@ -223,7 +261,7 @@ whole sweep call, and K1 into a contiguous result, are timed too.
 The cost model's calibration file goes to a temporary directory that is
 removed at exit.  Prints one JSON object per phase, the script's wall
 seconds (the ``total`` phase), the ``{"kernels": [...]}`` line (each
-kernel's launches by leg, ``lm`` and ``train`` among them), the card's
+kernel's launches by leg, ``lm``, ``train`` and ``mesh`` among them), the card's
 name and power limit as ``nvidia-smi`` reports them, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before that line; without a CUDA device it exits 2 at once.
@@ -2383,8 +2421,9 @@ LM_LAUNCH_KEYS = {"blmac_bank_kernel": "bank_apply",
 
 def leg_child(flag: str) -> dict:
     """A phase in a fresh process on the card (``--lm-leg``,
-    ``--train-leg``): its timings free of this process's profiler phases,
-    its tens of GB freed at its exit.  Its phase lines are printed here."""
+    ``--train-leg``, ``--mesh-leg``): its timings free of this process's
+    profiler phases, its tens of GB freed at its exit.  Its phase lines
+    are printed here."""
     res = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
                          capture_output=True, text=True, timeout=900,
                          cwd=HERE)
@@ -2740,6 +2779,546 @@ def train_leg(dev, smi) -> dict:
     return {"launches": launches, "wall_s": time.perf_counter() - t_leg,
             "step_ms": full["step_ms_median_1_4"],
             "peak_bytes": full["peak_bytes"]}
+
+
+# -- the mesh phase -----------------------------------------------------------
+# a (2, 4) mesh of the card's slots; the full-width legs take the train
+# phase's shape (B 16 × S 256, AdamW, bf16, remat) and the lm phase's
+# (B 4, prompt 32, 16 new tokens, cache 256)
+MESH_SHAPE, MESH_AXES = (2, 4), ("data", "model")
+MESH_STEPS = TRAIN_STEPS
+# two bf16 runs differ where bf16 rounding of a data slot's half of a
+# gradient flips the sign of a near-zero element, and Adam turns each
+# flip into an update of order lr (the first chip run found 0.265% of
+# the elements so flipped after one update, over 1% of some layers'
+# biases), so the bf16 params are not held element by element: each
+# step's loss and grad norm are held to the unsharded run's (1e-3; two
+# runs read at most 2.1e-4), and the direction of step 1's update (the
+# first at a nonzero lr: the sign of each element's first moment) must
+# agree in all but MESH_SIGN_FLIP_SHARE of the elements.  The params are
+# held element by element in float32 (TF32 off), two steps (the
+# schedule's lr 0, then its peak), at full width cut to
+# MESH_CHECK_LAYERS layers so that both runs' states stay on the card:
+# params and moments within 1e-4 of each layer's scale, under
+# `train_tree_gap`'s limits; the reduced archs the same way
+MESH_BF16_METRIC_REL = 1e-3
+MESH_SIGN_FLIP_SHARE = 0.01
+MESH_CHECK_STEPS, MESH_CHECK_LAYERS = 2, 8
+MESH_TRAIN_REL = TRAIN_CARD_CPU_REL
+MESH_LOSS_REL = TRAIN_LOSS_REL
+MESH_SERVE_BATCH, MESH_PROMPT, MESH_NEW, MESH_CACHE = 4, 32, 16, 256
+MESH_DECODE_TIMED = 8
+MESH_REDUCED_REL = 1e-4
+
+
+def _events_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _layer_slices(tree: dict, cfg) -> dict:
+    """A flat tree's stacked stage leaves cut into one leaf a layer, keyed
+    ``…/stage<i>/<r>/<rest>`` (the leaf name stays last)."""
+    from repro_torch.nn import stage_plan
+
+    plan = stage_plan(cfg)
+    out = {}
+    for k, t in tree.items():
+        parts = k.split("/")
+        at = next((j for j, p in enumerate(parts) if p.startswith("stage")),
+                  None)
+        if at is None:
+            out[k] = t
+            continue
+        pre, rest = "/".join(parts[:at + 1]), "/".join(parts[at + 1:])
+        for r in range(plan[int(parts[at][5:])].repeat):
+            out[f"{pre}/{r}/{rest}"] = t[r]
+    return out
+
+
+def _decode_ms(eng, prompts, n: int) -> list:
+    """``n`` decode steps after a prefill, each by CUDA events."""
+    logits, st = eng.prefill(prompts)
+    tok = logits[:, -1].argmax(-1)
+    ms = []
+    for _ in range(n):
+        (logits, st), t = _events_ms(lambda: eng.decode(tok, st))
+        ms.append(t)
+        tok = logits[:, -1].argmax(-1)
+    return ms
+
+
+def _qwen_train_setup(dev, compute_dtype, n_layers=None):
+    """qwen2.5-3b's published config in ``compute_dtype`` (its depth cut
+    to ``n_layers`` when given), its declarations, the train phase's
+    hyperparameters and batch on ``dev``, and an init from a CUDA
+    generator with seed 0."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.nn import init_params, model_decls
+    from repro_torch.training import OptHParams, TrainHParams
+
+    cfg = get_config("qwen2.5-3b")
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size,
+           cfg.compute_dtype, cfg.param_dtype, cfg.remat, cfg.optimizer) ==
+          (36, 2048, 11008, 151936, "bfloat16", "float32", "full", "adamw"),
+          f"not qwen2.5-3b's published training config: {cfg}")
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype,
+                              n_layers=n_layers or cfg.n_layers)
+    decls = model_decls(cfg)
+    hp = TrainHParams(opt=OptHParams(learning_rate=TRAIN_LR,
+                                     warmup_steps=TRAIN_WARMUP,
+                                     total_steps=MESH_STEPS))
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                    kind="markov"))
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in pipe.global_batch_at(0).items()}
+
+    def init():
+        return init_params(decls, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+
+    return cfg, decls, hp, batch, init
+
+
+def _mesh_state(cfg, decls, init, mesh, rules):
+    """The train state of a fresh init placed on the mesh, leaf by leaf
+    from the unplaced params (never two whole copies of the state)."""
+    import torch
+
+    from repro_torch.distributed import device_put, sanitized_shardings
+    from repro_torch.nn import param_pspecs
+    from repro_torch.training import train_state_init
+
+    params = init()
+    placed = device_put(params, sanitized_shardings(
+        mesh, param_pspecs(decls, rules), params))
+    del params
+    free_cuda()
+    state = train_state_init(placed, cfg)
+    torch.cuda.synchronize()
+    return state
+
+
+def _m_signs(state, dev):
+    """(leaf, the sign of each element of its first moment as int8 on
+    ``dev``), one leaf at a time (a placed leaf gathered first)."""
+    import torch
+
+    from repro_torch.distributed import gather
+    from repro_torch.nn import flatten_tree
+
+    for k, t in flatten_tree(state["opt"]).items():
+        if k.startswith("m/"):
+            yield k, torch.sign(gather(t, dev)).to(torch.int8)
+
+
+def mesh_train_full(dev, smi, mesh) -> dict:
+    """qwen2.5-3b at full width in bf16, 5 AdamW steps unsharded and then
+    on the mesh from the same init, each by CUDA events; each step's
+    loss and grad norm, and the direction of step 1's update, held to
+    the unsharded run's (see the module notes)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.distributed import (TRAFFIC, batch_shardings,
+                                         device_put, make_rules,
+                                         reset_traffic)
+    from repro_torch.distributed.placement import placed_bytes
+    from repro_torch.nn import count_params
+    from repro_torch.training import make_train_step, train_state_init
+
+    cfg, decls, hp, batch, init = _qwen_train_setup(dev, "bfloat16")
+    n_params = count_params(decls)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    traffic = {}
+
+    def run(step, state, b, after_step1):
+        ms, losses, gnorms = [], [], []
+        reset_traffic()
+        for i in range(MESH_STEPS):
+            (state, m), t = _events_ms(lambda: step(state, b))
+            ms.append(t)
+            losses.append(m["loss"].item())
+            gnorms.append(m["grad_norm"].item())
+            if i == 0:
+                traffic.update(TRAFFIC)  # the bytes one step moved
+            if i == 1:
+                after_step1(state)
+        return state, ms, losses, gnorms
+
+    # the unsharded run: its step-1 update directions kept on the host
+    # (its traced step is the train phase's `step_traced`: the same step)
+    u_signs = {}
+    walls = {}
+    t_start = time.perf_counter()
+    state = train_state_init(init(), cfg)
+    ustep = make_train_step(cfg, hp)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    state, u_ms, u_loss, u_gn = run(ustep, state, batch, lambda st: (
+        u_signs.update((k, v.cpu()) for k, v in _m_signs(st, dev))))
+    u_peak = torch.cuda.max_memory_allocated()
+    del state, ustep
+    free_cuda()
+    walls["unsharded"] = time.perf_counter() - t_start
+
+    flips = {}
+
+    def count_flips(st):
+        for k, v in _m_signs(st, dev):
+            flips[k] = (int((v != u_signs[k].to(dev)).sum()), v.numel())
+        free_cuda()
+
+    rules = make_rules(mesh, "train")
+    t0 = time.perf_counter()
+    state = _mesh_state(cfg, decls, init, mesh, rules)
+    place_s = time.perf_counter() - t0
+    sb = placed_bytes({"params": state["params"], "opt": state["opt"]})
+    mbatch = device_put(batch, batch_shardings(mesh, rules, batch))
+    step = make_train_step(cfg, hp, mesh, rules)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    state, m_ms, m_loss, m_gn = run(step, state, mbatch, count_flips)
+    m_peak = torch.cuda.max_memory_allocated()
+    walls["mesh"] = time.perf_counter() - t_start - walls["unsharded"]
+    tr = profile_step(lambda: step(state, mbatch), 0, None, steps=1, reps=1)
+    m_trace = {**{k: tr[k] for k in ("idle_share", "kernels_seen",
+                                     "device_busy_us_per_step",
+                                     "span_us_median", "wall_us_unprofiled")},
+               "kernels_top": sorted(
+                   ({"name": n[:80], **r} for n, r in tr["kernels"].items()),
+                   key=lambda r: -r["device_us"])[:6]}
+    del state, mbatch, step, u_signs, tr
+    free_cuda()
+    walls["traced_step"] = (time.perf_counter() - t_start
+                            - walls["unsharded"] - walls["mesh"])
+    u_med, m_med = statistics.median(u_ms[1:]), statistics.median(m_ms[1:])
+    rel0 = abs(m_loss[0] - u_loss[0]) / abs(u_loss[0])
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(m_loss, u_loss)]
+    gn_rel = [abs(a - b) / abs(b) for a, b in zip(m_gn, u_gn)]
+    n_flip = sum(f for f, _ in flips.values())
+    n_all = sum(n for _, n in flips.values())
+    worst_flips = sorted(((k[2:], f / n) for k, (f, n) in flips.items()),
+                         key=lambda kv: -kv[1])[:6]
+    out = {
+        "arch": cfg.name, "params": n_params, "mesh": dict(mesh.shape),
+        "slot_devices": sorted({str(d) for d in mesh.devices.flat}),
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": MESH_STEPS,
+        "lr": TRAIN_LR, "compute_dtype": cfg.compute_dtype,
+        "remat": cfg.remat,
+        "unsharded": {"step_ms": u_ms, "step_ms_median_1_4": u_med,
+                      "losses": u_loss, "grad_norms": u_gn,
+                      "peak_bytes": u_peak,
+                      "tokens_per_s": tokens / u_med * 1e3,
+                      "traced": "train_full_width's step_traced"},
+        "mesh_run": {"step_ms": m_ms, "step_ms_median_1_4": m_med,
+                     "losses": m_loss, "grad_norms": m_gn,
+                     "peak_bytes": m_peak,
+                     "tokens_per_s": tokens / m_med * 1e3,
+                     "traced": m_trace},
+        "mesh_over_unsharded": m_med / u_med,
+        "step0_loss_rel": rel0, "loss_bound_rel": MESH_LOSS_REL,
+        "loss_rel_by_step": loss_rel, "grad_norm_rel_by_step": gn_rel,
+        "metrics_bound_rel": MESH_BF16_METRIC_REL,
+        "step1_update_sign_flips": {
+            "elements": n_all, "flipped": n_flip, "share": n_flip / n_all,
+            "bound_share": MESH_SIGN_FLIP_SHARE,
+            "worst_leaves": worst_flips},
+        "state_bytes_total": sb["total"],
+        "state_bytes_per_slot": sb["per_slot"],
+        "gather_bytes_per_step": traffic["gather_bytes"],
+        "reduce_scatter_bytes_per_step": traffic["reduce_scatter_bytes"],
+        "place_s": place_s, "wall_s": walls,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit({"phase": "mesh_train_full", **out})
+    check(all(map(math.isfinite, m_loss + m_gn + u_loss + u_gn)),
+          f"loss {u_loss} / {m_loss}, grad_norm {u_gn} / {m_gn}")
+    check(rel0 <= MESH_LOSS_REL, f"mesh: step 0's loss {m_loss[0]} vs "
+                                 f"unsharded {u_loss[0]}")
+    check(max(loss_rel + gn_rel) <= MESH_BF16_METRIC_REL,
+          f"mesh bf16 loss / grad norm vs unsharded by step: {loss_rel} / "
+          f"{gn_rel}, bound {MESH_BF16_METRIC_REL}")
+    check(n_flip <= MESH_SIGN_FLIP_SHARE * n_all,
+          f"mesh bf16 step 1's update direction differs from the unsharded "
+          f"run's in {n_flip} of {n_all} elements (worst {worst_flips})")
+    check(m_loss[-1] < m_loss[0], f"mesh: loss {m_loss} does not fall")
+    return out
+
+
+def mesh_train_check(dev, smi, mesh) -> dict:
+    """qwen2.5-3b at full width cut to MESH_CHECK_LAYERS layers, float32
+    (TF32 off), two steps unsharded and two on the mesh from the same
+    init, both states on the card: the metrics, and the params and
+    optimizer state a layer at a time (a stacked leaf's layer is a leaf
+    of its own here, its scale the layer's), against the unsharded run's
+    (`train_tree_gap`; the largest gap held to the bound with its
+    headroom, the loose elements' largest, the amplified elements' count
+    and share by layer)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_differential import adam_drift_bound, train_tree_gap
+
+    from repro_torch.distributed import (batch_shardings, device_put,
+                                         gather, make_rules)
+    from repro_torch.nn import count_params, flatten_tree
+    from repro_torch.training import make_train_step, train_state_init
+
+    cfg, decls, hp, batch, init = _qwen_train_setup(dev, "float32",
+                                                    MESH_CHECK_LAYERS)
+    ref = train_state_init(init(), cfg)
+    step = make_train_step(cfg, hp)
+    u_met = []
+    for _ in range(MESH_CHECK_STEPS):
+        ref, m = step(ref, batch)
+        u_met.append({k: v.item() for k, v in m.items()})
+    del step
+    free_cuda()
+    rules = make_rules(mesh, "train")
+    state = _mesh_state(cfg, decls, init, mesh, rules)
+    mbatch = device_put(batch, batch_shardings(mesh, rules, batch))
+    step = make_train_step(cfg, hp, mesh, rules)
+    m_met = []
+    for _ in range(MESH_CHECK_STEPS):
+        state, m = step(state, mbatch)
+        m_met.append({k: v.item() for k, v in m.items()})
+    del step, mbatch
+    free_cuda()
+    met_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-2)
+                  for a, b in zip(m_met, u_met) for k in b)
+    t0 = time.perf_counter()
+    drift = adam_drift_bound(hp.opt, range(MESH_CHECK_STEPS))
+    gp = {"worst": 0.0, "worst_leaf": None, "loose_worst": 0.0,
+          "loose_worst_leaf": None, "amplified": 0, "amplified_max": 0.0}
+    by_layer = {}
+    go = {"worst": 0.0, "worst_leaf": None}
+    mine = _layer_slices(flatten_tree(
+        {"params": state["params"], "opt": state["opt"]}), cfg)
+    theirs = _layer_slices(flatten_tree(
+        {"params": ref["params"], "opt": ref["opt"]}), cfg)
+    for key, t in mine.items():
+        if not key.startswith("params/"):
+            continue
+        leaf = key[len("params/"):]
+        moms = {f"{mom}/{leaf}": f"opt/{mom}/{leaf}" for mom in ("m", "v")}
+        mo = {k: gather(mine[v], dev) for k, v in moms.items()}
+        ro = {k: theirs[v] for k, v in moms.items()}
+        g = train_tree_gap({leaf: gather(t, dev)}, {leaf: theirs[key]},
+                           MESH_TRAIN_REL, opt=(mo, ro), drift=drift)
+        o = train_tree_gap(mo, ro, MESH_TRAIN_REL)
+        for acc, new, w in ((gp, g, "worst"), (gp, g, "loose_worst"),
+                            (go, o, "worst")):
+            if new[w] > acc[w]:
+                acc[w], acc[f"{w}_leaf"] = new[w], new[f"{w}_leaf"]
+        gp["amplified"] += g["amplified"]
+        gp["amplified_max"] = max(gp["amplified_max"], g["amplified_max"])
+        by_layer.update(g["amplified_by_leaf"])
+    compare_s = time.perf_counter() - t0
+    del state, ref, mine, theirs
+    free_cuda()
+    out = {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+           "n_layers": cfg.n_layers, "params": count_params(decls),
+           "steps": MESH_CHECK_STEPS, "bound_rel": MESH_TRAIN_REL,
+           "losses_unsharded": [m["loss"] for m in u_met],
+           "losses_mesh": [m["loss"] for m in m_met], "metrics_rel": met_rel,
+           "params_gap": {**gp, "drift": drift, "compared_per": "layer",
+                          "headroom": MESH_TRAIN_REL / max(gp["worst"],
+                                                           1e-30),
+                          "amplified_layers": len(by_layer),
+                          "amplified_by_layer": {
+                              k: [n, share] for k, (n, share)
+                              in sorted(by_layer.items())}},
+           "opt_gap": go, "compare_s": compare_s, "nvidia_smi": smi}
+    emit({"phase": "mesh_train_check", **out})
+    check(met_rel <= MESH_TRAIN_REL and gp["worst"] <= MESH_TRAIN_REL
+          and go["worst"] <= MESH_TRAIN_REL,
+          f"float32 mesh vs unsharded: metrics {met_rel}, params {gp}, "
+          f"optimizer state {go}")
+    return out
+
+
+def mesh_serve_full(dev, smi, mesh) -> dict:
+    """qwen2.5-3b at full width served on the mesh in decode rules (the
+    batch over data, the caches' ring over model), bf16 and float32,
+    against the unsharded engine on the card: the mesh's prefill and 15
+    decode steps teacher-forced by the unsharded engine's greedy tokens,
+    each decode step by CUDA events (where every argmax agrees, the
+    mesh's own greedy tokens are those tokens)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_rules
+    from repro_torch.nn import init_params, model_decls
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config("qwen2.5-3b")
+    params = init_params(model_decls(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_SERVE_BATCH, MESH_PROMPT)).astype(np.int32)
+    rules = make_rules(mesh, "decode", MESH_SERVE_BATCH)
+    out = {"arch": cfg.name, "mesh": dict(mesh.shape), "rules": {
+        k: rules[k] for k in ("batch", "cache_seq", "kv_heads", "d_model")},
+        "batch": MESH_SERVE_BATCH, "prompt": MESH_PROMPT,
+        "new_tokens": MESH_NEW, "cache_len": MESH_CACHE}
+    for dtype, bound in (("bfloat16", LM_BF16_REL), ("float32", LM_F32_REL)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        plain = ServeEngine(c, params, MESH_CACHE, device=dev)
+        ptok, plog = plain.generate(prompts, MESH_NEW, with_logits=True)
+        p_ms = _decode_ms(plain, prompts, MESH_DECODE_TIMED)
+        del plain
+        eng = ServeEngine(c, params, MESH_CACHE, mesh=mesh, rules=rules)
+        logits, st = eng.prefill(prompts)
+        k = st["caches"][0][0]["k"]
+        check(len(k.groups()) == 8 and k.spec[3] == "model",
+              f"decode caches not split over the ring: {k.spec}")
+        steps, m_ms = [logits[:, -1]], []
+        for i in range(MESH_NEW - 1):  # teacher-forced by plain's tokens
+            (logits, st), t = _events_ms(lambda: eng.decode(ptok[:, i], st))
+            m_ms.append(t)
+            steps.append(logits[:, -1])
+        gap = logit_gap(torch.stack(steps, 1), torch.stack(plog, 1))
+        check(gap["rel"] <= bound, f"mesh {dtype} decode logits "
+                                   f"{gap['rel']:.3g} of the scale from the "
+                                   f"unsharded engine's, bound {bound}")
+        agree = gap["argmax_agree"]
+        if dtype == "float32":
+            check(agree == 1.0, f"mesh float32 greedy tokens differ: "
+                                f"{agree}")
+        del st, logits, steps, eng
+        free_cuda()
+        out[dtype] = {"logits_vs_unsharded": {**gap, "bound_rel": bound},
+                      "argmax_agreement_teacher_forced": agree,
+                      "decode_ms_median": statistics.median(m_ms),
+                      "decode_ms_all": m_ms,
+                      "unsharded_decode_ms_median": statistics.median(p_ms),
+                      "unsharded_decode_ms_all": p_ms}
+    del params
+    free_cuda()
+    return {**out, "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi}
+
+
+def mesh_checkpoint(dev, mesh) -> dict:
+    """A reduced qwen2.5-3b train state written sharded on the (2, 4)
+    mesh (one file a slot), restored on (4, 1), written again and
+    restored on (2, 4): bit-exact (`torch.equal`) each way."""
+    import json as _json
+
+    import torch
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (device_put, gather, make_mesh,
+                                         make_rules, sanitized_shardings)
+    from repro_torch.nn import flatten_tree, init_params, model_decls
+    from repro_torch.training import (abstract_train_state, train_state_init,
+                                      train_state_pspecs)
+
+    cfg = get_config("qwen2.5-3b").reduced(n_layers=2, vocab_size=256,
+                                           d_model=128, d_ff=256)
+    decls = model_decls(cfg)
+    state = train_state_init(init_params(
+        decls, torch.Generator().manual_seed(0), device=dev), cfg)
+    want = {k: t.cpu() for k, t in flatten_tree(state).items()}
+
+    def shardings(m, like):
+        return sanitized_shardings(m, train_state_pspecs(
+            cfg, decls, make_rules(m, "train")), like)
+
+    def same(tree, what):
+        got = {k: t.cpu() for k, t in flatten_tree(gather(tree, dev)).items()}
+        check(all(torch.equal(got[k], want[k]) for k in want),
+              f"checkpoint {what} not bit-exact")
+
+    def shard_files(d, step):
+        with open(os.path.join(d, f"step_{step:09d}", "manifest.json")) as f:
+            return len(_json.load(f)["leaves"][
+                "params__stage0__slot0__mixer__wq"]["shards"])
+
+    m41 = make_mesh((4, 1), MESH_AXES, devices=[dev] * 4)
+    placed = device_put(state, shardings(mesh, state))
+    like = abstract_train_state(cfg, decls)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_ckpt") as d:
+        save_checkpoint(d, 1, placed, sharded=True)
+        on41, _ = restore_checkpoint(d, like, shardings=shardings(m41, like))
+        same(on41, "(2, 4) -> (4, 1)")
+        save_checkpoint(d, 2, on41, sharded=True)
+        back, _ = restore_checkpoint(d, placed)
+        same(back, "(4, 1) -> (2, 4)")
+        files = {"(2, 4)": shard_files(d, 1), "(4, 1)": shard_files(d, 2)}
+    check(files == {"(2, 4)": 8, "(4, 1)": 4}, f"shard files {files}")
+    return {"leaves": len(want), "shard_files_of_wq": files,
+            "bit_exact": True}
+
+
+def mesh_leg(dev, smi) -> dict:
+    """The language model on a (2, 4) mesh of the card's slots (see the
+    module notes); returns the phase's numbers and the four kernels'
+    launches during it (zeroed just before)."""
+    import torch
+
+    from repro_torch.configs import all_configs
+    from repro_torch.distributed import make_mesh
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_differential import mesh_vs
+
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+    bmm = importlib.import_module("repro_torch.kernels.blmac_matmul")
+    bf.reset_launch_counts()
+    bmm.pulse_matmul.launches = 0
+    t_leg = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, devices=[dev] * 8)
+    train = timed("train_full", lambda: mesh_train_full(dev, smi, mesh))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timed("train_check", lambda: mesh_train_check(dev, smi, mesh))
+    serve = timed("serve_full", lambda: mesh_serve_full(dev, smi, mesh))
+    emit({"phase": "mesh_serve_full", **serve})
+    reduced = timed("reduced", lambda: {
+        arch: mesh_vs(arch, [dev] * 8, dev, bound=MESH_REDUCED_REL)
+        for arch in sorted(all_configs())})
+    bad = {a: r for a, r in reduced.items() if not r["ok"]}
+    check(not bad, f"reduced archs on the mesh vs unsharded: {bad}")
+    emit({"phase": "mesh_reduced_vs_unsharded", "bound_rel":
+          MESH_REDUCED_REL, "train_steps": 2, "archs": reduced})
+    ckpt = timed("checkpoint", lambda: mesh_checkpoint(dev, mesh))
+    emit({"phase": "mesh_checkpoint", **ckpt})
+    emit({"phase": "mesh_wall_s", **walls})
+    launches = {"bank_apply": bf.bank_apply.launches,
+                "specialized_call": bf.specialized_call.launches,
+                "combine_fold": bf.combine_fold.launches,
+                "pulse_matmul": bmm.pulse_matmul.launches}
+    check(not any(launches.values()),
+          f"the mesh path launched the FIR or pulse kernels: {launches}")
+    return {"launches": launches, "wall_s": time.perf_counter() - t_leg,
+            "step_ms": train["mesh_run"]["step_ms_median_1_4"],
+            "peak_bytes": train["mesh_run"]["peak_bytes"]}
 
 
 def main() -> int:
@@ -3153,15 +3732,18 @@ def main() -> int:
     # -- the lm phase, in a fresh process: none of the four kernels runs on
     # the language-model path (the reference's reaches no Pallas kernel) --
     free_cuda()
-    for leg in ("lm", "train"):
+    legs_wall_s = {}
+    for leg in ("lm", "train", "mesh"):
+        t_leg = time.perf_counter()
         res = leg_child(f"--{leg}-leg")
+        legs_wall_s[leg] = time.perf_counter() - t_leg
         for row in kernels:
             n = res["launches"][LM_LAUNCH_KEYS[row["name"]]]
             row.setdefault("launches_by_leg", {})[leg] = n
             row["launches"] += n
 
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
-          "device": kind, "nvidia_smi": smi})
+          "legs_wall_s": legs_wall_s, "device": kind, "nvidia_smi": smi})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3169,12 +3751,13 @@ def main() -> int:
     return 0
 
 
-LEGS = {"--lm-leg": lm_leg, "--train-leg": train_leg}
+LEGS = {"--lm-leg": lm_leg, "--train-leg": train_leg,
+        "--mesh-leg": mesh_leg}
 
 
 def leg_main(flag: str) -> int:
-    """``--lm-leg`` or ``--train-leg``: that phase alone, its result on a
-    line of its own (read by `leg_child`)."""
+    """``--lm-leg``, ``--train-leg`` or ``--mesh-leg``: that phase alone,
+    its result on a line of its own (read by `leg_child`)."""
     import torch
 
     if not torch.cuda.is_available():

@@ -6,15 +6,21 @@ The port's `repro.checkpoint.manager`.  One directory per step:
     <root>/step_000000042/          (atomic rename = commit)
         manifest.json               {step, sharded, leaves}
         <leaf>.npy                  (gathered layout), or
-        <leaf>.shard<k>.npy         (per-shard layout, read only)
+        <leaf>.shard<k>.npy         (per-shard layout)
 
 A leaf's file is named by its key path joined with ``"__"``
 (``params__stage0__slot0__ffn__down.npy``, ``step.npy``), so a checkpoint
 either package writes restores in the other.  A bfloat16 leaf is written
 as the reference writes an ml_dtypes array — its raw 2-byte words under
 the descr ``'<V2'`` — and read back as bfloat16 when the leaf it restores
-into is bfloat16.  The per-shard layout, which the reference writes with
-``sharded=True``, is assembled on the host from its shards' index ranges.
+into is bfloat16.
+
+The per-shard layout (``sharded=True``) is written from a placed leaf
+(`ShardedTensor`): one file a mesh slot in mesh order, with its block's
+index ranges, as the reference writes an array's addressable shards.
+Restore assembles a leaf on the host from its shards and places it on a
+mesh — the leaf's own in ``tree_like``, or ``shardings`` — so a state
+saved on one mesh restores on another (elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -59,10 +65,19 @@ def _save_leaf(path: str, leaf) -> None:
     np.save(path, np.asarray(leaf))
 
 
-def save_checkpoint(root: str, step: int, tree: Any, keep: int = 3) -> str:
-    """Write ``tree`` (nested dicts of tensors or arrays) atomically as
-    step ``step``; keep the newest ``keep`` steps.  Returns the committed
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def save_checkpoint(root: str, step: int, tree: Any, keep: int = 3,
+                    sharded: bool = False) -> str:
+    """Write ``tree`` (nested dicts of tensors, arrays or `ShardedTensor`s)
+    atomically as step ``step``; keep the newest ``keep`` steps.  With
+    ``sharded``, a leaf placed on a mesh of several slots is written one
+    file a slot; every other leaf is gathered.  Returns the committed
     directory."""
+    from ..distributed.placement import ShardedTensor, gather
+
     os.makedirs(root, exist_ok=True)
     name = f"step_{step:09d}"
     tmp = os.path.join(root, name + ".tmp")
@@ -70,11 +85,22 @@ def save_checkpoint(root: str, step: int, tree: Any, keep: int = 3) -> str:
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    manifest = {"step": step, "sharded": False, "leaves": {}}
+    manifest = {"step": step, "sharded": sharded, "leaves": {}}
     for path, leaf in flatten_tree(tree).items():
         key = _file_key(path)
-        _save_leaf(os.path.join(tmp, f"{key}.npy"), leaf)
-        manifest["leaves"][key] = {}
+        meta: dict[str, Any] = {}
+        if sharded and isinstance(leaf, ShardedTensor) and leaf.mesh.size > 1:
+            for i, (index, piece) in enumerate(leaf.slot_pieces()):
+                _save_leaf(os.path.join(tmp, f"{key}.shard{i}.npy"), piece)
+                meta.setdefault("shards", []).append(
+                    {"i": i, "index": [list(r) for r in index]})
+            meta["shape"] = list(leaf.shape)
+            meta["dtype"] = _dtype_name(leaf.dtype)
+        else:
+            if isinstance(leaf, ShardedTensor):
+                leaf = gather(leaf, "cpu")
+            _save_leaf(os.path.join(tmp, f"{key}.npy"), leaf)
+        manifest["leaves"][key] = meta
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
         fsync_file(f)
@@ -139,12 +165,17 @@ def _tensor(arr: np.ndarray, like, key: str) -> torch.Tensor:
 
 
 def restore_checkpoint(root: str, tree_like: Any, step: int | None = None,
-                       device=None) -> tuple[Any, int]:
+                       device=None, shardings: Any = None) -> tuple[Any, int]:
     """Restore step ``step`` (default: the latest) into the structure of
     ``tree_like``; each leaf goes to the device of ``tree_like``'s leaf,
-    or to ``device`` when given (``meta`` leaves need one).  Leaves keep
-    the checkpoint's dtypes; a bfloat16 leaf's raw words need a bfloat16
-    leaf in ``tree_like``."""
+    or to ``device`` when given (``meta`` leaves need one).  A leaf is
+    placed on a mesh by ``shardings`` (a tree of `NamedSharding` like
+    ``tree_like``) when given, else as ``tree_like``'s leaf is placed
+    when that is a `ShardedTensor` — the elastic re-mesh path.  Leaves
+    keep the checkpoint's dtypes; a bfloat16 leaf's raw words need a
+    bfloat16 leaf in ``tree_like``."""
+    from ..distributed.placement import ShardedTensor, device_put
+
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -153,13 +184,20 @@ def restore_checkpoint(root: str, tree_like: Any, step: int | None = None,
     d = os.path.join(root, f"step_{step:09d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    flat_sh = (flatten_tree(shardings) if shardings is not None else {})
     leaves = {}
     for path, like in flatten_tree(tree_like).items():
         key = _file_key(path)
+        t = _tensor(_read_leaf(d, key, manifest["leaves"][key]), like, key)
+        sh = flat_sh.get(path)
+        if sh is None and isinstance(like, ShardedTensor):
+            sh = like.sharding
+        if sh is not None:
+            leaves[path] = device_put(t, sh)
+            continue
         target = dev if dev is not None else like.device
         if target.type == "meta":
             raise ValueError(f"{key}: restoring into a meta tensor needs "
                              f"device=")
-        t = _tensor(_read_leaf(d, key, manifest["leaves"][key]), like, key)
         leaves[path] = t.to(target)
     return unflatten_tree(leaves), step

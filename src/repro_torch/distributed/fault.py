@@ -11,6 +11,11 @@ PyTorch):
     (`faultbank.StragglerStats`),
   * failure injection for tests (``fail_at``), proving crash → restart →
     bit-exact convergence with the uninterrupted run.
+
+On a mesh (``mesh=``, ``rules=`` default ``make_rules(mesh, "train")``)
+the state is placed by `train_state_pspecs`, each batch by
+``batch_shardings`` (a dict of `NamedSharding` by batch key, default the
+rules' batch spec), and the step is the data-parallel one.
 """
 from __future__ import annotations
 
@@ -21,9 +26,11 @@ import torch
 from ..checkpoint.manager import latest_step, restore_checkpoint, save_checkpoint
 from ..data.pipeline import TokenPipeline
 from ..kernels.runtime import resolve_device
-from ..nn import init_params, model_decls
+from ..nn import init_params, model_decls, param_pspecs
 from ..training.train_step import TrainHParams, make_train_step, train_state_init
 from .faultbank import SimulatedFailure, StragglerStats
+from .placement import device_put, gather
+from .sharding import batch_shardings, make_rules, sanitized_shardings
 
 __all__ = ["SimulatedFailure", "StragglerStats", "TrainLoop"]
 
@@ -36,18 +43,28 @@ class TrainLoop:
 
     def __init__(self, cfg, hp: TrainHParams, pipeline: TokenPipeline,
                  ckpt_dir: str, *, ckpt_every: int = 10, keep: int = 3,
+                 mesh=None, rules=None, batch_shardings=None,
                  init_key: int = 0, device=None):
-        self.device = resolve_device(device)
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.devices.flat[0])
         self.cfg = cfg
         self.hp = hp
         self.pipeline = pipeline
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.keep = keep
+        self.mesh = mesh
+        if mesh is not None and rules is None:
+            rules = make_rules(mesh, "train")
+        self.rules = rules
+        self.batch_shardings = batch_shardings
         self.stragglers = StragglerStats()
-        self._step_fn = make_train_step(cfg, hp)
+        self._step_fn = make_train_step(cfg, hp, mesh, rules)
         gen = torch.Generator(device=self.device).manual_seed(init_key)
         params = init_params(model_decls(cfg), gen, device=self.device)
+        if mesh is not None:
+            params = device_put(params, sanitized_shardings(
+                mesh, param_pspecs(model_decls(cfg), rules), params))
         self.state = train_state_init(params, cfg)
         self.metrics_history: list[dict] = []
         self._maybe_resume()
@@ -59,11 +76,16 @@ class TrainLoop:
 
     @property
     def step(self) -> int:
-        return int(self.state["step"])
+        return int(gather(self.state["step"]))
 
     def _put(self, batch) -> dict:
-        return {k: torch.as_tensor(v).to(self.device)
-                for k, v in batch.items()}
+        batch = {k: torch.as_tensor(v).to(self.device)
+                 for k, v in batch.items()}
+        if self.mesh is None:
+            return batch
+        sh = self.batch_shardings or batch_shardings(self.mesh, self.rules,
+                                                     batch)
+        return {k: device_put(v, sh[k]) for k, v in batch.items()}
 
     def run(self, until_step: int,
             fail_at: int | None = None) -> list[dict]:

@@ -15,7 +15,10 @@ adaptive choice), so both packages sum in the same order.
 
 Decode writes the new token into the cache tensors **in place** (the
 reference returns updated copies); `decode_step` returns the same
-tensors.
+tensors.  A cache sharded over ``cache_seq`` on a mesh (`SeqShards`)
+is attended piece by piece on each piece's device, the new token written
+into the piece that owns its ring slot, and the pieces' running (max,
+denominator, accumulator) merged by log-sum-exp (`combine_partials`).
 """
 from __future__ import annotations
 
@@ -81,6 +84,22 @@ def _combine(carry, qg, q_pos, kc, vc, pc, scale, softcap, window,
     pv = torch.einsum(ev, p.to(vc.dtype), vc)
     acc = acc * alpha[..., None] + pv.float()
     return m_new, den, acc
+
+
+def combine_partials(parts) -> torch.Tensor:
+    """Merge online-softmax partials ``(max, denominator, accumulator)``
+    of disjoint key sets (on one device) by log-sum-exp: the attention
+    output over their union.  A part with no valid key (max −inf or the
+    masked floor, denominator 0) adds nothing, and a union with none
+    gives 0, never NaN."""
+    m = torch.stack([p[0] for p in parts]).amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    den, acc = None, None
+    for mi, di, ai in parts:
+        w = torch.exp(mi - m)
+        den = di * w if den is None else den + di * w
+        acc = ai * w[..., None] if acc is None else acc + ai * w[..., None]
+    return acc / torch.clamp(den, min=1e-30)[..., None]
 
 
 def _init_carry(b, hkv, g, sq, dv, device):
@@ -254,12 +273,69 @@ def build_kv_cache(k, v, pos, cache_len: int, window: int) -> dict:
     return {"k": ck, "v": cv, "pos": cp}
 
 
+def _decode_chunk(w: int, kv_chunk: int) -> int:
+    kvc = min(kv_chunk, w) if w <= kv_chunk else max(kv_chunk, w // 64)
+    return w if w % kvc else kvc
+
+
+def write_ring_piece(t, bidx, slot, lo: int, hi: int, new, head_dims=()):
+    """Write ``new[b]`` into row ``b`` of ``t`` — a piece holding ring
+    slots ``[lo, hi)`` of a cache — at ``slot[b] − lo``, for the rows
+    whose slot falls in the piece; other rows keep their entries.  No
+    host sync: the rows are chosen by ``torch.where``, not by indexing.
+    ``head_dims``: index tensors of the dims between the row and the
+    slot (the kv heads)."""
+    sel = (slot >= lo) & (slot < hi)
+    loc = torch.clamp(slot - lo, 0, hi - lo - 1)
+    at = (bidx[:, None], *(h[None, :] for h in head_dims), loc[:, None]) \
+        if head_dims else (bidx, loc)
+    keep = sel.reshape(sel.shape + (1,) * (new.dim() - 1))
+    t[at] = torch.where(keep, new.to(t.dtype), t[at])
+
+
+def _attn_decode_pieces(q, k, v, pos, cache, cfg, meta: AttnMeta):
+    """Decode against a cache split along its ring (`SeqShards`): write
+    the new k/v into the piece owning slot ``pos % W``, attend each
+    piece on its device, merge on q's device."""
+    b, sq, h, d = q.shape
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    w = ck.length
+    hkv = ck.parts[0][2].shape[1]
+    qg = q.reshape(b, sq, hkv, h // hkv, d)
+    kvc = _decode_chunk(w, meta.kv_chunk)
+    parts = []
+    for (lo, hi, tk, dev), (_, _, tv, _), (_, _, tp, _) in zip(
+            ck.parts, cv.parts, cp.parts):
+        bidx = torch.arange(b, device=dev)
+        hidx = torch.arange(hkv, device=dev)
+        p_d = pos.to(dev)
+        slot = p_d[:, 0].long() % w
+        write_ring_piece(tk, bidx, slot, lo, hi, k[:, 0].to(dev), (hidx,))
+        write_ring_piece(tv, bidx, slot, lo, hi, v[:, 0].to(dev), (hidx,))
+        write_ring_piece(tp, bidx, slot, lo, hi, p_d[:, 0])
+        n = hi - lo
+        c = min(kvc, n) if n % min(kvc, n) == 0 else n
+        carry = _init_carry(b, hkv, h // hkv, sq, tv.shape[-1], dev)
+        qd = qg.to(dev)
+        for i in range(n // c):
+            carry = _combine(carry, qd, p_d, tk.narrow(2, i * c, c),
+                             tv.narrow(2, i * c, c), tp[:, i * c:(i + 1) * c],
+                             _scale(cfg), cfg.attn_softcap, meta.window,
+                             "bhsd")
+        parts.append(tuple(t.to(q.device) for t in carry))
+    out = combine_partials(parts)  # (B, Hkv, G, Sq, Dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, -1).to(q.dtype)
+
+
 def attn_decode(p, x, cache: dict, ctx: ShardCtx, cfg, meta: AttnMeta):
     """Single-token decode: x (B, 1, d); cache slots addressed pos % W,
     written in place."""
     b = x.shape[0]
     pos = ctx.positions  # (B, 1) current absolute position
     q, k, v = _qkv(p, x, cfg, pos)
+    if not torch.is_tensor(cache["k"]):  # split over cache_seq on a mesh
+        out = _attn_decode_pieces(q, k, v, pos, cache, cfg, meta)
+        return _out(out, cast(p["wo"], x.dtype)), cache
     ck, cv, cp = cache["k"], cache["v"], cache["pos"]
     hkv, w = ck.shape[1], ck.shape[2]
     slot = pos[:, 0].long() % w
@@ -269,9 +345,7 @@ def attn_decode(p, x, cache: dict, ctx: ShardCtx, cfg, meta: AttnMeta):
     cv[bidx[:, None], torch.arange(hkv, device=x.device)[None, :],
        slot[:, None]] = v[:, 0]
     cp[bidx, slot] = pos[:, 0].to(cp.dtype)
-    kvc = min(meta.kv_chunk, w) if w <= meta.kv_chunk else max(meta.kv_chunk, w // 64)
-    if w % kvc:
-        kvc = w
+    kvc = _decode_chunk(w, meta.kv_chunk)
     out = chunked_attention(
         q, ck, cv, pos, cp,
         scale=_scale(cfg), window=meta.window, softcap=cfg.attn_softcap,

@@ -56,8 +56,8 @@ def _attn_meta(cfg, meta: BlockMeta) -> AttnMeta:
 
 
 def _ffn(p, x, ctx: ShardCtx, cfg, meta: BlockMeta):
-    """The FFN half: (x, aux)."""
-    aux = 0.0
+    """The FFN half: (x, the MoE routing sums or None)."""
+    aux = None
     if meta.ffn != "none":
         h = apply_norm(p["norm2"], x, cfg.norm)
         if meta.ffn == "moe":

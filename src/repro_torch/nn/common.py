@@ -13,9 +13,11 @@ initializer); from the declarations come, without duplication:
 A tree's leaves are named by their ``"/"``-joined key path (for example
 ``stage0/slot0/ffn/down``), the reference's names: `flatten_tree` and
 `unflatten_tree` convert between the nested and the flat form, and
-`quantize_param_tree` and `params_from_arrays` take the flat one.  The
-logical axes are kept for the sharding rules, which the port has not
-taken yet: it runs the reference's unsharded mode.
+`quantize_param_tree` and `params_from_arrays` take the flat one.
+
+The logical axes feed ``param_pspecs``: through the rules of
+`repro_torch.distributed.sharding` they say where a mesh stores each
+leaf (`repro_torch.distributed.placement`).
 """
 from __future__ import annotations
 
@@ -87,6 +89,19 @@ def map_tree(fn, tree: Tree) -> Tree:
     return fn(tree)
 
 
+def map_trees(fn, tree: Tree, *others: Tree) -> Tree:
+    """``fn(leaf, *other leaves)`` over ``tree``'s structure, the other
+    trees walked in step with it (they may hold leaves where ``tree``
+    does)."""
+    if isinstance(tree, Mapping):
+        return {k: map_trees(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_trees(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    return fn(tree, *others)
+
+
 def tree_leaves(tree: Tree) -> list:
     """The leaves of ``tree`` in the order `map_tree` visits them."""
     out: list = []
@@ -130,6 +145,17 @@ def abstract_params(decls: Tree) -> Tree:
                                           device="meta"), decls)
 
 
+def param_pspecs(decls: Tree, rules: dict[str, Any]) -> Tree:
+    """PartitionSpec tree from the logical→mesh axis rules."""
+    from ..distributed.sharding import PartitionSpec
+
+    def spec(d: ParamDecl) -> PartitionSpec:
+        axes = d.axes or (None,) * len(d.shape)
+        return PartitionSpec(*(rules.get(a) if a else None for a in axes))
+
+    return map_tree(spec, decls)
+
+
 def count_params(decls: Tree) -> int:
     return sum(math.prod(d.shape) for d in flatten_tree(decls).values())
 
@@ -150,13 +176,44 @@ def count_active_params(decls: Tree, experts_per_token: int = 0,
 @dataclasses.dataclass
 class ShardCtx:
     """Threaded through every apply(): the step's absolute positions,
-    compute dtype and cache request — the reference's context in its
-    unsharded mode (no rules, no mesh)."""
+    compute dtype and cache request; on a mesh, the rules, the mesh and
+    the data slot this call computes (``rules`` is None unsharded).
+
+    On a mesh one call runs one data slot: its rows ``rows`` of the
+    global batch, on its device ``device``, with every weight gathered
+    there by `gather` just before use.  The context is read only where
+    compute depends on it: the gathers, the MoE groups (`data_size`) and
+    the decode caches sharded over ``cache_seq``."""
 
     positions: torch.Tensor | None = None  # (B, S) int32 absolute positions
     compute_dtype: torch.dtype = torch.bfloat16
     make_cache: bool = False
     cache_len: int = 0
+    rules: dict[str, Any] | None = None
+    mesh: Any = None  # distributed.sharding.Mesh when sharded
+    data_slot: int = 0  # row-major over the rules' batch axes
+    device: torch.device | None = None  # the data slot's device
+    rows: tuple[int, int] | None = None  # its rows of the global batch
+
+    @property
+    def data_size(self) -> int:
+        """How many data slots split the batch (1 unsharded)."""
+        if self.mesh is None:
+            return 1
+        from ..distributed.sharding import batch_axes
+
+        return math.prod(self.mesh.shape[a] for a in batch_axes(self.rules))
+
+    def gather(self, tree: Tree) -> Tree:
+        """``tree`` with every sharded leaf all-gathered onto this data
+        slot's device (autograd carries the gradient back into the
+        pieces); the tree itself unsharded."""
+        if self.mesh is None:
+            return tree
+        from ..distributed.placement import ShardedTensor
+
+        return map_tree(lambda t: t.full(self.device)
+                        if isinstance(t, ShardedTensor) else t, tree)
 
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:

@@ -17,6 +17,12 @@ tensor.  `decode_step` writes into them in place.
 parameter names are the reference's key paths, so ``state_dict()`` is
 the flat tree `quantize_param_tree` takes and ``load_state_dict`` takes
 back.
+
+On a mesh (``ctx.mesh``) a call computes one data slot: the parameters
+are `ShardedTensor`s, gathered onto the slot's device just before use —
+a repeat unit's inside its remat region, so the recompute gathers them
+again — and the loss is returned as partial sums (`loss_parts`) that
+the step adds over the slots before it divides (`loss_from_parts`).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from .common import (ParamDecl, ShardCtx, flatten_tree, map_tree, torch_dtype,
                      unflatten_tree)
 from .layers import (apply_norm, embed_decls, embed_lookup, norm_decls,
                      sinusoidal, unembed, unembed_decls)
+from .moe import switch_aux
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,31 +146,46 @@ def _layer(tree, r: int) -> dict:
 
 
 def _unit_apply(x, unit: dict, metas, ctx: ShardCtx, cfg):
-    """One repeat unit of a stage: its blocks in order.  Returns (x, the
-    blocks' caches, the unit's aux loss)."""
-    cs, aux = [], None
+    """One repeat unit of a stage: its blocks in order, its weights
+    gathered first on a mesh.  Returns (x, the blocks' caches, the list
+    of its MoE blocks' routing sums)."""
+    unit = ctx.gather(unit)
+    cs, sums = [], []
     for j, meta in enumerate(metas):
         x, c, a = block_apply(unit[f"slot{j}"], x, ctx, cfg, meta)
         cs.append(c)
-        aux = a if aux is None else aux + a
-    return x, cs, aux
+        if a is not None:
+            sums.append(a)
+    return x, cs, sums
+
+
+def _gather_top(params, ctx: ShardCtx) -> dict:
+    """The parameters outside the stages gathered onto the slot's device
+    (the stages stay as they are: a unit gathers its own)."""
+    return dict(params, **ctx.gather(
+        {k: v for k, v in params.items() if not k.startswith("stage")}))
 
 
 def forward(params, batch, cfg, ctx: ShardCtx):
-    """Full-sequence pass.  Returns (logits, aux_loss, caches|None).
+    """Full-sequence pass.  Returns (logits, the MoE blocks' routing
+    sums, caches|None).
 
     A stage's entry of ``params`` may also be the list of its repeats'
     unit trees (the train step's per-layer leaves).  With
     ``cfg.scan_layers`` and ``cfg.remat == "full"``, and gradients on,
     each repeat unit is checkpointed (the reference's `jax.checkpoint`
     with ``nothing_saveable``): only its input is kept, and the backward
-    recomputes the rest.  The values do not change."""
-    params = as_tree(params)
+    recomputes the rest.  The values do not change.
+
+    The routing sums are a list, one (2, E) tensor an MoE block over
+    ``batch``'s tokens (on a mesh, the slot's rows): `loss_from_parts`
+    makes the aux loss of them."""
+    params = _gather_top(as_tree(params), ctx)
     x = _embed_in(params, batch, cfg, ctx)
     caches = [] if ctx.make_cache else None
     remat = (cfg.scan_layers and cfg.remat == "full"
              and torch.is_grad_enabled())
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    sums = []
     for si, st in enumerate(stage_plan(cfg)):
         sp = params[f"stage{si}"]
         per_repeat = []
@@ -174,7 +196,7 @@ def forward(params, batch, cfg, ctx: ShardCtx):
                                       cfg, use_reentrant=False)
             else:
                 x, cs, a = _unit_apply(x, unit, st.metas, ctx, cfg)
-            aux_total = aux_total + a
+            sums.extend(a)
             per_repeat.append(cs)
         if caches is not None:
             caches.append(tuple(
@@ -182,30 +204,46 @@ def forward(params, batch, cfg, ctx: ShardCtx):
                  for k in per_repeat[0][j]}
                 for j in range(len(st.metas))))
     logits = _head(params, x, cfg, ctx)
-    return logits, aux_total, caches
+    return logits, sums, caches
+
+
+# the sequence dimension of a decode cache's leaves (one layer, one
+# slot's rows): the dimension `cache_seq` shards
+_CACHE_SEQ_DIM = {"attn": {"k": 2, "v": 2, "pos": 1},
+                  "mla": {"c_kv": 1, "k_rope": 1, "pos": 1}}
 
 
 def decode_step(params, batch, caches, ctx: ShardCtx, cfg):
     """One-token step against the cache.  Returns (logits, caches): the
-    new token's entries are written into ``caches`` in place."""
-    params = as_tree(params)
+    new token's entries are written into ``caches`` in place.  On a mesh
+    the caches are `ShardedTensor`s and the step computes the rows of
+    ``ctx``'s data slot (`distributed.placement.open_cache`)."""
+    params = _gather_top(as_tree(params), ctx)
     x = _embed_in(params, batch, cfg, ctx)
     for si, st in enumerate(stage_plan(cfg)):
         sp = params[f"stage{si}"]
         cache_si = caches[si]
         for r in range(st.repeat):
-            unit = _layer(sp, r)
+            unit = ctx.gather(_layer(sp, r))
             for j, meta in enumerate(st.metas):
-                x, _ = block_decode(unit[f"slot{j}"], x,
-                                    _layer(cache_si[j], r), ctx, cfg, meta)
+                cache = _layer(cache_si[j], r)
+                if ctx.mesh is not None:
+                    from ..distributed.placement import open_cache
+
+                    cache, close = open_cache(
+                        cache, ctx, _CACHE_SEQ_DIM.get(meta.mixer, {}))
+                x, _ = block_decode(unit[f"slot{j}"], x, cache, ctx, cfg,
+                                    meta)
+                if ctx.mesh is not None:
+                    close()
     logits = _head(params, x, cfg, ctx)
     return logits, caches
 
 
-def loss_fn(params, batch, cfg, ctx: ShardCtx, z_loss: float = 1e-4):
-    """Masked token cross-entropy (+ MoE aux, + ``z_loss`` × mean logZ²):
-    its value, with the reference's metrics (``zloss`` is the weighted
-    term)."""
+def loss_parts(params, batch, cfg, ctx: ShardCtx) -> dict:
+    """The loss's sums over ``batch``'s tokens: ``xent`` (masked token
+    cross-entropy), ``zsq`` (masked logZ²), ``count`` (the mask's sum),
+    ``tokens`` (an int) and ``aux`` (the forward's MoE routing sums)."""
     logits, aux, _ = forward(params, batch, cfg, ctx)
     labels = batch["labels"].long()
     mask = batch.get("mask")
@@ -216,12 +254,51 @@ def loss_fn(params, batch, cfg, ctx: ShardCtx, z_loss: float = 1e-4):
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
     xent = (logz - ll) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = xent.sum() / denom
-    zloss = z_loss * ((logz * mask) ** 2).sum() / denom
+    return {"xent": xent.sum(), "zsq": ((logz * mask) ** 2).sum(),
+            "count": mask.sum(), "tokens": labels.numel(), "aux": aux}
+
+
+def _global_aux(stats, cfg, tokens: int, device) -> torch.Tensor:
+    """The switch aux loss from every slot's routing sums: each MoE
+    block's probability and routed-slot sums added over the slots, so
+    its means run over all ``tokens`` as the reference's do."""
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    for per_block in zip(*stats):
+        aux = aux + switch_aux(sum(t.to(device) for t in per_block), tokens,
+                               cfg)
+    return aux
+
+
+def loss_from_parts(parts: list, cfg, z_loss: float = 1e-4, device=None):
+    """(total, metrics) from one or several slots' `loss_parts`, added on
+    ``device`` (default: the first's) and then divided by the global
+    mask count — never a mean of the slots' means."""
+    if device is None:
+        device = parts[0]["xent"].device
+
+    def added(key):
+        out = parts[0][key].to(device)
+        for p in parts[1:]:
+            out = out + p[key].to(device)
+        return out
+
+    xent, zsq, count = added("xent"), added("zsq"), added("count")
+    aux = _global_aux([p["aux"] for p in parts], cfg,
+                      sum(p["tokens"] for p in parts), device)
+    denom = torch.clamp(count, min=1.0)
+    loss = xent / denom
+    zloss = z_loss * zsq / denom
     total = loss + zloss + cfg.aux_loss_coef * aux
     metrics = {"xent": loss, "zloss": zloss, "aux": aux}
     return total, metrics
+
+
+def loss_fn(params, batch, cfg, ctx: ShardCtx, z_loss: float = 1e-4):
+    """Masked token cross-entropy (+ MoE aux, + ``z_loss`` × mean logZ²):
+    its value, with the reference's metrics (``zloss`` is the weighted
+    term)."""
+    return loss_from_parts([loss_parts(params, batch, cfg, ctx)], cfg,
+                           z_loss)
 
 
 class LanguageModel(torch.nn.Module):

@@ -63,12 +63,28 @@ def _positions_in_expert(e_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 
 def moe_apply(p, x: torch.Tensor, ctx: ShardCtx, cfg):
-    """x: (B, S, d) → (y, aux_loss).  Groups = cfg.moe_groups."""
+    """x: (B, S, d) → (y, routing sums).  Groups = cfg.moe_groups.
+
+    The routing sums, (2, E), are the router probabilities' sum over
+    ``x``'s tokens and its routed-slot counts: `switch_aux` makes the
+    reference's aux loss of them (`loss_from_parts` first adds them over
+    the data slots, so its means run over the whole batch).  On a mesh
+    ``x`` is one data slot's rows: the slot dispatches its share of the
+    global batch's groups, so each group (and the capacity) is the one
+    the whole batch would have."""
     b, s, d = x.shape
     t = b * s
-    g = max(1, min(cfg.moe_groups, t))
-    while t % g:
+    n_data = ctx.data_size
+    t_all = t * n_data
+    g = max(1, min(cfg.moe_groups, t_all))
+    while t_all % g:
         g -= 1
+    if g % n_data:
+        raise ValueError(
+            f"{cfg.name}: {g} MoE groups do not split over {n_data} data "
+            f"slots; set moe_groups to a multiple of the data size, e.g. "
+            f"dataclasses.replace(cfg, moe_groups={n_data})")
+    g //= n_data
     tg = t // g
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = max(k, int(cfg.capacity_factor * tg * k / e))
@@ -110,11 +126,17 @@ def moe_apply(p, x: torch.Tensor, ctx: ShardCtx, cfg):
     y_sel = y_sel.reshape(g, tg, k, d) * w[..., None].to(yb.dtype)
     y = y_sel.sum(dim=2).reshape(b, s, d)
 
-    # load-balance aux (switch-style)
-    me = probs.mean(dim=(0, 1))  # (E,)
-    ce = torch.zeros((e,), dtype=torch.float32, device=dev).index_add_(
-        0, idx.reshape(-1), torch.ones(idx.numel(), device=dev)) / (t * k)
-    aux = e * torch.sum(me * ce)
+    # the load-balance aux's sums (switch-style)
+    counts = torch.zeros((e,), dtype=torch.float32, device=dev).index_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), device=dev))
     if cfg.n_shared_experts:
         y = y + apply_mlp(p["shared"], x, "swiglu", ctx)
-    return y, aux
+    return y, torch.stack([probs.sum(dim=(0, 1)), counts])
+
+
+def switch_aux(sums: torch.Tensor, tokens: int, cfg) -> torch.Tensor:
+    """The switch load-balance loss from one MoE block's routing sums
+    over ``tokens`` tokens (`moe_apply`): E · Σ_e me_e · ce_e, with me
+    the mean router probability and ce the share of routed slots."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    return e * torch.sum((sums[0] / tokens) * (sums[1] / (tokens * k)))

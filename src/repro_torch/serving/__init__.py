@@ -7,7 +7,7 @@ of one engine, with admission control, pause/resume, hot swaps and
 per-tenant fault attribution; and `SessionJournal`, its write-ahead
 log."""
 from .engine import (AsyncBankServer, ServeEngine, abstract_caches,
-                     make_decode_fn, make_prefill_fn)
+                     cache_pspecs, make_decode_fn, make_prefill_fn)
 from .journal import JournalFormatError, SessionJournal
 from .sessions import AdmissionRejected, BankSession, BankSessionServer
 
@@ -20,6 +20,7 @@ __all__ = [
     "ServeEngine",
     "SessionJournal",
     "abstract_caches",
+    "cache_pspecs",
     "make_decode_fn",
     "make_prefill_fn",
 ]

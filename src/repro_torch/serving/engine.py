@@ -10,27 +10,48 @@ writes each token's entries into the cache in place.  Variable prompt
 lengths are supported for attention archs by voiding the cache positions
 past each prompt (pos = −1 ⇒ masked); recurrent archs (ssd / rglru) take
 equal-length prompts only — their state cannot be position-masked after
-the fact.  The mesh (``cache_pspecs``, a `ServeEngine` over several
-cards) waits for the LM sharding rules.
+the fact.
+
+On a mesh (``mesh=``, ``rules=``; decode rules by default) the
+parameters are placed as `repro`'s dry run places them
+(``sanitized_shardings(…, param_pspecs(…), tp_fallback_axis="model")``)
+and the caches by `cache_pspecs`.  Each data slot computes its rows of
+the batch with the weights gathered onto its device; a cache sharded
+over ``cache_seq`` is attended piece by piece (sequence-parallel
+decode), other cache leaves are read and written in their pieces.  The
+logits are assembled on the first data slot's device.
 """
 from __future__ import annotations
 
 import torch
 
+from ..distributed.placement import data_slots, from_blocks, rows_of
+from ..distributed.sharding import (NamedSharding, PartitionSpec, make_rules,
+                                    sanitize_spec, sanitized_shardings)
 from ..kernels.runtime import as_device_tensor, resolve_device
-from ..nn.common import ShardCtx, map_tree, torch_dtype
+from ..nn.common import ShardCtx, map_tree, map_trees, torch_dtype
 from ..nn.model import as_tree, decode_step, forward
 
 __all__ = ["AsyncBankServer", "ServeEngine", "abstract_caches",
-           "make_decode_fn", "make_prefill_fn"]
+           "cache_pspecs", "make_decode_fn", "make_prefill_fn"]
 
 
-def make_prefill_fn(cfg, cache_len: int):
+def _slot_batch(batch, lo: int, hi: int, dev) -> dict:
+    return {k: rows_of(v, lo, hi, dev) for k, v in batch.items()}
+
+
+def _pos_sharding(mesh, rules, b: int) -> NamedSharding:
+    return NamedSharding(mesh, sanitize_spec(
+        mesh, PartitionSpec(rules.get("batch")), (b,)))
+
+
+def make_prefill_fn(cfg, cache_len: int, mesh=None, rules=None):
     recurrent = any(k in ("ssd", "rglru") for k in cfg.block_pattern)
+    cdt = torch_dtype(cfg.compute_dtype)
 
-    def prefill(params, batch):
+    def positions(batch, dev):
         leaf = batch.get("tokens", batch.get("embeds"))
-        b, s, dev = leaf.shape[0], leaf.shape[1], leaf.device
+        b, s = leaf.shape[0], leaf.shape[1]
         lengths = batch.get("lengths")
         pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
         if lengths is not None and not recurrent:
@@ -39,24 +60,82 @@ def make_prefill_fn(cfg, cache_len: int):
             next_pos = lengths
         else:
             next_pos = torch.full((b,), s, dtype=torch.int32, device=dev)
-        ctx = ShardCtx(positions=pos,
-                       compute_dtype=torch_dtype(cfg.compute_dtype),
+        return pos, next_pos
+
+    def prefill(params, batch):
+        leaf = batch.get("tokens", batch.get("embeds"))
+        pos, next_pos = positions(batch, leaf.device)
+        ctx = ShardCtx(positions=pos, compute_dtype=cdt,
                        make_cache=True, cache_len=cache_len)
         logits, _, caches = forward(params, batch, cfg, ctx)
         return logits, {"caches": caches, "pos": next_pos}
 
-    return prefill
+    def prefill_mesh(params, batch):
+        b = next(iter(batch.values())).shape[0]
+        slots = data_slots(mesh, rules, b)
+        home = slots[0][1]
+        logits, blocks, nexts = [], [], []
+        for d, dev, lo, hi in slots:
+            sb = _slot_batch(batch, lo, hi, dev)
+            pos, next_pos = positions(sb, dev)
+            ctx = ShardCtx(positions=pos, compute_dtype=cdt,
+                           make_cache=True, cache_len=cache_len,
+                           rules=rules, mesh=mesh, data_slot=d, device=dev,
+                           rows=(lo, hi))
+            lg, _, caches = forward(params, sb, cfg, ctx)
+            logits.append(lg.to(home))
+            blocks.append(((lo, hi), caches))
+            nexts.append((((lo, hi),), next_pos))
+        shard = sanitized_shardings(mesh, cache_pspecs(cfg, rules),
+                                    _global_shapes(blocks[0][1], b))
+
+        def place(sh, *slot_leaves):
+            t0 = slot_leaves[0]
+            shape = (t0.shape[0], b) + tuple(t0.shape[2:])
+            return from_blocks(sh, shape, t0.dtype, [
+                (((0, t0.shape[0]), rows) + tuple((0, n) for n in t.shape[2:]),
+                 t) for (rows, _), t in zip(blocks, slot_leaves)])
+
+        caches = map_trees(place, shard, *[c for _, c in blocks])
+        pos = from_blocks(_pos_sharding(mesh, rules, b), (b,), torch.int32,
+                          nexts)
+        return torch.cat(logits), {"caches": caches, "pos": pos}
+
+    return prefill if mesh is None else prefill_mesh
 
 
-def make_decode_fn(cfg):
+def _global_shapes(tree, b: int):
+    """A slot's stacked cache tree as ``meta`` tensors of the whole
+    batch's shapes (``b`` rows on dim 1)."""
+    return map_tree(lambda t: torch.empty((t.shape[0], b) + tuple(t.shape[2:]),
+                                          dtype=t.dtype, device="meta"), tree)
+
+
+def make_decode_fn(cfg, mesh=None, rules=None):
+    cdt = torch_dtype(cfg.compute_dtype)
+
     def decode(params, batch, state):
         pos = state["pos"]  # (B,)
-        ctx = ShardCtx(positions=pos[:, None],
-                       compute_dtype=torch_dtype(cfg.compute_dtype))
+        ctx = ShardCtx(positions=pos[:, None], compute_dtype=cdt)
         logits, caches = decode_step(params, batch, state["caches"], ctx, cfg)
         return logits, {"caches": caches, "pos": pos + 1}
 
-    return decode
+    def decode_mesh(params, batch, state):
+        pos = state["pos"]  # a ShardedTensor (B,)
+        slots = data_slots(mesh, rules, pos.shape[0])
+        home = slots[0][1]
+        logits = []
+        for d, dev, lo, hi in slots:
+            sb = _slot_batch(batch, lo, hi, dev)
+            ctx = ShardCtx(positions=rows_of(pos, lo, hi, dev)[:, None],
+                           compute_dtype=cdt, rules=rules, mesh=mesh,
+                           data_slot=d, device=dev, rows=(lo, hi))
+            lg, _ = decode_step(params, sb, state["caches"], ctx, cfg)
+            logits.append(lg.to(home))
+        return torch.cat(logits), {"caches": state["caches"],
+                                   "pos": pos.map(lambda t: t + 1)}
+
+    return decode if mesh is None else decode_mesh
 
 
 def abstract_caches(cfg, batch: int, cache_len: int):
@@ -107,21 +186,80 @@ def abstract_caches(cfg, batch: int, cache_len: int):
     ]
 
 
+def cache_pspecs(cfg, rules):
+    """PartitionSpecs mirroring `abstract_caches`."""
+    from ..nn.model import stage_plan
+
+    P = PartitionSpec
+    b = rules.get("batch")
+    cs = rules.get("cache_seq")
+    # a mesh axis may appear once per spec: when the cache sequence is
+    # sharded over `model` (SP decode), the kv-head dim must stay replicated
+    cs_axes = set(cs) if isinstance(cs, tuple) else {cs}
+    kvh = rules.get("kv_heads")
+    if kvh in cs_axes:
+        kvh = None
+
+    def slot_spec(meta):
+        if meta.mixer == "attn":
+            return {
+                "k": P(None, b, kvh, cs, None),
+                "v": P(None, b, kvh, cs, None),
+                "pos": P(None, b, cs),
+            }
+        if meta.mixer == "mla":
+            return {
+                "c_kv": P(None, b, cs, None),
+                "k_rope": P(None, b, cs, None),
+                "pos": P(None, b, cs),
+            }
+        if meta.mixer == "ssd":
+            return {
+                "state": P(None, b, rules.get("heads"), None, None),
+                "conv_tail": P(None, b, None, rules.get("heads_flat")),
+            }
+        return {
+            "h": P(None, b, rules.get("ff")),
+            "conv_tail": P(None, b, None, rules.get("ff")),
+        }
+
+    return [
+        tuple(slot_spec(m) for m in st.metas) for st in stage_plan(cfg)
+    ]
+
+
 class ServeEngine:
     """Minimal batched greedy engine over the prefill/decode steps, on
-    ``device`` (``None``: the GPU, raising without one).  ``params``: a
-    `LanguageModel`, a nested tree or a flat ``"/"``-keyed dict (what
-    `quantize_param_tree` returns), moved to the device; float32
-    parameters are cast to ``cfg.compute_dtype`` where they are used."""
+    ``device`` (``None``: the GPU, raising without one), or on the slots
+    of ``mesh`` under ``rules`` (default ``make_rules(mesh, "decode")``).
+    ``params``: a `LanguageModel`, a nested tree or a flat ``"/"``-keyed
+    dict (what `quantize_param_tree` returns), moved to the device or
+    placed on the mesh; float32 parameters are cast to
+    ``cfg.compute_dtype`` where they are used."""
 
-    def __init__(self, cfg, params, cache_len: int = 4096, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, cfg, params, cache_len: int = 4096, device=None,
+                 mesh=None, rules=None):
         self.cfg = cfg
-        self.params = map_tree(lambda t: torch.as_tensor(t).to(self.device),
-                               as_tree(params))
         self.cache_len = cache_len
-        self._prefill = make_prefill_fn(cfg, cache_len)
-        self._decode = make_decode_fn(cfg)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.params = map_tree(
+                lambda t: torch.as_tensor(t).to(self.device), as_tree(params))
+        else:
+            from ..distributed.placement import device_put
+            from ..nn.common import param_pspecs
+            from ..nn.model import model_decls
+
+            rules = rules if rules is not None else make_rules(mesh, "decode")
+            self.device = mesh.devices.flat[0]
+            tree = map_tree(torch.as_tensor, as_tree(params))
+            self.params = device_put(tree, sanitized_shardings(
+                mesh, param_pspecs(model_decls(cfg), rules), tree,
+                tp_fallback_axis="model"))
+        self.rules = rules
+        self._prefill = make_prefill_fn(cfg, cache_len, mesh, rules)
+        self._decode = make_decode_fn(cfg, mesh, rules)
 
     @torch.inference_mode()
     def prefill(self, prompts):

@@ -14,7 +14,11 @@ its decode is exact, and the device quantizer's codes equal the CPU's bit
 for bit.  The language-model stack (plain PyTorch, no kernel of
 ours): every reduced arch on the card within 1e-4 of the logits' scale
 of the CPU's in float32 with TF32 off, tokens equal; bf16 decode steps
-within 5% of a teacher-forced forward.  This file imports only the port (the card's machine has no
+within 5% of a teacher-forced forward.  On a (2, 4) mesh of ``cuda:0``
+slots, every reduced arch's train steps and decode within 1e-4 of the
+same on a mesh of CPU slots (float32, TF32 off; the params under
+`train_tree_gap`'s limits for Adam's amplified rounding).  This file
+imports only the port (the card's machine has no
 JAX); the banks and weights come from the port's own generators and
 seeded numpy draws.
 """
@@ -1433,3 +1437,20 @@ def test_train_loop_crash_resume_is_bit_exact_on_the_card(cuda, tmp_path):
     pa, pb = flatten_tree(a.state), flatten_tree(b2.state)
     assert all(t.device.type == "cuda" for t in pb.values())
     assert all(torch.equal(pa[k], pb[k]) for k in pa)
+
+
+# -- the language model on a mesh of the card's slots ------------------------
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_mesh_of_card_slots_matches_a_mesh_of_cpu_slots(cuda, arch):
+    """Two train steps and greedy decoding in both decode cases of a
+    reduced arch on a (2, 4) mesh of the card's slots against the same on
+    a mesh of CPU slots, float32 with TF32 off: metrics, params,
+    optimizer state and logits within 1e-4 of their scale, tokens equal
+    (the params under `train_tree_gap`'s limits for Adam's amplified
+    rounding; `mesh_vs`; `chip_smoke.py` holds the card's mesh against
+    the card unsharded)."""
+    from torch_differential import mesh_vs
+
+    rep = mesh_vs(arch, [cuda] * 8, ["cpu"] * 8)
+    assert rep["ok"], str(rep)

@@ -10,7 +10,10 @@ a shard killed, the session server journaled and recovered, and the
 language-model stack (configs, `repro_torch.nn`, `ServeEngine`, the
 quantized engine, ``--arch``), and a third the training half
 (`repro_torch.training`, `.checkpoint`, `.data`, `.distributed.fault`,
-the compressed all-reduce, ``launch.train``); each must end with neither
+the compressed all-reduce, ``launch.train``), and a fourth the language
+model on a mesh of slots (the sharding rules, `.distributed.placement`,
+``launch.mesh``, the mesh train step, `ServeEngine`, `TrainLoop` and
+sharded checkpoints); each must end with neither
 `jax` nor any `repro` module loaded; no source file
 of the port (nor `chip_smoke.py`, nor the port's examples) may import
 them; and an entry point
@@ -251,6 +254,84 @@ def test_training_stack_leaves_jax_and_repro_unloaded():
         devices=1, timeout=300,
     )
     assert "LOADED []" in out
+
+
+def test_mesh_modules_leave_jax_and_repro_unloaded():
+    """The LM sharding rules, placement, ``launch.mesh``, a train step
+    (AdamW and Adafactor), a `ServeEngine` in both decode cases, a
+    `TrainLoop` and a sharded checkpoint re-meshed, on CPU slots."""
+    out = run_py(
+        "import sys, tempfile\n"
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.data import DataConfig, TokenPipeline\n"
+        "from repro_torch.distributed import (batch_shardings,\n"
+        "    device_put, gather, make_mesh, make_rules,\n"
+        "    sanitized_shardings)\n"
+        "from repro_torch.distributed.fault import TrainLoop\n"
+        "from repro_torch.checkpoint import (restore_checkpoint,\n"
+        "    save_checkpoint)\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "from repro_torch.nn import init_params, model_decls\n"
+        "from repro_torch.serving import ServeEngine\n"
+        "from repro_torch.training import (TrainHParams,\n"
+        "    abstract_train_state, make_train_step, train_state_init,\n"
+        "    train_state_pspecs)\n"
+        "make_production_mesh(multi_pod=True)\n"
+        "mesh = make_mesh((2, 4), ('data', 'model'), devices=['cpu'] * 8)\n"
+        "rules = make_rules(mesh, 'train')\n"
+        "pipe = TokenPipeline(DataConfig(64, 4, 16))\n"
+        "for arch in ('qwen2.5-3b', 'deepseek-v3-671b'):\n"
+        "    cfg = get_config(arch).reduced(n_layers=2, vocab_size=64,\n"
+        "                                   moe_groups=2)\n"
+        "    p = init_params(model_decls(cfg), torch.Generator(), 'cpu')\n"
+        "    st = train_state_init(p, cfg)\n"
+        "    sh = sanitized_shardings(mesh, train_state_pspecs(cfg,\n"
+        "        model_decls(cfg), rules), st)\n"
+        "    st = device_put(st, sh)\n"
+        "    b = {k: torch.as_tensor(v) for k, v in\n"
+        "         pipe.global_batch_at(0).items()}\n"
+        "    b = device_put(b, batch_shardings(mesh, rules, b))\n"
+        "    st, m = make_train_step(cfg, TrainHParams(), mesh, rules)(st, b)\n"
+        "    d = tempfile.mkdtemp()\n"
+        "    save_checkpoint(d, 1, st, sharded=True)\n"
+        "    like = abstract_train_state(cfg, model_decls(cfg))\n"
+        "    m41 = make_mesh((4, 1), ('data', 'model'), devices=['cpu'] * 4)\n"
+        "    restore_checkpoint(d, like, shardings=sanitized_shardings(\n"
+        "        m41, train_state_pspecs(cfg, model_decls(cfg),\n"
+        "        make_rules(m41, 'train')), like))\n"
+        "    for gb in (None, 1):\n"
+        "        eng = ServeEngine(cfg, p, cache_len=16, mesh=mesh,\n"
+        "                          rules=make_rules(mesh, 'decode', gb))\n"
+        "        eng.generate(torch.zeros((4, 4), dtype=torch.int32), 2)\n"
+        "cfg = get_config('qwen2.5-3b').reduced(n_layers=2, vocab_size=64)\n"
+        "loop = TrainLoop(cfg, TrainHParams(), pipe, tempfile.mkdtemp(),\n"
+        "                 ckpt_every=2, mesh=mesh)\n"
+        "loop.run(2)\n"
+        "gather(loop.state, 'cpu')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print('LOADED', bad)\n",
+        devices=1, timeout=300,
+    )
+    assert "LOADED []" in out
+
+
+def test_mesh_constructors_take_the_gpus_unless_given_devices(monkeypatch):
+    """`make_mesh` (and so `TrainLoop` and `ServeEngine` on a mesh built
+    by it) spans the visible GPUs by default and raises without one; the
+    production meshes hold ``meta`` slots unless given devices."""
+    from repro_torch.distributed import make_mesh
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((2, 4), ("data", "model"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_test_mesh(devices=["cuda"] * 4)
+    assert {d.type for d in make_production_mesh().devices.flat} == {"meta"}
+    mesh = make_test_mesh(devices=["cpu"] * 4)
+    assert {d.type for d in mesh.devices.flat} == {"cpu"}
 
 
 def test_training_entry_points_default_to_the_gpu(monkeypatch, tmp_path):

@@ -3,7 +3,8 @@
 `_positions_in_expert` exactly, on the reference's property (each
 expert's slots ranked 0..n-1 in order of appearance) over seeded id
 lists and against `repro`'s; `top_k`'s ties to the lower index; and
-`moe_apply` — outputs and aux loss — with no drops, with capacity drops,
+`moe_apply` — outputs, and the aux loss `switch_aux` makes of its
+routing sums — with no drops, with capacity drops,
 with both routers, with shared experts and with ``moe_groups > 1``.
 Float32, the reference MoE test's tolerance: rtol 2e-4, atol 2e-4
 (``tests/test_moe.py:57``).
@@ -77,9 +78,10 @@ def test_moe_apply_matches_the_reference(case):
     ry, raux = jax.jit(lambda p, x: rmoe.moe_apply(
         p, x, rcommon.ShardCtx(compute_dtype=jnp.float32), rcfg))(
             rp, jnp.asarray(x))
-    ty, taux = tmoe.moe_apply(tp, torch.tensor(x),
-                              tcommon.ShardCtx(compute_dtype=torch.float32),
-                              tcfg)
+    ty, tsums = tmoe.moe_apply(tp, torch.tensor(x),
+                               tcommon.ShardCtx(compute_dtype=torch.float32),
+                               tcfg)
+    taux = tmoe.switch_aux(tsums, x.shape[0] * x.shape[1], tcfg)
     np.testing.assert_allclose(ty.numpy(), np.asarray(ry), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_allclose(float(taux), float(raux), rtol=RTOL, atol=ATOL)

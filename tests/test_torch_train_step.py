@@ -10,10 +10,11 @@ leaf's largest passes its rounding on to an ``lr``-sized step (most of
 qwen's zero-initialized key bias ``bk``: its median element's first
 moment is 9e-4 of its largest, and its scale after three steps is a few
 ``lr``).  Such elements are counted, and their leaves named, by
-`train_tree_gap` (an element beyond the bound whose own moments differ
-by more than the bound of themselves, and whose difference is within the
-most two AdamW runs can part, `adam_drift_bound`); every other element
-must hold the bound.
+`train_tree_gap` (an element beyond the bound whose own m differs by
+more than a quarter of the bound of itself or whose v by more than half
+— past what keeps its update within half the bound —, and whose
+difference is within the most two AdamW runs can part,
+`adam_drift_bound`); every other element must hold the bound.
 """
 import dataclasses
 
@@ -127,6 +128,34 @@ def test_amplified_rounding_is_excused_only_within_its_limits(
     gap = train_tree_gap(port, ref, STATE_REL, opt=opt, drift=2e-3)
     assert (gap["worst"] <= STATE_REL) is excused, gap
     assert gap["amplified"] == (n_off if excused else 0), gap
+
+
+@pytest.mark.parametrize("mom,rel,excused", [
+    ("m", 1e-5, False),  # m within a quarter of the bound: tight
+    ("m", 5e-5, True),   # beyond it: loose
+    ("v", 4e-5, False),  # v within half the bound: tight
+    ("v", 8e-5, True),   # beyond it: loose
+])
+def test_tight_moments_hold_their_params_to_the_bound(mom, rel, excused):
+    """An element whose own m agrees within a quarter of the bound and
+    whose v within half of it has an update within half the bound of
+    itself, so its param gap is held to the bound (the ``worst``
+    reading); past either, it is loose and counted within the drift."""
+    rng = np.random.default_rng(0)
+    leaf = "ffn/w"
+    ref = {leaf: rng.uniform(0.5, 1.0, 1000)}
+    m = rng.uniform(0.5, 1.0, 1000)
+    port = {leaf: torch.tensor(ref[leaf])}
+    port[leaf][0] += 1.5e-4  # 1.5e-4 of the leaf's scale, at most
+    moms = {"m": torch.tensor(m), "v": torch.tensor(m)}
+    moms[mom][0] *= 1 + rel
+    opt = ({f"m/{leaf}": moms["m"], f"v/{leaf}": moms["v"]},
+           {f"m/{leaf}": m, f"v/{leaf}": m})
+    gap = train_tree_gap(port, ref, STATE_REL, opt=opt, drift=2e-3)
+    assert (gap["worst"] <= STATE_REL) is excused, gap
+    assert (gap["loose_worst"] > STATE_REL) is excused, gap
+    assert gap["amplified_by_leaf"] == ({leaf: (1, 1e-3)} if excused
+                                        else {}), gap
 
 
 def test_the_step_updates_the_state_in_place():

@@ -46,7 +46,11 @@ parameters across (numpy arrays under the reference's key paths, then
 ``test_torch_train_*`` files (a batch for both packages, and a
 train-state tree of the port held against `repro`'s leaf by leaf);
 `train_card_vs_cpu` holds the port's train step on the card against its
-own on the CPU, for the card tests and `chip_smoke.py`.
+own on the CPU, for the card tests and `chip_smoke.py`; `mesh_vs` holds
+a reduced arch's train steps and decode on a (2, 4) mesh of slots
+against the same unsharded or on another mesh (the card tests hold
+``cuda:0`` slots against CPU slots, `chip_smoke.py` against the card
+unsharded).
 
 ``device`` is where the kernel legs run; None is the GPU and raises
 without one, so a caller on a host without a card passes
@@ -70,7 +74,8 @@ __all__ = ["PortReport", "plan_fields", "port_chaos_check",
            "port_cse_check", "port_five_way_check",
            "port_session_chaos_check", "ref_config", "ref_lm_params",
            "ref_param_arrays", "scalar_machine_legs", "lm_train_batch",
-           "adam_drift_bound", "train_card_vs_cpu", "train_tree_gap"]
+           "adam_drift_bound", "mesh_vs", "train_card_vs_cpu",
+           "train_tree_gap"]
 
 
 def ref_param_arrays(params) -> dict:
@@ -798,6 +803,9 @@ def lm_train_batch(cfg, rows: int, seq: int, seed: int) -> dict:
 NEAR_ZERO_GRAD_LEAVES = ("mixer/bk",)
 # elsewhere, at most this share of a leaf's elements may be so excused
 AMPLIFIED_SHARE = 0.01
+# an element's moments are "tight" when its m agrees within this share of
+# the bound of itself and its v within that (see `train_tree_gap`)
+TIGHT_M, TIGHT_V = 0.25, 0.5
 
 
 def adam_drift_bound(hp, steps) -> float:
@@ -829,57 +837,78 @@ def train_tree_gap(port: dict, ref: dict, bound: float, opt=None,
                    drift: float | None = None) -> dict:
     """``port`` (a flat tree of tensors) against ``ref`` (numpy arrays
     or tensors under the same ``"/"`` keys), each leaf's max |difference|
-    over its max |ref|.
+    over its max |ref|, held to ``bound``.
 
     AdamW normalises each element by its own moments
-    (``m / (√v + eps)``), so an element's update is only as precise as
-    that element's moments, while they are held to ``bound`` of their
-    *leaf's* scale: an element whose gradient is small beside its leaf's
-    largest carries its rounding, relatively large, into an update of
-    order ``lr``.  With ``opt = (port's optimizer state, ref's)`` (flat,
-    ``"m/<leaf>"`` and ``"v/<leaf>"`` keys), an element beyond ``bound``
-    of its leaf's scale is counted under ``"amplified"`` instead of
-    failing the bound when all of these hold:
+    (u = m̂ / (√v̂ + eps)), and to first order u moves by
+    |Δm|/|m| + ½·|Δv|/|v| of itself.  With ``opt = (port's optimizer
+    state, ref's)`` (flat, ``"m/<leaf>"`` and ``"v/<leaf>"`` keys) each
+    element of a leaf with moments is classed by its own moments:
 
-      * its own ``m`` differs by more than ``bound`` of itself, or its
-        ``v`` by more than twice that (it enters through a square root);
-      * its difference is at most ``drift``, the most two AdamW runs can
-        part (`adam_drift_bound`, required with ``opt``);
-      * its leaf is one of `NEAR_ZERO_GRAD_LEAVES`, or such elements are
-        at most `AMPLIFIED_SHARE` of the leaf's.
+      * *tight* when its m agrees within ``TIGHT_M · bound`` of itself
+        and its v within ``TIGHT_V · bound``: its update then agrees
+        within ``bound / 2`` of itself, so its param — which the updates
+        moved by at most its leaf's scale — within ``bound / 2`` of the
+        leaf's scale.  It is held to ``bound``.
+      * *loose* otherwise: its rounding, relatively large where its
+        gradient is small beside its leaf's largest, may turn into an
+        update of order ``lr``.  It is held to ``drift``, the most two
+        AdamW runs can part (`adam_drift_bound`, required with ``opt``);
+        beyond ``bound`` of its leaf's scale it is counted under
+        ``"amplified"``, and such elements must be at most
+        `AMPLIFIED_SHARE` of the leaf's unless the leaf is one of
+        `NEAR_ZERO_GRAD_LEAVES` (past that share the leaf's loose
+        elements are held to ``bound`` too).
 
-    Otherwise the element counts against the bound.  Returns
-    ``{"worst": max gap of the other elements, "worst_leaf",
-    "amplified": count, "amplified_leaves", "amplified_max": the largest
-    excused difference, "drift"}``."""
+    Every other element is held to ``bound``.  Returns ``{"worst": the
+    largest gap of the elements so held (over the leaf's scale; a tight
+    element's, unless an excuse's limit broke), "worst_leaf",
+    "loose_worst", "loose_worst_leaf": the largest gap of the loose
+    elements, "amplified": count, "amplified_leaves",
+    "amplified_by_leaf": {leaf: (count, share of the leaf)},
+    "amplified_max": the largest amplified difference, "drift"}``.  The
+    arithmetic is float64, on the device of each ``port`` leaf."""
     if opt is not None and drift is None:
         raise ValueError("an excuse for Adam's amplified rounding needs "
                          "drift= (adam_drift_bound)")
-    out = {"worst": 0.0, "worst_leaf": None, "amplified": 0,
-           "amplified_leaves": [], "amplified_max": 0.0, "drift": drift}
+    import torch
 
-    def host(t):
-        return np.asarray(t.detach().double().cpu().numpy()
-                          if hasattr(t, "detach") else t, np.float64)
-
+    out = {"worst": 0.0, "worst_leaf": None, "loose_worst": 0.0,
+           "loose_worst_leaf": None, "amplified": 0, "amplified_leaves": [],
+           "amplified_by_leaf": {}, "amplified_max": 0.0, "drift": drift}
     for k, t in port.items():
-        r = host(ref[k])
-        d = np.abs(host(t) - r)
-        scale = max(float(np.abs(r).max()), 1e-30)
+        # float64 on the port leaf's device (a card compares on the card)
+        dev = t.device if hasattr(t, "device") else torch.device("cpu")
+
+        def f64(x):
+            if not torch.is_tensor(x):  # a numpy array: a float64 copy
+                x = torch.from_numpy(np.array(x, dtype=np.float64))
+            return x.to(dev).to(torch.float64)
+
+        r = f64(ref[k])
+        d = (f64(t) - r).abs()
+        scale = max(float(r.abs().max()) if r.numel() else 0.0, 1e-30)
         if opt is not None and f"m/{k}" in opt[1]:
-            loose = np.zeros(r.shape, bool)
-            for mom, tol in (("m", bound), ("v", 2 * bound)):
-                mp, mr = host(opt[0][f"{mom}/{k}"]), host(opt[1][f"{mom}/{k}"])
-                loose |= np.abs(mp - mr) > tol * np.abs(mr)
-            amp = (d > bound * scale) & loose & (d <= drift)
+            loose = torch.zeros(r.shape, dtype=torch.bool, device=dev)
+            for mom, tol in (("m", TIGHT_M * bound), ("v", TIGHT_V * bound)):
+                mp, mr = f64(opt[0][f"{mom}/{k}"]), f64(opt[1][f"{mom}/{k}"])
+                loose |= (mp - mr).abs() > tol * mr.abs()
+            lw = float(torch.where(loose, d, 0.0).max()) / scale
+            if lw > out["loose_worst"]:
+                out["loose_worst"], out["loose_worst_leaf"] = lw, k
+            excusable = loose & (d <= drift)
+            amp = excusable & (d > bound * scale)
             whole = any(k.endswith(s) for s in NEAR_ZERO_GRAD_LEAVES)
-            if amp.any() and (whole or amp.sum() <= AMPLIFIED_SHARE * d.size):
-                out["amplified"] += int(amp.sum())
-                out["amplified_leaves"].append(k)
-                out["amplified_max"] = max(out["amplified_max"],
-                                           float(d[amp].max()))
-                d = np.where(amp, 0.0, d)
-        gap = float(d.max()) / scale if d.size else 0.0
+            n_amp = int(amp.sum())
+            if whole or n_amp <= AMPLIFIED_SHARE * d.numel():
+                if n_amp:
+                    out["amplified"] += n_amp
+                    out["amplified_leaves"].append(k)
+                    out["amplified_by_leaf"][k] = (n_amp, n_amp / d.numel())
+                    out["amplified_max"] = max(out["amplified_max"],
+                                               float(d[amp].max()))
+                d = torch.where(excusable, 0.0, d)
+        gap = float(d.max()) / scale if d.numel() else 0.0
         if gap > out["worst"]:
             out["worst"], out["worst_leaf"] = gap, k
     return out
@@ -950,7 +979,8 @@ def train_card_vs_cpu(archs, device, bound: float = 1e-4,
                            and go["worst"] <= bound and on_card),
                 "optimizer": cfg.optimizer, "metrics_rel": met_rel,
                 "params_rel": gp["worst"], "params_worst_leaf":
-                gp["worst_leaf"], "amplified": gp["amplified"],
+                gp["worst_leaf"], "params_loose_rel": gp["loose_worst"],
+                "amplified": gp["amplified"],
                 "amplified_leaves": gp["amplified_leaves"],
                 "amplified_max": gp["amplified_max"], "drift": gp["drift"],
                 "opt_rel": go["worst"], "opt_worst_leaf": go["worst_leaf"]}
@@ -958,3 +988,120 @@ def train_card_vs_cpu(archs, device, bound: float = 1e-4,
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
     return out
+
+
+def mesh_vs(arch: str, devices, ref, bound: float = 1e-4,
+            steps: int = 2) -> dict:
+    """``arch`` reduced, float32 with TF32 off, on a (2, 4) mesh of the
+    slot ``devices`` against ``ref``: one device (the step and engine
+    unsharded there) or 8 slot devices (a (2, 4) mesh of them).  MoE
+    archs take ``moe_groups = 2``.  From one parameter tree (a CPU
+    generator, seed 0): ``steps`` train steps on the same batches (the
+    first at the schedule's lr 0, the next at its peak 1e-3; 8 rows ×
+    16), then greedy generation of 5 tokens from 4 prompts of 12 in both
+    decode cases (the batch over ``data``; a batch below the data size).
+
+    Returns ``"ok"`` when every step's metrics are within ``bound`` of
+    the reference's (relative, over a floor of 0.01), the params and the
+    optimizer state within ``bound`` of each leaf's scale (the params
+    under `train_tree_gap`'s limits for Adam's amplified rounding), the
+    tokens equal and each emitted token's logits within ``bound`` of
+    their scale; the gaps beside it, with the loose elements' largest gap
+    and the amplified elements' count and share a leaf."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (batch_shardings, device_put,
+                                         gather, make_mesh, make_rules,
+                                         sanitized_shardings)
+    from repro_torch.nn import flatten_tree, init_params, model_decls
+    from repro_torch.nn.common import map_tree
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training import (OptHParams, TrainHParams,
+                                      make_train_step, train_state_init,
+                                      train_state_pspecs)
+
+    opt_hp = OptHParams(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    cfg = get_config(arch).reduced(compute_dtype="float32")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_groups=2)
+    hp = TrainHParams(opt=opt_hp)
+    params = init_params(model_decls(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def side(devs):
+        """(mesh or None, the device batches go to)."""
+        if isinstance(devs, (list, tuple)):
+            mesh = make_mesh((2, 4), ("data", "model"), devices=devs)
+            return mesh, mesh.devices.flat[0]
+        return None, torch.device(devs)
+
+    def placed_state(mesh, dev):
+        st = train_state_init(map_tree(lambda t: t.to(dev, copy=True),
+                                       params), cfg)
+        if mesh is None:
+            return st
+        return device_put(st, sanitized_shardings(mesh, train_state_pspecs(
+            cfg, model_decls(cfg), make_rules(mesh, "train")), st))
+
+    try:
+        runs = {}
+        for name, devs in (("mesh", devices), ("ref", ref)):
+            mesh, dev = side(devs)
+            rules = make_rules(mesh, "train") if mesh is not None else None
+            state = placed_state(mesh, dev)
+            step = make_train_step(cfg, hp, mesh, rules)
+            mets = []
+            for i in range(steps):
+                batch = {k: torch.as_tensor(v).to(dev) for k, v in
+                         lm_train_batch(cfg, 8, 16, seed=i).items()}
+                if mesh is not None:
+                    batch = device_put(batch, batch_shardings(mesh, rules,
+                                                              batch))
+                state, m = step(state, batch)
+                mets.append({k: float(v) for k, v in m.items()})
+            gen = []
+            # an embeds backbone is served on tokens, as the launchers do
+            gcfg = dataclasses.replace(cfg, input_kind="tokens")
+            gparams = params if gcfg == cfg else init_params(
+                model_decls(gcfg), torch.Generator().manual_seed(0),
+                device="cpu")
+            prompts = np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (4, 12)).astype(np.int32)
+            for gb in (None, 1):
+                kw = ({"device": dev} if mesh is None else
+                      {"mesh": mesh, "rules": make_rules(mesh, "decode", gb)})
+                eng = ServeEngine(gcfg, gparams, cache_len=32, **kw)
+                tok, lg = eng.generate(prompts, 5, with_logits=True)
+                gen.append((tok.cpu(), [x.cpu() for x in lg]))
+            runs[name] = (mets, gather(state, "cpu"), gen)
+        (mm, ms, mg), (rm, rs, rg) = runs["mesh"], runs["ref"]
+        met_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-2)
+                      for a, b in zip(mm, rm) for k in b)
+        mopt, ropt = flatten_tree(ms["opt"]), flatten_tree(rs["opt"])
+        gp = train_tree_gap(flatten_tree(ms["params"]),
+                            flatten_tree(rs["params"]), bound,
+                            opt=(mopt, ropt) if cfg.optimizer == "adamw"
+                            else None,
+                            drift=adam_drift_bound(opt_hp, range(steps)))
+        go = train_tree_gap(mopt, ropt, bound)
+        tokens_equal = all(torch.equal(a[0], b[0]) for a, b in zip(mg, rg))
+        logit_rel = max(float((x - y).abs().max() / y.abs().max())
+                        for a, b in zip(mg, rg) for x, y in zip(a[1], b[1]))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return {"ok": bool(met_rel <= bound and gp["worst"] <= bound
+                       and go["worst"] <= bound and tokens_equal
+                       and logit_rel <= bound),
+            "optimizer": cfg.optimizer, "metrics_rel": met_rel,
+            "params_rel": gp["worst"], "params_worst_leaf": gp["worst_leaf"],
+            "params_loose_rel": gp["loose_worst"],
+            "amplified": gp["amplified"],
+            "amplified_by_leaf": gp["amplified_by_leaf"],
+            "opt_rel": go["worst"], "tokens_equal": tokens_equal,
+            "logits_rel": logit_rel}
