@@ -246,6 +246,23 @@ against the push's host clock.  After those timings:
                   card unsharded (1e-4, `tests/torch_differential.py`
                   `mesh_vs`); and a reduced train state written sharded
                   on (2, 4), restored on (4, 1) and back, bit-exact.
+                  Its ``dryrun`` phase: the port's dry run
+                  (`repro_torch.launch.dryrun`) of the full-width train
+                  cell on (2, 4) ``meta`` slots, every slot traced, held
+                  against the measured mesh step — its FLOPs equal to
+                  `FlopCounterMode`'s count of one more real step, its
+                  all-gather and reduce-scatter bytes equal to
+                  `TRAFFIC`, its memory of every slot on one device
+                  within 10% of the card's peak and the one-slot
+                  trace's figure for it an upper bound within 1.35×
+                  (that trace gives every per-device figure), its ops
+                  beside the
+                  traced step's kernels and its roofline terms beside the
+                  step's milliseconds (printed); then ``python -m
+                  repro_torch.launch.dryrun --arch qwen2.5-3b --shape
+                  train_4k`` in a fresh process, its wall seconds and
+                  lines, and the card's memory beside the constant the
+                  dry run prices against.
 
 Then each kernel is held against its plain PyTorch version on the card at
 the main path's shapes (tolerance 0 for the FIR kernels, integer
@@ -2994,6 +3011,14 @@ def mesh_train_full(dev, smi, mesh) -> dict:
     m_peak = torch.cuda.max_memory_allocated()
     walls["mesh"] = time.perf_counter() - t_start - walls["unsharded"]
     tr = profile_step(lambda: step(state, mbatch), 0, None, steps=1, reps=1)
+    # one more step under `FlopCounterMode`: the FLOPs the dry run of
+    # this cell must count (the `dryrun` phase)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        step(state, mbatch)
+    torch.cuda.synchronize()
+    flops_counted = fc.get_total_flops()
     m_trace = {**{k: tr[k] for k in ("idle_share", "kernels_seen",
                                      "device_busy_us_per_step",
                                      "span_us_median", "wall_us_unprofiled")},
@@ -3040,6 +3065,7 @@ def mesh_train_full(dev, smi, mesh) -> dict:
         "state_bytes_per_slot": sb["per_slot"],
         "gather_bytes_per_step": traffic["gather_bytes"],
         "reduce_scatter_bytes_per_step": traffic["reduce_scatter_bytes"],
+        "flops_counted_step": flops_counted,
         "place_s": place_s, "wall_s": walls,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     emit({"phase": "mesh_train_full", **out})
@@ -3054,6 +3080,125 @@ def mesh_train_full(dev, smi, mesh) -> dict:
           f"mesh bf16 step 1's update direction differs from the unsharded "
           f"run's in {n_flip} of {n_all} elements (worst {worst_flips})")
     check(m_loss[-1] < m_loss[0], f"mesh: loss {m_loss} does not fall")
+    return out
+
+
+# the dry run of the mesh phase's train cell, held against its measured
+# step: FLOPs and the collectives' bytes exactly, the memory of every
+# slot on one card within DRYRUN_MEM_REL of the card's peak (and the
+# one-slot trace's upper bound on it within DRYRUN_ONE_SLOT_OVER); the launcher
+# as a user runs it, one production cell
+DRYRUN_MEM_REL = 0.10
+# the one-slot trace's figure for the same memory (every per-device
+# figure comes from that trace) is an upper bound on it, at most this
+# far above (tests/test_torch_dryrun_slots.py's MEM_OVER for a train step)
+DRYRUN_ONE_SLOT_OVER = 1.35
+DRYRUN_ARGV = ["-m", "repro_torch.launch.dryrun", "--arch", "qwen2.5-3b",
+               "--shape", "train_4k"]
+
+
+def mesh_dryrun(dev, smi, train) -> dict:
+    """The port's dry run (`repro_torch.launch.dryrun`) of
+    `mesh_train_full`'s cell — qwen2.5-3b at full width, B 16 × 256,
+    bf16, remat, AdamW, a (2, 4) mesh — on ``meta`` slots with every slot
+    traced, against that phase's measured step on the card's slots: its
+    FLOPs against `FlopCounterMode`'s count of a real step, its
+    all-gather and reduce-scatter bytes against `TRAFFIC`, the memory of
+    every slot on one device against the peak the card allocated, its
+    ops against the traced step's kernels and its terms against the
+    step's milliseconds (printed, not held); then ``python -m
+    repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k`` in a
+    fresh process (its wall seconds and lines), and the card's memory
+    beside the constant the dry run prices against."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import CARD, run_cell
+    from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, NVLINK_BW,
+                                         PEAK_FLOPS_BF16)
+
+    cfg, _, hp, _, _ = _qwen_train_setup(dev, "bfloat16")
+    t0 = time.perf_counter()
+    dry = run_cell(cfg.name, ShapeSpec("mesh_train", TRAIN_SEQ, TRAIN_BATCH,
+                                       "train"),
+                   mesh_shape=MESH_SHAPE, hp=hp, all_slots=True,
+                   out_dir=None)
+    host_s = time.perf_counter() - t0
+    run = train["mesh_run"]
+    raw = dry["collective_raw_total"]
+    gathered = raw["all-gather"]["result_bytes"]
+    scattered = raw["reduce-scatter"]["operand_bytes"]
+    peak = run["peak_bytes"]
+    step_ms = run["step_ms_median_1_4"]
+    kernels = run["traced"]["kernels_seen"]
+    # the whole mesh on one card: its totals against the card's rates
+    one_card = {"compute_s": dry["op_flops_total"] / PEAK_FLOPS_BF16,
+                "memory_fused_s": dry["op_hbm_bytes_total"] / HBM_BW,
+                "memory_eager_s": dry["kernel_bytes_total"] / HBM_BW}
+    t0 = time.perf_counter()
+    lines = run_fresh(DRYRUN_ARGV, "python -m repro_torch.launch.dryrun")
+    cli_s = time.perf_counter() - t0
+    props = torch.cuda.get_device_properties(0)
+    out = {
+        "cell": {"arch": cfg.name, "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+                 "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                 "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+                 "optimizer": cfg.optimizer},
+        "dryrun_host_s": host_s, "dryrun_trace_s": dry["trace_s"],
+        "dryrun_trace_all_slots_s": dry["trace_all_slots_s"],
+        "flops": {"dryrun": dry["op_flops_total"],
+                  "flop_counter_mode": train["flops_counted_step"]},
+        "gather_bytes": {"dryrun": gathered,
+                         "traffic": train["gather_bytes_per_step"]},
+        "reduce_scatter_bytes": {"dryrun": scattered,
+                                 "traffic":
+                                 train["reduce_scatter_bytes_per_step"]},
+        "mem_one_device_bytes": {"dryrun": dry["mem_one_device_bytes"],
+                                 "max_memory_allocated": peak,
+                                 "rel": dry["mem_one_device_bytes"] / peak
+                                 - 1, "bound_rel": DRYRUN_MEM_REL,
+                                 "one_slot_trace":
+                                 dry["mem_one_device_bytes_one_slot"],
+                                 "one_slot_rel":
+                                 dry["mem_one_device_bytes_one_slot"]
+                                 / peak - 1,
+                                 "one_slot_bound": DRYRUN_ONE_SLOT_OVER},
+        "ops_vs_launches": {"dryrun_ops": dry["ops_total"],
+                            "traced_kernels": kernels,
+                            "ratio": dry["ops_total"] / kernels},
+        "terms_vs_step": {"step_ms": step_ms,
+                          "per_device": {k: dry[f"{k}_term_s"] for k in
+                                         ("compute", "memory", "collective")},
+                          "one_card": one_card,
+                          "step_over_largest_one_card_term":
+                          step_ms / 1e3 / max(one_card.values())},
+        "per_device": {k: dry[k] for k in (
+            "op_flops_per_dev", "op_hbm_bytes_per_dev",
+            "collective_bytes_per_dev", "ops_per_dev",
+            "kernel_bytes_per_dev", "mem_per_device_bytes", "dominant")},
+        "launcher": {"argv": DRYRUN_ARGV, "wall_s": cli_s, "lines": lines},
+        "card_total_memory_bytes": props.total_memory,
+        "hbm_bytes_constant": HBM_BYTES, "nvlink_bw_constant": NVLINK_BW,
+        "priced_against": CARD,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit({"phase": "mesh_dryrun", **out})
+    check(dry["op_flops_total"] == train["flops_counted_step"],
+          f"dry run FLOPs {dry['op_flops_total']} vs FlopCounterMode's "
+          f"{train['flops_counted_step']}")
+    check(gathered == train["gather_bytes_per_step"]
+          and scattered == train["reduce_scatter_bytes_per_step"],
+          f"dry run collective bytes {gathered} / {scattered} vs TRAFFIC "
+          f"{train['gather_bytes_per_step']} / "
+          f"{train['reduce_scatter_bytes_per_step']}")
+    check(abs(out["mem_one_device_bytes"]["rel"]) <= DRYRUN_MEM_REL,
+          f"dry run memory {dry['mem_one_device_bytes']} vs the card's "
+          f"peak {peak}")
+    one_slot = dry["mem_one_device_bytes_one_slot"]
+    check(peak <= one_slot <= DRYRUN_ONE_SLOT_OVER * peak,
+          f"the one-slot trace's memory {one_slot} is not an upper bound "
+          f"within {DRYRUN_ONE_SLOT_OVER}x on the card's peak {peak}")
+    check(any(ln.startswith("[dryrun] OK   qwen2.5-3b × train_4k")
+              for ln in lines), f"the dry run's launcher printed {lines}")
     return out
 
 
@@ -3295,6 +3440,7 @@ def mesh_leg(dev, smi) -> dict:
 
     mesh = make_mesh(MESH_SHAPE, MESH_AXES, devices=[dev] * 8)
     train = timed("train_full", lambda: mesh_train_full(dev, smi, mesh))
+    timed("dryrun", lambda: mesh_dryrun(dev, smi, train))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timed("train_check", lambda: mesh_train_check(dev, smi, mesh))

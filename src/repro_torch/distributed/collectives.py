@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.common import map_tree, tree_leaves
+from .placement import record_collective
 
 __all__ = ["compressed_psum", "compressed_psum_tree", "halo_exchange_left",
            "make_compressed_dp_grad_fn"]
@@ -67,6 +68,7 @@ def compressed_psum(slots, generator: torch.Generator | None = None) -> list:
     slots = list(slots)
     home = slots[0].device
     gmax = torch.stack([s.abs().max().to(home) for s in slots]).max()
+    record_collective("all-reduce", 4 * len(slots), 4, len(slots))
     scale = torch.where(gmax == 0, torch.ones_like(gmax), gmax / 127.0)
     total = None
     for s in slots:
@@ -79,6 +81,9 @@ def compressed_psum(slots, generator: torch.Generator | None = None) -> list:
             y = torch.round(y)
         q = torch.clamp(y, -127, 127).to(torch.int8).to(home)
         total = q.to(torch.int32) if total is None else total + q
+    # the int8 pieces summed into one int32 total (the scale's max above)
+    record_collective("all-reduce", q.numel() * len(slots),
+                      total.numel() * total.element_size(), len(slots))
     mean = total.to(torch.float32) * scale / float(len(slots))
     return [mean.to(s.device) for s in slots]
 

@@ -23,6 +23,12 @@ cards the copies cross NVLink; no process group is involved:
   * `sync_replicas`: every copy of a block set to the sum of the copies.
 
 `TRAFFIC` counts the bytes the all-gathers and their backward moved.
+`COLLECTIVES` counts every collective of this module (and the int8
+all-reduce of `distributed.collectives`) by kind and data slot: its
+calls, operand and result bytes, by group size (the pieces gathered or
+summed).  On a mesh of ``meta`` slots the copies move nothing and the
+counts are all there is: the dry run (`repro_torch.launch.dryrun`)
+reads them.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ import torch
 from ..nn.common import map_tree, map_trees
 from .sharding import Mesh, NamedSharding, PartitionSpec
 
-__all__ = ["SeqShards", "ShardedTensor", "TRAFFIC", "all_reduce_sum",
+__all__ = ["COLLECTIVES", "COLLECTIVE_KINDS", "SeqShards", "ShardedTensor",
+           "TRAFFIC", "all_reduce_sum", "record_collective",
            "data_slots", "device_put", "from_blocks", "gather", "open_cache",
            "placed_bytes", "reset_traffic", "rows_of", "slot_index",
            "sync_replicas", "zeros_placed"]
@@ -45,10 +52,37 @@ Index = tuple  # ((start, stop), ...) a dimension
 
 TRAFFIC = {"gather_bytes": 0, "reduce_scatter_bytes": 0}
 
+# the reference's names for the kinds (`repro.roofline.hlo_analysis`)
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+# (kind, data slot or None, group size) → {"calls", "operand_bytes",
+# "result_bytes"}; the slot is None where no data slot is computing
+# (Adafactor's reductions, `sync_replicas`, the int8 all-reduce)
+COLLECTIVES: dict = {}
+
 
 def reset_traffic() -> None:
+    """Zero `TRAFFIC` and `COLLECTIVES`."""
     for k in TRAFFIC:
         TRAFFIC[k] = 0
+    COLLECTIVES.clear()
+
+
+def record_collective(kind: str, operand_bytes: int, result_bytes: int,
+                      group: int, slot=None) -> None:
+    """Count one collective of ``kind`` over ``group`` pieces."""
+    if kind not in COLLECTIVE_KINDS:
+        raise ValueError(f"unknown collective kind {kind!r}")
+    rec = COLLECTIVES.setdefault((kind, slot, int(group)), {
+        "calls": 0, "operand_bytes": 0, "result_bytes": 0})
+    rec["calls"] += 1
+    rec["operand_bytes"] += int(operand_bytes)
+    rec["result_bytes"] += int(result_bytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _axes(entry) -> tuple:
@@ -113,19 +147,23 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, meta, *pieces):
-        shape, dtype, device, index, devices = meta
+        shape, dtype, device, index, devices, slot = meta
         out = torch.empty(shape, dtype=dtype, device=device)
         _copy_blocks(out, tuple((0, n) for n in shape), zip(index, pieces))
-        ctx.meta = (index, devices)
-        TRAFFIC["gather_bytes"] += out.numel() * out.element_size()
+        ctx.meta = (index, devices, slot)
+        TRAFFIC["gather_bytes"] += _nbytes(out)
+        record_collective("all-gather", sum(map(_nbytes, pieces)),
+                          _nbytes(out), len(pieces), slot)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        index, devices = ctx.meta
-        TRAFFIC["reduce_scatter_bytes"] += g.numel() * g.element_size()
-        return (None,) + tuple(g[_slices(i)].to(d)
-                               for i, d in zip(index, devices))
+        index, devices, slot = ctx.meta
+        TRAFFIC["reduce_scatter_bytes"] += _nbytes(g)
+        out = tuple(g[_slices(i)].to(d) for i, d in zip(index, devices))
+        record_collective("reduce-scatter", _nbytes(g),
+                          sum(map(_nbytes, out)), len(out), slot)
+        return (None,) + out
 
 
 @dataclasses.dataclass(eq=False)
@@ -193,15 +231,16 @@ class ShardedTensor:
             [self.devices[i] for i in keep],
             [self.pieces[i][r - self.index[i][0][0]] for i in keep])
 
-    def full(self, device) -> torch.Tensor:
+    def full(self, device, slot=None) -> torch.Tensor:
         """The whole tensor on ``device`` (all-gather); differentiable
         into the pieces.  A block held whole on ``device`` is returned
-        as it is."""
+        as it is.  ``slot``: the data slot that asks, for `COLLECTIVES`."""
         ids = self._pick(device)
         if len(ids) == 1 and self.devices[ids[0]] == device:
             return self.pieces[ids[0]]
         meta = (self.shape, self.dtype, device,
-                [self.index[i] for i in ids], [self.devices[i] for i in ids])
+                [self.index[i] for i in ids], [self.devices[i] for i in ids],
+                slot)
         return _AllGather.apply(meta, *[self.pieces[i] for i in ids])
 
     def slot_pieces(self) -> list[tuple]:
@@ -289,10 +328,12 @@ def rows_of(x, lo: int, hi: int, device) -> torch.Tensor:
 def all_reduce_sum(parts, device) -> torch.Tensor:
     """The sum of ``parts`` (tensors on any slots) on ``device``, added
     in the order given."""
-    total = None
+    total, operand = None, 0
     for p in parts:
+        operand += _nbytes(p)
         p = p.to(device)
         total = p if total is None else total + p
+    record_collective("all-reduce", operand, _nbytes(total), len(parts))
     return total
 
 

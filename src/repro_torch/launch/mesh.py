@@ -13,7 +13,8 @@ import math
 
 from ..distributed.sharding import Mesh, make_mesh
 
-__all__ = ["make_production_mesh", "make_test_mesh"]
+__all__ = ["HBM_BW", "HBM_BYTES", "NVLINK_BW", "PEAK_FLOPS_BF16",
+           "make_production_mesh", "make_test_mesh"]
 
 
 def _meta(shape) -> list:
@@ -35,3 +36,15 @@ def make_test_mesh(n_data: int = 2, n_model: int = 2, devices=None) -> Mesh:
     shape = (n_data, n_model)
     return make_mesh(shape, ("data", "model"),
                      devices if devices is not None else _meta(shape))
+
+
+# The card the roofline analysis (`repro_torch.launch.dryrun`) prices a
+# slot against: the NVIDIA H100 80GB HBM3 SXM at its 700 W limit, from
+# its data sheet (the figures `chip_smoke.py`'s bounds use).  A 256-card
+# mesh spans nodes, whose links are slower than NVLink; one link rate
+# for every collective is the same simplification as the reference's
+# single inter-chip rate.
+PEAK_FLOPS_BF16 = 989e12  # dense bf16 tensor-core FLOP/s a card
+HBM_BW = 3.35e12  # bytes/s a card
+NVLINK_BW = 450e9  # bytes/s a card, each direction (NVLink 4, 18 links)
+HBM_BYTES = 80e9  # bytes of HBM a card

@@ -212,7 +212,7 @@ class ShardCtx:
             return tree
         from ..distributed.placement import ShardedTensor
 
-        return map_tree(lambda t: t.full(self.device)
+        return map_tree(lambda t: t.full(self.device, self.data_slot)
                         if isinstance(t, ShardedTensor) else t, tree)
 
 

@@ -54,7 +54,11 @@ def _positions_in_expert(e_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     m = e_idx.shape[0]
     order = torch.argsort(e_idx, stable=True)
     sorted_e = e_idx[order]
-    counts = torch.bincount(sorted_e, minlength=n_experts)
+    # the counts by index_add_ (bincount's result, without its
+    # data-dependent length: the step traces on ``meta`` tensors)
+    counts = torch.zeros((n_experts,), dtype=torch.int64,
+                         device=e_idx.device).index_add_(
+        0, sorted_e, torch.ones_like(sorted_e, dtype=torch.int64))
     starts = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(m, device=e_idx.device) - starts[sorted_e]
     out = torch.zeros((m,), dtype=torch.int32, device=e_idx.device)

@@ -42,9 +42,9 @@ from ..nn.common import (ShardCtx, flatten_tree, map_tree, param_pspecs,
 from ..nn.model import loss_from_parts, loss_parts, stage_plan
 from .optimizer import OptHParams, clip_by_global_norm, make_optimizer
 
-__all__ = ["TrainHParams", "abstract_train_state", "make_grad_fn",
-           "make_positions", "make_train_step", "train_state_init",
-           "train_state_pspecs"]
+__all__ = ["TrainHParams", "abstract_train_state", "grad_buffers",
+           "make_grad_fn", "make_positions", "make_train_step",
+           "make_update_fn", "train_state_init", "train_state_pspecs"]
 
 METRICS = ("xent", "zloss", "aux")
 
@@ -151,6 +151,21 @@ def _pieces(x) -> list:
     return x.pieces if isinstance(x, ShardedTensor) else [x]
 
 
+def grad_buffers(params, hp: TrainHParams) -> tuple:
+    """(grads, bufs): the zeroed gradient tree a step fills (float32
+    when it accumulates several microbatches, else the parameters'
+    dtypes) and the tree backward writes into — ``grads``' own leaves
+    where the dtypes agree, else a buffer of the parameter's dtype that
+    is summed into ``grads``.  On a mesh, placed as the params are."""
+    grads = map_tree(lambda p: _zeros(p, torch.float32 if hp.grad_accum > 1
+                                       else p.dtype), params)
+    bufs = unflatten_tree({
+        k: g if g.dtype == p.dtype else _zeros(p, p.dtype)
+        for (k, p), g in zip(flatten_tree(params).items(),
+                             flatten_tree(grads).values())})
+    return grads, bufs
+
+
 def make_grad_fn(cfg, hp: TrainHParams, mesh=None, rules=None):
     """(params, batch) → (loss, metrics, grads): the loss and metrics of
     ``loss_fn`` (its z-loss weighted by ``hp.z_loss``; the reference's
@@ -175,14 +190,7 @@ def make_grad_fn(cfg, hp: TrainHParams, mesh=None, rules=None):
         mb = rows // n
         slots = (data_slots(mesh, rules, mb) if mesh is not None
                  else [(0, None, 0, mb)])
-        grads = map_tree(lambda p: _zeros(p, torch.float32 if n > 1
-                                           else p.dtype), params)
-        # backward writes into ``grads`` where the dtypes agree, else into
-        # a buffer of the parameter's dtype that is summed into ``grads``
-        bufs = unflatten_tree({
-            k: g if g.dtype == p.dtype else _zeros(p, p.dtype)
-            for (k, p), g in zip(flatten_tree(params).items(),
-                                 flatten_tree(grads).values())})
+        grads, bufs = grad_buffers(params, hp)
         leaves = _layer_leaves(cfg, params, bufs)
         staged = [(g, b) for g, b in zip(flatten_tree(grads).values(),
                                          flatten_tree(bufs).values())
@@ -224,19 +232,14 @@ def make_grad_fn(cfg, hp: TrainHParams, mesh=None, rules=None):
     return grad_fn
 
 
-def make_train_step(cfg, hp: TrainHParams, mesh=None, rules=None):
-    """``train_step(state, batch) → (state, metrics)``: the state's params
-    and optimizer state updated in place, ``step`` advanced; metrics
-    ``xent``, ``zloss``, ``aux``, ``loss`` and ``grad_norm`` as 0-d
-    tensors on the device (on a mesh, the first data slot's).  With a
-    ``mesh`` (``rules`` default: ``make_rules(mesh, "train")``) the state
-    and batch are placed trees (see the module notes)."""
+def make_update_fn(cfg, hp: TrainHParams):
+    """(state, loss, metrics, grads) → (state, metrics): the step's second
+    part, after `make_grad_fn`'s — the clip, the optimizer's update in
+    place and ``step`` advanced."""
     _, opt_update = make_optimizer(cfg.optimizer)
-    grad_fn = make_grad_fn(cfg, hp, mesh, rules)
 
-    def train_step(state, batch):
+    def update(state, loss, metrics, grads):
         params = state["params"]
-        loss, metrics, grads = grad_fn(params, batch)
         grads, gnorm = clip_by_global_norm(grads, hp.opt.grad_clip)
         with torch.no_grad():
             opt_update(grads, state["opt"], params, state["step"], hp.opt)
@@ -245,5 +248,22 @@ def make_train_step(cfg, hp: TrainHParams, mesh=None, rules=None):
         step = step.map(lambda t: t + 1) if isinstance(
             step, ShardedTensor) else step + 1
         return {"params": params, "opt": state["opt"], "step": step}, metrics
+
+    return update
+
+
+def make_train_step(cfg, hp: TrainHParams, mesh=None, rules=None):
+    """``train_step(state, batch) → (state, metrics)``: the state's params
+    and optimizer state updated in place, ``step`` advanced; metrics
+    ``xent``, ``zloss``, ``aux``, ``loss`` and ``grad_norm`` as 0-d
+    tensors on the device (on a mesh, the first data slot's).  With a
+    ``mesh`` (``rules`` default: ``make_rules(mesh, "train")``) the state
+    and batch are placed trees (see the module notes).  The step is
+    `make_grad_fn`'s part, then `make_update_fn`'s."""
+    grad_fn = make_grad_fn(cfg, hp, mesh, rules)
+    update = make_update_fn(cfg, hp)
+
+    def train_step(state, batch):
+        return update(state, *grad_fn(state["params"], batch))
 
     return train_step

@@ -1454,3 +1454,21 @@ def test_mesh_of_card_slots_matches_a_mesh_of_cpu_slots(cuda, arch):
 
     rep = mesh_vs(arch, [cuda] * 8, ["cpu"] * 8)
     assert rep["ok"], str(rep)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mixtral-8x22b",
+                                  "mamba2-370m"])
+def test_dry_run_equals_a_real_step_on_card_slots(cuda, arch):
+    """The port's dry run of a reduced arch's (2, 4) train cell on
+    ``meta`` slots against one real step on ``cuda:0`` slots: its FLOPs
+    equal `FlopCounterMode`'s count of the step, its all-gather and
+    reduce-scatter bytes the step's `TRAFFIC`."""
+    from torch_differential import dryrun_vs_step
+
+    rep = dryrun_vs_step(arch, [cuda] * 8)
+    raw = rep["dry"]["collective_raw_total"]
+    assert rep["dry"]["op_flops_total"] == rep["flops"] > 0
+    assert raw["all-gather"]["result_bytes"] == \
+        rep["traffic"]["gather_bytes"] > 0
+    assert raw["reduce-scatter"]["operand_bytes"] == \
+        rep["traffic"]["reduce_scatter_bytes"] > 0

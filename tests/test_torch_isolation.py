@@ -13,7 +13,8 @@ quantized engine, ``--arch``), and a third the training half
 the compressed all-reduce, ``launch.train``), and a fourth the language
 model on a mesh of slots (the sharding rules, `.distributed.placement`,
 ``launch.mesh``, the mesh train step, `ServeEngine`, `TrainLoop` and
-sharded checkpoints); each must end with neither
+sharded checkpoints), and a fifth the dry run (``launch.dryrun``,
+`roofline`); each must end with neither
 `jax` nor any `repro` module loaded; no source file
 of the port (nor `chip_smoke.py`, nor the port's examples) may import
 them; and an entry point
@@ -315,6 +316,33 @@ def test_mesh_modules_leave_jax_and_repro_unloaded():
         devices=1, timeout=300,
     )
     assert "LOADED []" in out
+
+
+def test_dry_run_leaves_jax_and_repro_unloaded(tmp_path):
+    """The dry run (``launch.dryrun``, `roofline`): a cell through its
+    launcher and a step through `analyze_step` in a fresh interpreter,
+    with neither `jax` nor any `repro` module loaded after, and no
+    environment variable set (``torch._dynamo``, which any dispatch mode
+    loads, sets its own cache directory's when imported: imported
+    first)."""
+    out = run_py(
+        "import os, sys\n"
+        "import torch, torch._dynamo\n"
+        "env = dict(os.environ)\n"
+        "from repro_torch.launch.dryrun import main\n"
+        "from repro_torch.roofline import analyze_step\n"
+        f"main(['--arch', 'mamba2-370m', '--shape', 'decode_32k',\n"
+        f"      '--set', 'n_layers=1', '--out', {str(tmp_path)!r}])\n"
+        "a = torch.empty((4, 8), device='meta')\n"
+        "assert analyze_step(lambda: a @ a.t()).flops == 2 * 4 * 4 * 8\n"
+        "assert dict(os.environ) == env\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print('LOADED', bad)\n",
+        devices=1, timeout=300,
+    )
+    assert "LOADED []" in out
+    assert (tmp_path / "mamba2-370m__decode_32k__pod1.json").exists()
 
 
 def test_mesh_constructors_take_the_gpus_unless_given_devices(monkeypatch):

@@ -1105,3 +1105,50 @@ def mesh_vs(arch: str, devices, ref, bound: float = 1e-4,
             "amplified_by_leaf": gp["amplified_by_leaf"],
             "opt_rel": go["worst"], "tokens_equal": tokens_equal,
             "logits_rel": logit_rel}
+
+
+def dryrun_vs_step(arch: str, devices, mesh_shape=(2, 4), rows: int = 4,
+                   seq: int = 16) -> dict:
+    """A reduced arch's train step (B ``rows`` × ``seq``) run once on a
+    mesh of ``devices`` slots, and the port's dry run of the same cell on
+    ``meta`` slots (every slot traced): ``{"dry": run_cell's result,
+    "flops": `FlopCounterMode`'s count of the real step, "traffic": the
+    `TRAFFIC` it moved}``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeSpec, get_config, input_specs
+    from repro_torch.distributed import (TRAFFIC, batch_shardings,
+                                         device_put, make_mesh, make_rules,
+                                         reset_traffic, sanitized_shardings)
+    from repro_torch.launch.dryrun import build_cell, run_cell
+    from repro_torch.nn import init_params, model_decls
+    from repro_torch.training import (TrainHParams, make_train_step,
+                                      train_state_init, train_state_pspecs)
+
+    cfg = get_config(arch).reduced()
+    shape = ShapeSpec("t", seq, rows, "train")
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, v.shape, generator=g,
+                              dtype=v.dtype) if not v.dtype.is_floating_point
+             else torch.ones(v.shape, dtype=v.dtype)
+             for k, v in input_specs(cfg, shape).items()}
+    dry = run_cell(arch, shape, out_dir=None, mesh_shape=mesh_shape, cfg=cfg,
+                   all_slots=True)
+    cfg = build_cell(arch, shape, mesh_shape=mesh_shape, cfg=cfg).cfg
+    mesh = make_mesh(mesh_shape, ("data", "model"), devices=list(devices))
+    rules = make_rules(mesh, "train")
+    decls = model_decls(cfg)
+    dev = torch.device(devices[0])
+    params = init_params(decls, torch.Generator().manual_seed(0), dev)
+    state = train_state_init(params, cfg)
+    state = device_put(state, sanitized_shardings(
+        mesh, train_state_pspecs(cfg, decls, rules), state))
+    placed = device_put({k: v.to(dev) for k, v in batch.items()},
+                        batch_shardings(mesh, rules, batch))
+    step = make_train_step(cfg, TrainHParams(), mesh, rules)
+    reset_traffic()
+    with FlopCounterMode(display=False) as fc:
+        step(state, placed)
+    return {"dry": dry, "flops": fc.get_total_flops(),
+            "traffic": dict(TRAFFIC)}
