@@ -215,11 +215,14 @@ against the push's host clock.  After those timings:
                   the train phase's shape (B 16 × S 256, AdamW, bf16,
                   remat), 5 steps unsharded and then 5 on the mesh from
                   the same init (train rules: data-parallel over the two
-                  data slots, weights stored in pieces over data and
-                  model and gathered a repeat unit at a time): each step
+                  data slots, tensor-parallel over the four model slots
+                  for the attention, MLP, embedding, head and loss, each
+                  model slot's weight blocks gathered over data a repeat
+                  unit at a time): each step
                   by CUDA events, the peak memory, the state's bytes a
                   slot from the placement, the bytes one step's
-                  all-gathers and reduce-scatters move, a traced mesh
+                  all-gathers, reduce-scatters and all-reduces move, its
+                  launches and milliseconds in the leg's result, a traced mesh
                   step (the unsharded one is the train phase's); step 0's
                   loss against the unsharded one (1e-3), every step's
                   loss and grad norm (1e-3), and the direction of step
@@ -258,9 +261,10 @@ against the push's host clock.  After those timings:
                   (that trace gives every per-device figure), its ops
                   beside the
                   traced step's kernels and its roofline terms beside the
-                  step's milliseconds (printed); then ``python -m
+                  step's milliseconds (printed), its all-reduces equal
+                  to the step's `COLLECTIVES`; then ``python -m
                   repro_torch.launch.dryrun --arch qwen2.5-3b --shape
-                  train_4k`` in a fresh process, its wall seconds and
+                  decode_32k`` in a fresh process, its wall seconds and
                   lines, and the card's memory beside the constant the
                   dry run prices against.
 
@@ -2940,6 +2944,18 @@ def _m_signs(state, dev):
             yield k, torch.sign(gather(t, dev)).to(torch.int8)
 
 
+def _collective_totals() -> dict:
+    """`COLLECTIVES` summed by kind over slots and groups."""
+    from repro_torch.distributed.placement import COLLECTIVES
+
+    out: dict = {}
+    for (kind, _, _), rec in COLLECTIVES.items():
+        mine = out.setdefault(kind, dict.fromkeys(rec, 0))
+        for f, v in rec.items():
+            mine[f] += v
+    return out
+
+
 def mesh_train_full(dev, smi, mesh) -> dict:
     """qwen2.5-3b at full width in bf16, 5 AdamW steps unsharded and then
     on the mesh from the same init, each by CUDA events; each step's
@@ -2959,7 +2975,7 @@ def mesh_train_full(dev, smi, mesh) -> dict:
     cfg, decls, hp, batch, init = _qwen_train_setup(dev, "bfloat16")
     n_params = count_params(decls)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    traffic = {}
+    traffic, coll = {}, {}
 
     def run(step, state, b, after_step1):
         ms, losses, gnorms = [], [], []
@@ -2969,8 +2985,10 @@ def mesh_train_full(dev, smi, mesh) -> dict:
             ms.append(t)
             losses.append(m["loss"].item())
             gnorms.append(m["grad_norm"].item())
-            if i == 0:
-                traffic.update(TRAFFIC)  # the bytes one step moved
+            if i == 0:  # the bytes one step moved
+                traffic.update(TRAFFIC)
+                coll.clear()
+                coll.update(_collective_totals())
             if i == 1:
                 after_step1(state)
         return state, ms, losses, gnorms
@@ -3065,6 +3083,7 @@ def mesh_train_full(dev, smi, mesh) -> dict:
         "state_bytes_per_slot": sb["per_slot"],
         "gather_bytes_per_step": traffic["gather_bytes"],
         "reduce_scatter_bytes_per_step": traffic["reduce_scatter_bytes"],
+        "collectives_per_step": coll,
         "flops_counted_step": flops_counted,
         "place_s": place_s, "wall_s": walls,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
@@ -3093,8 +3112,10 @@ DRYRUN_MEM_REL = 0.10
 # figure comes from that trace) is an upper bound on it, at most this
 # far above (tests/test_torch_dryrun_slots.py's MEM_OVER for a train step)
 DRYRUN_ONE_SLOT_OVER = 1.35
+# the launcher's cell: decode (a train_4k cell traces each of its 16
+# model slots' attention and takes minutes of host)
 DRYRUN_ARGV = ["-m", "repro_torch.launch.dryrun", "--arch", "qwen2.5-3b",
-               "--shape", "train_4k"]
+               "--shape", "decode_32k"]
 
 
 def mesh_dryrun(dev, smi, train) -> dict:
@@ -3103,12 +3124,14 @@ def mesh_dryrun(dev, smi, train) -> dict:
     bf16, remat, AdamW, a (2, 4) mesh — on ``meta`` slots with every slot
     traced, against that phase's measured step on the card's slots: its
     FLOPs against `FlopCounterMode`'s count of a real step, its
-    all-gather and reduce-scatter bytes against `TRAFFIC`, the memory of
+    all-gather and reduce-scatter bytes against `TRAFFIC`, its
+    all-reduces (the tensor-parallel products' over ``model``, the
+    clip's) against the step's `COLLECTIVES`, the memory of
     every slot on one device against the peak the card allocated, its
     ops against the traced step's kernels and its terms against the
     step's milliseconds (printed, not held); then ``python -m
-    repro_torch.launch.dryrun --arch qwen2.5-3b --shape train_4k`` in a
-    fresh process (its wall seconds and lines), and the card's memory
+    repro_torch.launch.dryrun --arch qwen2.5-3b --shape decode_32k`` in
+    a fresh process (its wall seconds and lines), and the card's memory
     beside the constant the dry run prices against."""
     import torch
 
@@ -3128,6 +3151,8 @@ def mesh_dryrun(dev, smi, train) -> dict:
     raw = dry["collective_raw_total"]
     gathered = raw["all-gather"]["result_bytes"]
     scattered = raw["reduce-scatter"]["operand_bytes"]
+    reduced = raw.get("all-reduce", {})
+    step_reduced = train["collectives_per_step"].get("all-reduce", {})
     peak = run["peak_bytes"]
     step_ms = run["step_ms_median_1_4"]
     kernels = run["traced"]["kernels_seen"]
@@ -3153,6 +3178,7 @@ def mesh_dryrun(dev, smi, train) -> dict:
         "reduce_scatter_bytes": {"dryrun": scattered,
                                  "traffic":
                                  train["reduce_scatter_bytes_per_step"]},
+        "all_reduce": {"dryrun": reduced, "collectives": step_reduced},
         "mem_one_device_bytes": {"dryrun": dry["mem_one_device_bytes"],
                                  "max_memory_allocated": peak,
                                  "rel": dry["mem_one_device_bytes"] / peak
@@ -3190,6 +3216,9 @@ def mesh_dryrun(dev, smi, train) -> dict:
           f"dry run collective bytes {gathered} / {scattered} vs TRAFFIC "
           f"{train['gather_bytes_per_step']} / "
           f"{train['reduce_scatter_bytes_per_step']}")
+    check(reduced and reduced == step_reduced,
+          f"dry run all-reduce {reduced} vs the step's COLLECTIVES "
+          f"{step_reduced}")
     check(abs(out["mem_one_device_bytes"]["rel"]) <= DRYRUN_MEM_REL,
           f"dry run memory {dry['mem_one_device_bytes']} vs the card's "
           f"peak {peak}")
@@ -3197,7 +3226,7 @@ def mesh_dryrun(dev, smi, train) -> dict:
     check(peak <= one_slot <= DRYRUN_ONE_SLOT_OVER * peak,
           f"the one-slot trace's memory {one_slot} is not an upper bound "
           f"within {DRYRUN_ONE_SLOT_OVER}x on the card's peak {peak}")
-    check(any(ln.startswith("[dryrun] OK   qwen2.5-3b × train_4k")
+    check(any(ln.startswith("[dryrun] OK   qwen2.5-3b × decode_32k")
               for ln in lines), f"the dry run's launcher printed {lines}")
     return out
 
@@ -3464,6 +3493,8 @@ def mesh_leg(dev, smi) -> dict:
           f"the mesh path launched the FIR or pulse kernels: {launches}")
     return {"launches": launches, "wall_s": time.perf_counter() - t_leg,
             "step_ms": train["mesh_run"]["step_ms_median_1_4"],
+            "step_kernels_traced":
+            train["mesh_run"]["traced"]["kernels_seen"],
             "peak_bytes": train["mesh_run"]["peak_bytes"]}
 
 

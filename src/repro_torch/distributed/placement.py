@@ -19,19 +19,38 @@ cards the copies cross NVLink; no process group is involved:
     into each piece's gradient — the reduce-scatter of a data-parallel
     step, summed over data slots by autograd's accumulation into
     ``.grad``;
+  * the model slot's block (`ShardedTensor.block`): the block a slot of
+    the ``model`` axis computes with, assembled from the pieces over the
+    other axes (the FSDP axis of the train rules) — the same autograd
+    function, its group the data size;
   * `all_reduce_sum`: tensors from several slots summed onto one device;
-  * `sync_replicas`: every copy of a block set to the sum of the copies.
+  * `sync_replicas`: every copy of a block set to the sum of the copies;
+  * the tensor-parallel moves of an activation between a data slot and
+    its model slots: `to_model_slots` (a copy a slot; backward, the
+    gradients' all-reduce), `from_model_slots` (the partial sums'
+    all-reduce; backward, the gradient handed to each slot),
+    `gather_model_parts` (the parts cut along a dimension joined: an
+    all-gather) and `all_reduce_max`.
 
-`TRAFFIC` counts the bytes the all-gathers and their backward moved.
-`COLLECTIVES` counts every collective of this module (and the int8
-all-reduce of `distributed.collectives`) by kind and data slot: its
+`TRAFFIC` counts the bytes the weight all-gathers and their backward
+moved.  `COLLECTIVES` counts every collective of this module (and the
+int8 all-reduce of `distributed.collectives`) by kind and data slot: its
 calls, operand and result bytes, by group size (the pieces gathered or
 summed).  On a mesh of ``meta`` slots the copies move nothing and the
 counts are all there is: the dry run (`repro_torch.launch.dryrun`)
 reads them.
+
+The *issuer* of an op is the device slot that computes it: `issuing`
+names it while a model slot's part runs (a flat index into the mesh;
+None: the data slot's own work, which the reference replicates over
+``model``), and while a dry run traces (`TAGGING`), `tag_graph` marks
+the autograd nodes of that part so that its backward is counted there
+too (`current_issuer`).  A collective recorded under an issuer is keyed
+``(data slot, issuer)``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -42,13 +61,16 @@ import torch
 from ..nn.common import map_tree, map_trees
 from .sharding import Mesh, NamedSharding, PartitionSpec
 
-__all__ = ["COLLECTIVES", "COLLECTIVE_KINDS", "SeqShards", "ShardedTensor",
-           "TRAFFIC", "all_reduce_sum", "record_collective",
-           "data_slots", "device_put", "from_blocks", "gather", "open_cache",
-           "placed_bytes", "reset_traffic", "rows_of", "slot_index",
-           "sync_replicas", "zeros_placed"]
+__all__ = ["COLLECTIVES", "COLLECTIVE_KINDS", "MODEL_AXIS", "SeqShards",
+           "ShardedTensor", "TAGGING", "TRAFFIC", "all_reduce_max",
+           "all_reduce_sum", "current_issuer", "data_slots", "device_put",
+           "from_blocks", "from_model_slots", "gather", "gather_model_parts",
+           "issuing", "open_cache", "placed_bytes", "record_collective",
+           "reset_traffic", "rows_of", "slot_index", "sync_replicas",
+           "tag_graph", "to_model_slots", "zeros_placed"]
 
 Index = tuple  # ((start, stop), ...) a dimension
+MODEL_AXIS = "model"
 
 TRAFFIC = {"gather_bytes": 0, "reduce_scatter_bytes": 0}
 
@@ -69,11 +91,58 @@ def reset_traffic() -> None:
     COLLECTIVES.clear()
 
 
+# the issuers named by `issuing`, innermost last
+_ISSUERS: list = []
+# on while a dry run traces: `tag_graph` marks autograd nodes
+TAGGING = {"on": False}
+
+
+@contextlib.contextmanager
+def issuing(tag):
+    """The ops and collectives inside are the work of the device slot
+    ``tag`` (a flat index into the mesh; None: the data slot's own)."""
+    _ISSUERS.append(tag)
+    try:
+        yield
+    finally:
+        _ISSUERS.pop()
+
+
+def current_issuer():
+    """The innermost `issuing` tag; outside one, in a backward, the tag
+    `tag_graph` gave the autograd node being run; else None."""
+    if _ISSUERS:
+        return _ISSUERS[-1]
+    node = torch._C._current_autograd_node()
+    return None if node is None else node.metadata.get("issuer")
+
+
+def tag_graph(tensors, tag) -> None:
+    """While `TAGGING` is on: the autograd nodes behind ``tensors`` (a
+    tensor or a list), as far back as nodes already tagged, marked as
+    the work of ``tag`` so that their backward counts there."""
+    if not TAGGING["on"]:
+        return
+    if torch.is_tensor(tensors):
+        tensors = [tensors]
+    todo = [t.grad_fn for t in tensors if t.grad_fn is not None]
+    while todo:
+        node = todo.pop()
+        if node is None or "issuer" in node.metadata:
+            continue
+        node.metadata["issuer"] = tag
+        todo.extend(n for n, _ in node.next_functions)
+
+
 def record_collective(kind: str, operand_bytes: int, result_bytes: int,
                       group: int, slot=None) -> None:
-    """Count one collective of ``kind`` over ``group`` pieces."""
+    """Count one collective of ``kind`` over ``group`` pieces, for data
+    slot ``slot`` (keyed ``(slot, issuer)`` under an issuer)."""
     if kind not in COLLECTIVE_KINDS:
         raise ValueError(f"unknown collective kind {kind!r}")
+    issuer = current_issuer()
+    if issuer is not None:
+        slot = (slot, issuer)
     rec = COLLECTIVES.setdefault((kind, slot, int(group)), {
         "calls": 0, "operand_bytes": 0, "result_bytes": 0})
     rec["calls"] += 1
@@ -142,15 +211,18 @@ def _copy_blocks(dst: torch.Tensor, dst_index: Index, blocks) -> None:
 
 
 class _AllGather(torch.autograd.Function):
-    """Pieces → the whole tensor on one device; the backward cuts the
-    whole gradient into each piece's part, on the piece's device."""
+    """Pieces → the block ``target`` of the whole tensor on one device;
+    the backward cuts its gradient into each piece's part, on the
+    piece's device.  Every piece lies inside the target."""
 
     @staticmethod
     def forward(ctx, meta, *pieces):
-        shape, dtype, device, index, devices, slot = meta
-        out = torch.empty(shape, dtype=dtype, device=device)
-        _copy_blocks(out, tuple((0, n) for n in shape), zip(index, pieces))
-        ctx.meta = (index, devices, slot)
+        target, dtype, device, index, devices, slot = meta
+        out = torch.empty(tuple(b - a for a, b in target), dtype=dtype,
+                          device=device)
+        _copy_blocks(out, target, zip(index, pieces))
+        ctx.meta = ([tuple((a - t, b - t) for (a, b), (t, _)
+                           in zip(i, target)) for i in index], devices, slot)
         TRAFFIC["gather_bytes"] += _nbytes(out)
         record_collective("all-gather", sum(map(_nbytes, pieces)),
                           _nbytes(out), len(pieces), slot)
@@ -235,13 +307,60 @@ class ShardedTensor:
         """The whole tensor on ``device`` (all-gather); differentiable
         into the pieces.  A block held whole on ``device`` is returned
         as it is.  ``slot``: the data slot that asks, for `COLLECTIVES`."""
-        ids = self._pick(device)
-        if len(ids) == 1 and self.devices[ids[0]] == device:
+        return self._assemble(tuple((0, n) for n in self.shape), device,
+                              slot)
+
+    def model_range(self, m: int) -> Index:
+        """The block model slot ``m`` computes with: the dimension cut
+        over ``model`` at its ``m``-th block, every other dimension whole.
+        A dimension cut over ``model`` together with another axis
+        raises: no product takes it."""
+        n = self.mesh.shape[MODEL_AXIS]
+        out = []
+        for dim, entry in zip(self.shape, list(self.spec)
+                              + [None] * (self.ndim - len(self.spec))):
+            axes = _axes(entry)
+            if MODEL_AXIS in axes and axes != (MODEL_AXIS,):
+                raise ValueError(f"a dimension cut over {entry}: no model "
+                                 f"slot computes with a block of it")
+            cut = MODEL_AXIS in axes
+            size = dim // n if cut else dim
+            a = m * size if cut else 0
+            out.append((a, a + size))
+        return tuple(out)
+
+    def block(self, m: int, device, slot=None) -> torch.Tensor:
+        """Model slot ``m``'s block (`model_range`) on ``device``: its
+        piece where the slot holds it whole, else assembled from the
+        pieces over the other axes (an all-gather over the FSDP axis);
+        differentiable into the pieces."""
+        return self._assemble(self.model_range(m), device, slot)
+
+    def _assemble(self, target: Index, device, slot) -> torch.Tensor:
+        ids = [i for i in self._pick(device)
+               if all(a < d and c < b for (a, b), (c, d)
+                      in zip(self.index[i], target))]
+        for i in ids:
+            if any(a < c or b > d for (a, b), (c, d)
+                   in zip(self.index[i], target)):
+                raise ValueError(f"a piece {self.index[i]} crosses the "
+                                 f"block {target}")
+        if len(ids) == 1 and self.devices[ids[0]] == device \
+                and self.index[ids[0]] == target:
             return self.pieces[ids[0]]
-        meta = (self.shape, self.dtype, device,
+        meta = (target, self.dtype, device,
                 [self.index[i] for i in ids], [self.devices[i] for i in ids],
                 slot)
         return _AllGather.apply(meta, *[self.pieces[i] for i in ids])
+
+    def slot_of(self, i: int) -> int:
+        """The flat mesh index of the first slot holding piece ``i``."""
+        mesh = self.mesh
+        for pos in np.ndindex(mesh.devices.shape):
+            if mesh.devices[pos] == self.devices[i] and slot_index(
+                    mesh, self.spec, self.shape, pos) == self.index[i]:
+                return int(np.ravel_multi_index(pos, mesh.devices.shape))
+        raise ValueError(f"piece {i} is on no slot")
 
     def slot_pieces(self) -> list[tuple]:
         """``(index, piece)`` of every slot in mesh order (a shared piece
@@ -337,6 +456,112 @@ def all_reduce_sum(parts, device) -> torch.Tensor:
     return total
 
 
+class _ToSlots(torch.autograd.Function):
+    """A tensor → a copy on each model slot's device (the tensor itself
+    where the slot shares its device); the backward sums the slots'
+    gradients onto the tensor's device (an all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, meta, x):
+        devices, home, slot = meta
+        ctx.set_materialize_grads(False)
+        ctx.meta = (home, slot, len(devices))
+        return tuple(x if d == home else x.to(d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        home, slot, n = ctx.meta
+        gs = [g for g in grads if g is not None]
+        if not gs:
+            return None, None
+        total = _summed(gs, home)
+        record_collective("all-reduce", sum(map(_nbytes, gs)),
+                          _nbytes(total), n, slot)
+        return None, total
+
+
+class _FromSlots(torch.autograd.Function):
+    """The model slots' partial sums → their sum on one device (an
+    all-reduce); the backward hands the gradient to each slot."""
+
+    @staticmethod
+    def forward(ctx, meta, *parts):
+        home, devices, slot = meta
+        ctx.devices = devices
+        total = _summed(parts, home)
+        record_collective("all-reduce", sum(map(_nbytes, parts)),
+                          _nbytes(total), len(parts), slot)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(g.to(d) for d in ctx.devices)
+
+
+class _JoinSlots(torch.autograd.Function):
+    """The model slots' parts of a tensor cut along ``dim`` → the tensor
+    on one device (an all-gather); the backward cuts its gradient."""
+
+    @staticmethod
+    def forward(ctx, meta, *parts):
+        home, devices, dim, slot = meta
+        ctx.meta = (devices, dim, [p.shape[dim] for p in parts])
+        out = torch.cat([p.to(home) for p in parts], dim=dim)
+        record_collective("all-gather", sum(map(_nbytes, parts)),
+                          _nbytes(out), len(parts), slot)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        devices, dim, sizes = ctx.meta
+        return (None,) + tuple(t.to(d) for t, d in
+                               zip(g.split(sizes, dim=dim), devices))
+
+
+def _summed(parts, device) -> torch.Tensor:
+    """The parts added in order on ``device``; 16-bit floats added in
+    float32 and rounded once, as a matmul accumulates its products."""
+    dtype = parts[0].dtype
+    wide = dtype in (torch.bfloat16, torch.float16)
+    total = None
+    for p in parts:
+        p = p.to(device)
+        if wide:
+            p = p.float()
+        total = p if total is None else total + p
+    return total.to(dtype) if wide else total
+
+
+def to_model_slots(x: torch.Tensor, devices, home, slot=None) -> list:
+    """``x`` (on ``home``, the data slot's device) as one tensor a model
+    slot, on ``devices``; its backward is the gradients' all-reduce."""
+    out = list(_ToSlots.apply((list(devices), home, slot), x))
+    if TAGGING["on"] and out[0].grad_fn is not None:
+        out[0].grad_fn.metadata["issuer"] = None
+    return out
+
+
+def from_model_slots(parts, home, devices, slot=None) -> torch.Tensor:
+    """The sum of the model slots' ``parts`` on ``home`` (all-reduce)."""
+    return _FromSlots.apply((home, list(devices), slot), *parts)
+
+
+def gather_model_parts(parts, dim: int, home, devices,
+                       slot=None) -> torch.Tensor:
+    """The model slots' ``parts`` of a tensor cut along ``dim`` joined on
+    ``home`` (all-gather)."""
+    return _JoinSlots.apply((home, list(devices), dim, slot), *parts)
+
+
+def all_reduce_max(parts, home, slot=None) -> torch.Tensor:
+    """The element-wise maximum of ``parts`` on ``home``, no gradient."""
+    with torch.no_grad():
+        out = torch.stack([p.to(home) for p in parts]).amax(dim=0)
+    record_collective("all-reduce", sum(map(_nbytes, parts)), _nbytes(out),
+                      len(parts), slot)
+    return out
+
+
 def sync_replicas(x: ShardedTensor) -> None:
     """In place: every piece of a block replicated on several devices set
     to the sum of its copies (summed on the canonical piece's device)."""
@@ -404,9 +629,11 @@ def data_slots(mesh: Mesh, rules: dict, n_rows: int) -> list[tuple]:
 class SeqShards:
     """One data slot's rows of a decode cache leaf, split along its
     sequence dimension: ``parts`` are ``(lo, hi, view, device)`` in
-    order, each view writable in place on its own device."""
+    order, each view writable in place on its own device; ``slots``: the
+    flat mesh index of each part's slot (its issuer)."""
 
     parts: list
+    slots: list = dataclasses.field(default_factory=list)
 
     @property
     def length(self) -> int:
@@ -461,12 +688,13 @@ def open_cache(tree: dict, ctx, seq_dims: dict) -> tuple[dict, Any]:
                  and any(key[d - 1] != (0, x.shape[d]) for key in groups)]
         if split:
             continue
-        parts = []
+        parts, slots = [], []
         for key_, (i,) in sorted(groups.items(), key=lambda g: g[0][k - 1]):
             a = x.index[i][0][0]
             s0, s1 = key_[k - 1]
             parts.append((s0, s1, x.pieces[i][lo - a:hi - a], x.devices[i]))
-        kinds[key], views[key] = "seq", SeqShards(parts)
+            slots.append(x.slot_of(i) if TAGGING["on"] else None)
+        kinds[key], views[key] = "seq", SeqShards(parts, slots)
     if len(set(kinds.values())) > 1 or "gather" in kinds.values():
         kinds = dict.fromkeys(tree, "gather")
     if all(v == "gather" for v in kinds.values()):

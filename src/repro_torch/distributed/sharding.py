@@ -15,12 +15,14 @@ Language models (`Mesh`, `make_mesh`): the reference's parallelism map,
   SP    decode KV/latent caches over model, and over (data, model) when
         the decode batch cannot fill the data axis
 
-decides where every leaf is *stored* (`distributed.placement`).  The
-port *computes* data-parallel only: each data slot runs its rows with
-the weights gathered onto its device; the model axis holds pieces but
-splits no matmul.  `make_rules`, `sanitize_spec`, `sanitized_shardings`
-and the batch specs are the reference's, line for line, over the port's
-own `PartitionSpec` and `NamedSharding`.
+decides where every leaf is *stored* (`distributed.placement`).  Each
+data slot runs its rows; over ``model`` its attention, dense MLP,
+embedding and head products split as their weights' pieces lie
+(`nn.common.tp_product`), with the residual stream on the data slot's
+device, while the MoE FFN, MLA and the recurrent mixers run with their
+weights gathered onto it.  `make_rules`, `sanitize_spec`,
+`sanitized_shardings` and the batch specs are the reference's, line for
+line, over the port's own `PartitionSpec` and `NamedSharding`.
 
 Filter banks (`BankMesh`, `bank_mesh`): filters over ``bank``, channels
 or time over ``data``; `partition_bank` and `BankPartition` are the

@@ -21,10 +21,14 @@ piece of the mesh) is traced once.  ``all_slots=True`` also traces the
 step as it runs on one device with every slot (`chip_smoke.py`'s mesh
 phase): its totals and ``mem_one_device_bytes``.
 
-The port computes data-parallel only (every weight gathered whole on
-each data slot: ROADMAP 8d), so on a mesh with a model axis its
-per-device FLOPs and collective bytes are not the reference's, which
-partitions the matmuls over ``model``.
+A data slot's work is split over its model slots (the attention, MLP,
+embedding and head products: `nn.common.tp_product`; the ring pieces of
+a decode cache): each op is counted under the device slot that issues
+it, and a device is charged with what its (data, model) slot computes —
+the data slot's untagged work, which the reference repeats on every
+device of the model group, and its own model slot's part
+(`OpCounter.device_cost`).  The MoE FFN, MLA and the recurrent mixers
+still run gathered on the data slot's device (ROADMAP 8d, second half).
 """
 from __future__ import annotations
 
@@ -237,13 +241,15 @@ def trace_cell(cell: Cell, hp: TrainHParams | None = None,
     return tr
 
 
-def slot_cost(oc: OpCounter) -> CompCost:
+def slot_cost(oc: OpCounter, device: bool = False) -> CompCost:
     """A one-slot trace's data slot alone: its "slot" phase less the
-    mesh-wide gradient zeroing ("alloc")."""
-    out = _share(oc.costs["slot"], 1.0)
+    mesh-wide gradient zeroing ("alloc"); ``device``: the busiest device
+    of the slot's model group alone (`OpCounter.device_cost`)."""
+    slot = oc.device_cost("slot") if device else oc.costs["slot"]
+    out = _share(slot, 1.0)
     if "alloc" in oc.costs:
         out.add(oc.costs["alloc"], -1.0)
-        out.peak_live_bytes = oc.costs["slot"].peak_live_bytes
+    out.peak_live_bytes = slot.peak_live_bytes
     return out
 
 
@@ -285,7 +291,8 @@ def _pending(tr: dict, n_data: int) -> dict:
 
 def _per_device(tr: dict, n_data: int) -> tuple[CompCost, int, int, int]:
     """(the busiest slot's cost, its memory, its argument bytes, its
-    temporaries) from a one-slot trace: the slot's part whole, the
+    temporaries) from a one-slot trace: the busiest device's part of
+    the data slot (`slot_cost` with ``device``), the
     mesh-wide parts (the gradient zeroing, the update) in the share of
     the mesh's pieces the slot holds.  The arguments are what the slot
     holds before the step (state and batch), the temporaries the trace's
@@ -296,10 +303,11 @@ def _per_device(tr: dict, n_data: int) -> tuple[CompCost, int, int, int]:
     share = max(per) / max(sum(per), 1)
     made = tr["made"] or {"total": 0, "per_slot": [0]}
     upd = oc.costs.get("update")
-    cost = slot_cost(oc)
+    cost = slot_cost(oc, device=True)
+    peak = cost.peak_live_bytes
     cost.add(_share(upd, share))
     cost.add(_share(oc.costs.get("alloc"), share))
-    temps = max(oc.costs["slot"].peak_live_bytes - made["total"]
+    temps = max(peak - made["total"]
                 + max(_pending(tr, n_data)["per_slot"] or [0]),
                 int((upd.peak_live_bytes if upd else 0) * share))
     temps += max(made["per_slot"] or [0])
@@ -369,6 +377,7 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
         arch=arch, shape=shape_name, kind=shp.kind, multi_pod=multi_pod,
         n_devices=n_dev, seq_len=shp.seq_len, global_batch=shp.global_batch,
         mesh=dict(cell.mesh.shape), n_data_slots=n_data,
+        n_model_slots=cell.mesh.shape.get("model", 1),
         traced="all slots" if traced_all else "one data slot",
         tag=tag, card=CARD,
         build_s=t_build, trace_s=t_trace, trace_all_slots_s=t_all,
@@ -378,6 +387,7 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
         model_flops_total=mf,
         model_flops_per_dev=mf / n_dev,
         op_flops_per_dev=dev.flops,
+        op_flops_per_data_slot=slot_cost(tr["oc"]).flops,
         op_hbm_bytes_per_dev=dev.hbm_bytes,
         collective_bytes_per_dev=dev.total_coll_bytes,
         collectives=dev.coll_bytes,

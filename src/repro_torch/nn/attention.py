@@ -18,7 +18,16 @@ reference returns updated copies); `decode_step` returns the same
 tensors.  A cache sharded over ``cache_seq`` on a mesh (`SeqShards`)
 is attended piece by piece on each piece's device, the new token written
 into the piece that owns its ring slot, and the pieces' running (max,
-denominator, accumulator) merged by log-sum-exp (`combine_partials`).
+denominator, accumulator) merged by log-sum-exp (`combine_partials`, an
+all-reduce over the pieces).
+
+On a mesh with a ``model`` axis the projections follow `tp_product`'s
+rule: each model slot projects q for its heads and k/v for its kv heads
+(or takes its q heads' groups of a replicated k/v), attends them with
+`chunked_attention`, and ``wo`` is row-parallel over heads.  The caches
+keep their layout (the ring over ``model``, kv heads whole), so prefill
+joins k/v over ``model`` for `build_kv_cache`, and decode attends the
+new token's whole q against the ring's pieces.
 """
 from __future__ import annotations
 
@@ -28,7 +37,8 @@ from typing import Any
 
 import torch
 
-from .common import ParamDecl, ShardCtx, cast
+from .common import (ParamDecl, ShardCtx, Split, cast, matmul, tp_bias,
+                     tp_product)
 from .layers import rope
 
 NEG = -1e30
@@ -193,21 +203,11 @@ def attn_decls(cfg) -> dict:
     return decls
 
 
-def _proj(x, w):
-    """x (B, S, d) × w (d, H, Dh) → (B, S, H, Dh)."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
-
-
-def _out(out, wo):
-    """out (B, S, H, Dh) × wo (H, Dh, d) → (B, S, d)."""
-    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
-
-
 def _qkv(p, x, cfg, positions):
     dt = x.dtype
-    q = _proj(x, cast(p["wq"], dt))
-    k = _proj(x, cast(p["wk"], dt))
-    v = _proj(x, cast(p["wv"], dt))
+    q = matmul(x, cast(p["wq"], dt))
+    k = matmul(x, cast(p["wk"], dt))
+    v = matmul(x, cast(p["wv"], dt))
     if "bq" in p:
         q = q + cast(p["bq"], dt)
         k = k + cast(p["bk"], dt)
@@ -216,6 +216,69 @@ def _qkv(p, x, cfg, positions):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _qkv_tp(p, x, ctx: ShardCtx, cfg, positions):
+    """q, k, v on a mesh, each a `Split` cut over its heads (dim 2) or a
+    tensor on the data slot's device; biased, and roped on their own
+    slots.  A projection cut over ``head_dim`` raises."""
+    xs = ctx.fan_out(x)
+    out = []
+    for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+        y = tp_product(xs, p[w], ctx)
+        if b in p:
+            y = tp_bias(y, p[b], ctx)
+        if isinstance(y, Split) and y.dim == "sum":
+            y = ctx.whole(y)
+        if isinstance(y, Split) and y.dim != 2:
+            raise ValueError(f"{w} cut over head_dim ({p[w].spec}): the "
+                             f"attention takes its heads whole")
+        out.append(y)
+    q, k, v = out
+    if cfg.pos_emb == "rope":
+        def roped(t):
+            if not isinstance(t, Split):
+                return rope(t, positions, cfg.rope_theta)
+            return Split(ctx.per_slot(lambda s, tm: rope(
+                tm, positions.to(s.device), cfg.rope_theta), t), 2)
+
+        q, k = roped(q), roped(k)
+    return q, k, v
+
+
+def _slot_kv(t, s, n_q: int, g: int) -> torch.Tensor:
+    """The kv heads model slot ``s``'s ``n_q`` q heads attend, from the
+    whole (B, S, Hkv, D) ``t`` (kv heads that do not split over the
+    slots): the one kv head of all of them, or else one a q head."""
+    if g % n_q == 0:
+        return t.narrow(2, s.m * n_q // g, 1)
+    idx = torch.arange(s.m * n_q, (s.m + 1) * n_q, device=t.device) // g
+    return t.index_select(2, idx)
+
+
+def _attn_tp(q, k, v, pos, ctx: ShardCtx, cfg, meta: AttnMeta, kvc: int):
+    """Each model slot attends its q heads (a `Split` cut over heads);
+    a whole q is attended on the data slot's device."""
+    kw = dict(scale=_scale(cfg), window=meta.window, softcap=cfg.attn_softcap,
+              kv_chunk=kvc, triangular=meta.triangular)
+    if not isinstance(q, Split):
+        k, v = ctx.whole(k), ctx.whole(v)
+        return chunked_attention(q, k, v, pos, pos, **kw)
+    g = cfg.n_heads // cfg.n_kv_heads
+    n_q = q.parts[0].shape[2]
+    if not isinstance(k, Split):
+        k, v = ctx.fan_out(k), ctx.fan_out(v)
+        pick = _slot_kv
+    else:
+        pick = None  # each slot holds its q heads' kv heads
+
+    def one(s, qm, km, vm):
+        if pick is not None:
+            km, vm = pick(km, s, n_q, g), pick(vm, s, n_q, g)
+        pm = pos.to(s.device)
+        return chunked_attention(qm, km, vm, pm, pm, **kw)
+
+    return Split(ctx.per_slot(one, q, k, v), 2)
 
 
 def _scale(cfg) -> float:
@@ -228,17 +291,26 @@ def attn_apply(p, x, ctx: ShardCtx, cfg, meta: AttnMeta):
     Unsharded, KV heads stay grouped (the reference's unsharded form)."""
     b, s, _ = x.shape
     pos = ctx.positions
-    q, k, v = _qkv(p, x, cfg, pos)
     # adaptive chunk: the reference's (about 16 chunks per side)
     kvc = min(meta.kv_chunk, s) if s <= meta.kv_chunk else max(meta.kv_chunk, s // 16)
     if s % kvc:
         kvc = s
+    if ctx.tp:
+        q, k, v = _qkv_tp(p, x, ctx, cfg, pos)
+        out = _attn_tp(q, k, v, pos, ctx, cfg, meta, kvc)
+        y = ctx.whole(tp_product(out, p["wo"], ctx, n_in=2))
+        cache = None
+        if ctx.make_cache:
+            cache = build_kv_cache(ctx.whole(k), ctx.whole(v), pos,
+                                   ctx.cache_len, meta.window)
+        return y, cache
+    q, k, v = _qkv(p, x, cfg, pos)
     out = chunked_attention(
         q, k, v, pos, pos,
         scale=_scale(cfg), window=meta.window, softcap=cfg.attn_softcap,
         kv_chunk=kvc, triangular=meta.triangular,
     )
-    y = _out(out, cast(p["wo"], x.dtype))
+    y = matmul(out, cast(p["wo"], x.dtype), 2)
     cache = None
     if ctx.make_cache:
         cache = build_kv_cache(k, v, pos, ctx.cache_len, meta.window)
@@ -293,10 +365,26 @@ def write_ring_piece(t, bidx, slot, lo: int, hi: int, new, head_dims=()):
     t[at] = torch.where(keep, new.to(t.dtype), t[at])
 
 
-def _attn_decode_pieces(q, k, v, pos, cache, cfg, meta: AttnMeta):
+def merge_pieces(parts, device, slot) -> torch.Tensor:
+    """`combine_partials` of the pieces' partials on ``device``, recorded
+    as an all-reduce over the pieces."""
+    from ..distributed.placement import record_collective
+
+    parts = [tuple(t.to(device) for t in p) for p in parts]
+    if len(parts) > 1:
+        n = sum(t.numel() * t.element_size() for t in parts[0])
+        record_collective("all-reduce", n * len(parts), n, len(parts), slot)
+    return combine_partials(parts)
+
+
+def _attn_decode_pieces(q, k, v, pos, cache, cfg, meta: AttnMeta,
+                        slot=None):
     """Decode against a cache split along its ring (`SeqShards`): write
     the new k/v into the piece owning slot ``pos % W``, attend each
-    piece on its device, merge on q's device."""
+    piece on its device (its slot issuing the work), merge on q's
+    device."""
+    from ..distributed.placement import issuing
+
     b, sq, h, d = q.shape
     ck, cv, cp = cache["k"], cache["v"], cache["pos"]
     w = ck.length
@@ -304,52 +392,74 @@ def _attn_decode_pieces(q, k, v, pos, cache, cfg, meta: AttnMeta):
     qg = q.reshape(b, sq, hkv, h // hkv, d)
     kvc = _decode_chunk(w, meta.kv_chunk)
     parts = []
-    for (lo, hi, tk, dev), (_, _, tv, _), (_, _, tp, _) in zip(
-            ck.parts, cv.parts, cp.parts):
-        bidx = torch.arange(b, device=dev)
-        hidx = torch.arange(hkv, device=dev)
-        p_d = pos.to(dev)
-        slot = p_d[:, 0].long() % w
-        write_ring_piece(tk, bidx, slot, lo, hi, k[:, 0].to(dev), (hidx,))
-        write_ring_piece(tv, bidx, slot, lo, hi, v[:, 0].to(dev), (hidx,))
-        write_ring_piece(tp, bidx, slot, lo, hi, p_d[:, 0])
-        n = hi - lo
-        c = min(kvc, n) if n % min(kvc, n) == 0 else n
-        carry = _init_carry(b, hkv, h // hkv, sq, tv.shape[-1], dev)
-        qd = qg.to(dev)
-        for i in range(n // c):
-            carry = _combine(carry, qd, p_d, tk.narrow(2, i * c, c),
-                             tv.narrow(2, i * c, c), tp[:, i * c:(i + 1) * c],
-                             _scale(cfg), cfg.attn_softcap, meta.window,
-                             "bhsd")
-        parts.append(tuple(t.to(q.device) for t in carry))
-    out = combine_partials(parts)  # (B, Hkv, G, Sq, Dv)
+    for (lo, hi, tk, dev), (_, _, tv, _), (_, _, tp, _), tag in zip(
+            ck.parts, cv.parts, cp.parts, ck.slots):
+        with issuing(tag):
+            parts.append(_attend_piece(qg, k, v, pos, (lo, hi), (tk, tv, tp),
+                                       dev, w, kvc, cfg, meta))
+    out = merge_pieces(parts, q.device, slot)  # (B, Hkv, G, Sq, Dv)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, -1).to(q.dtype)
+
+
+def _attend_piece(qg, k, v, pos, span, piece, dev, w, kvc, cfg, meta):
+    """One ring piece ``(k, v, pos)`` holding slots ``span``: the new
+    k/v written where their slot falls, the piece's online-softmax
+    partial on its device."""
+    (lo, hi), (tk, tv, tp) = span, piece
+    b, sq, hkv, g, _ = qg.shape
+    bidx = torch.arange(b, device=dev)
+    hidx = torch.arange(hkv, device=dev)
+    p_d = pos.to(dev)
+    slot = p_d[:, 0].long() % w
+    write_ring_piece(tk, bidx, slot, lo, hi, k[:, 0].to(dev), (hidx,))
+    write_ring_piece(tv, bidx, slot, lo, hi, v[:, 0].to(dev), (hidx,))
+    write_ring_piece(tp, bidx, slot, lo, hi, p_d[:, 0])
+    n = hi - lo
+    c = min(kvc, n) if n % min(kvc, n) == 0 else n
+    carry = _init_carry(b, hkv, g, sq, tv.shape[-1], dev)
+    qd = qg.to(dev)
+    for i in range(n // c):
+        carry = _combine(carry, qd, p_d, tk.narrow(2, i * c, c),
+                         tv.narrow(2, i * c, c), tp[:, i * c:(i + 1) * c],
+                         _scale(cfg), cfg.attn_softcap, meta.window,
+                         "bhsd")
+    return carry
 
 
 def attn_decode(p, x, cache: dict, ctx: ShardCtx, cfg, meta: AttnMeta):
     """Single-token decode: x (B, 1, d); cache slots addressed pos % W,
     written in place."""
-    b = x.shape[0]
     pos = ctx.positions  # (B, 1) current absolute position
-    q, k, v = _qkv(p, x, cfg, pos)
+    if ctx.tp:
+        q, k, v = (ctx.whole(t) for t in _qkv_tp(p, x, ctx, cfg, pos))
+    else:
+        q, k, v = _qkv(p, x, cfg, pos)
     if not torch.is_tensor(cache["k"]):  # split over cache_seq on a mesh
-        out = _attn_decode_pieces(q, k, v, pos, cache, cfg, meta)
-        return _out(out, cast(p["wo"], x.dtype)), cache
+        out = _attn_decode_pieces(q, k, v, pos, cache, cfg, meta,
+                                  ctx.data_slot)
+    else:
+        out = _attn_decode_whole(q, k, v, pos, cache, cfg, meta)
+    if ctx.tp:
+        return ctx.whole(tp_product(out, p["wo"], ctx, n_in=2)), cache
+    return matmul(out, cast(p["wo"], x.dtype), 2), cache
+
+
+def _attn_decode_whole(q, k, v, pos, cache: dict, cfg, meta: AttnMeta):
+    """Decode against a cache held whole on q's device."""
+    b = q.shape[0]
     ck, cv, cp = cache["k"], cache["v"], cache["pos"]
     hkv, w = ck.shape[1], ck.shape[2]
     slot = pos[:, 0].long() % w
-    bidx = torch.arange(b, device=x.device)
-    ck[bidx[:, None], torch.arange(hkv, device=x.device)[None, :],
+    dev = q.device
+    bidx = torch.arange(b, device=dev)
+    ck[bidx[:, None], torch.arange(hkv, device=dev)[None, :],
        slot[:, None]] = k[:, 0]
-    cv[bidx[:, None], torch.arange(hkv, device=x.device)[None, :],
+    cv[bidx[:, None], torch.arange(hkv, device=dev)[None, :],
        slot[:, None]] = v[:, 0]
     cp[bidx, slot] = pos[:, 0].to(cp.dtype)
     kvc = _decode_chunk(w, meta.kv_chunk)
-    out = chunked_attention(
+    return chunked_attention(
         q, ck, cv, pos, cp,
         scale=_scale(cfg), window=meta.window, softcap=cfg.attn_softcap,
         kv_chunk=kvc, triangular=False, kv_layout="bhsd",
     )
-    y = _out(out, cast(p["wo"], x.dtype))
-    return y, cache

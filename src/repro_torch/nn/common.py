@@ -18,6 +18,17 @@ A tree's leaves are named by their ``"/"``-joined key path (for example
 The logical axes feed ``param_pspecs``: through the rules of
 `repro_torch.distributed.sharding` they say where a mesh stores each
 leaf (`repro_torch.distributed.placement`).
+
+On a mesh with a ``model`` axis the dense products are tensor-parallel
+(`tp_product`): each follows its weight's ``model`` axis, as XLA's
+partitioner follows the reference's input shardings —
+
+  * on an output dimension: column-parallel, the output stays cut over
+    the data slot's model slots (a `Split`);
+  * on the contraction dimension: row-parallel, each model slot's
+    partial sum, reduced over ``model`` (`ShardCtx.whole`);
+  * nowhere (`sanitize_spec` dropped it): replicated, computed once on
+    the data slot's device with the weight gathered there.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ import math
 from collections.abc import Mapping
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..kernels.runtime import resolve_device
@@ -173,6 +185,29 @@ def count_active_params(decls: Tree, experts_per_token: int = 0,
     return int(total)
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelSlot:
+    """One of a data slot's slots along ``model``: its index ``m`` on the
+    axis, its device, and ``tag``, the flat mesh index that issues its
+    work (`distributed.placement.issuing`)."""
+
+    m: int
+    device: Any
+    tag: int
+
+
+@dataclasses.dataclass
+class Split:
+    """An activation over a data slot's model slots, ``parts[m]`` on
+    model slot ``m``'s device: ``dim`` an int — each part its slot's
+    block of that dimension; ``"sum"`` — partial sums; ``"copy"`` — each
+    part the whole tensor ``whole``."""
+
+    parts: list
+    dim: Any
+    whole: Any = None
+
+
 @dataclasses.dataclass
 class ShardCtx:
     """Threaded through every apply(): the step's absolute positions,
@@ -180,10 +215,14 @@ class ShardCtx:
     the data slot this call computes (``rules`` is None unsharded).
 
     On a mesh one call runs one data slot: its rows ``rows`` of the
-    global batch, on its device ``device``, with every weight gathered
-    there by `gather` just before use.  The context is read only where
-    compute depends on it: the gathers, the MoE groups (`data_size`) and
-    the decode caches sharded over ``cache_seq``."""
+    global batch, on its device ``device``.  Where the mesh has a
+    ``model`` axis (`tp`), the attention, MLP, embedding and head
+    products are split over the slot's model slots (`model_slots`,
+    `tp_product`): each computes with its own block of the weights,
+    gathered over the data axes only, and the residual stream stays on
+    the data slot's device.  Other weights (the MoE FFN, MLA, the
+    recurrent mixers, the norms) are gathered whole onto that device by
+    `gather` just before use.  Unsharded every such branch is skipped."""
 
     positions: torch.Tensor | None = None  # (B, S) int32 absolute positions
     compute_dtype: torch.dtype = torch.bfloat16
@@ -194,6 +233,7 @@ class ShardCtx:
     data_slot: int = 0  # row-major over the rules' batch axes
     device: torch.device | None = None  # the data slot's device
     rows: tuple[int, int] | None = None  # its rows of the global batch
+    _slots: list | None = dataclasses.field(default=None, repr=False)
 
     @property
     def data_size(self) -> int:
@@ -203,6 +243,31 @@ class ShardCtx:
         from ..distributed.sharding import batch_axes
 
         return math.prod(self.mesh.shape[a] for a in batch_axes(self.rules))
+
+    @property
+    def tp(self) -> bool:
+        """Whether the dense products split over a ``model`` axis."""
+        return self.mesh is not None and self.mesh.shape.get("model", 1) > 1
+
+    @property
+    def model_slots(self) -> list[ModelSlot]:
+        """The data slot's slots along ``model``, its own first (the batch
+        axes at the slot's coordinates, other axes at 0)."""
+        if self._slots is None:
+            from ..distributed.sharding import batch_axes
+
+            mesh = self.mesh
+            axes = batch_axes(self.rules)
+            sizes = [mesh.shape[a] for a in axes]
+            coord = dict(zip(axes, (int(c) for c in np.unravel_index(
+                self.data_slot, sizes)))) if axes else {}
+            self._slots = []
+            for m in range(mesh.shape["model"]):
+                c = dict(coord, model=m)
+                pos = tuple(c.get(a, 0) for a in mesh.axis_names)
+                self._slots.append(ModelSlot(m, mesh.devices[pos], int(
+                    np.ravel_multi_index(pos, mesh.devices.shape))))
+        return self._slots
 
     def gather(self, tree: Tree) -> Tree:
         """``tree`` with every sharded leaf all-gathered onto this data
@@ -214,6 +279,152 @@ class ShardCtx:
 
         return map_tree(lambda t: t.full(self.device, self.data_slot)
                         if isinstance(t, ShardedTensor) else t, tree)
+
+    def per_slot(self, fn, *args) -> list:
+        """``fn(model slot, *args)`` on each model slot, a `Split`'s
+        argument as its part, the slot issuing the work."""
+        from ..distributed.placement import issuing, tag_graph
+
+        out = []
+        for s in self.model_slots:
+            with issuing(s.tag):
+                y = fn(s, *(a.parts[s.m] if isinstance(a, Split) else a
+                            for a in args))
+            tag_graph([t for t in (y if isinstance(y, tuple) else (y,))
+                       if torch.is_tensor(t)], s.tag)
+            out.append(y)
+        return out
+
+    def fan_out(self, x: torch.Tensor) -> Split:
+        """``x`` (on this data slot's device) copied to its model slots."""
+        from ..distributed.placement import to_model_slots
+
+        return Split(to_model_slots(x, [s.device for s in self.model_slots],
+                                    self.device, self.data_slot), "copy", x)
+
+    def whole(self, x) -> torch.Tensor:
+        """A `Split` made whole on the data slot's device: partial sums
+        reduced (all-reduce), parts joined (all-gather)."""
+        if not isinstance(x, Split):
+            return x
+        if x.dim == "copy":
+            return x.whole
+        from ..distributed.placement import (from_model_slots,
+                                             gather_model_parts)
+
+        devs = [s.device for s in self.model_slots]
+        if x.dim == "sum":
+            return from_model_slots(x.parts, self.device, devs,
+                                    self.data_slot)
+        return gather_model_parts(x.parts, x.dim, self.device, devs,
+                                  self.data_slot)
+
+
+def tp_layout(w, contract: tuple) -> tuple[str, int | None]:
+    """Where ``w``'s ``model`` axis lies, for a product contracting its
+    dims ``contract``: ``("row", i)`` on ``contract[i]``, ``("column",
+    j)`` on its ``j``-th other dim, ``("replicated", None)`` nowhere.  A
+    ``model`` axis on two dims, or with another axis on one, raises."""
+    entries = list(w.spec) + [None] * (w.ndim - len(w.spec))
+    dims = [d for d, e in enumerate(entries)
+            if e is not None and "model" in (e if isinstance(e, tuple)
+                                             else (e,))]
+    if not dims:
+        return "replicated", None
+    if len(dims) > 1 or entries[dims[0]] != "model":
+        raise ValueError(f"no tensor-parallel product takes the spec "
+                         f"{w.spec} of a {w.shape} weight")
+    d = dims[0]
+    if d in contract:
+        return "row", contract.index(d)
+    return "column", [k for k in range(w.ndim) if k not in contract].index(d)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
+    """x (…, in…) × w (in…, out…), ``n_in`` contraction dims, in x's
+    dtype."""
+    w = cast(w, x.dtype)
+    if w.ndim == 2 and n_in == 1:
+        return x @ w
+    k = math.prod(w.shape[:n_in])
+    return (x.flatten(-n_in) @ w.reshape(k, -1)).unflatten(-1, w.shape[n_in:])
+
+
+def tp_product(x, w, ctx: ShardCtx, n_in: int = 1, fn=None,
+               contract: tuple | None = None):
+    """``fn(x, w)`` (default `matmul` over ``n_in`` leading dims of w)
+    by the rule of ``w``'s ``model`` axis (a `ShardedTensor`):
+    replicated — a tensor on the data slot's device; column — a `Split`
+    cut along the output; row — a `Split` of partial sums.  ``x``: a
+    tensor on the data slot's device or a `Split` (its copies, or cut
+    along the contraction dim of a row product); ``contract``: w's
+    contraction dims when ``fn`` is not `matmul`'s (x's last dims, in
+    that order)."""
+    contract = tuple(range(n_in)) if contract is None else contract
+    fn = fn or (lambda a, b: matmul(a, b, n_in))
+    kind, at = tp_layout(w, contract)
+    nc = len(contract)
+    if kind == "replicated":
+        return fn(ctx.whole(x), w.full(ctx.device, ctx.data_slot))
+    xp = x.parts[0] if isinstance(x, Split) else x
+    xdim = xp.ndim - nc + at  # the cut dim of x (row) or of the output
+
+    def blk(s):
+        return w.block(s.m, s.device, ctx.data_slot)
+
+    if kind == "row" and isinstance(x, Split) and x.dim == xdim:
+        return Split(ctx.per_slot(lambda s, xm: fn(xm, blk(s)), x), "sum")
+    xs = x if isinstance(x, Split) and x.dim == "copy" \
+        else ctx.fan_out(ctx.whole(x))
+
+    def one(s, xm):
+        if kind == "row":  # the slot's slice of the contraction
+            a, b = w.model_range(s.m)[contract[at]]
+            xm = xm.narrow(xdim, a, b - a)
+        return fn(xm, blk(s))
+
+    return Split(ctx.per_slot(one, xs), xdim if kind == "column" else "sum")
+
+
+def tp_bias(y, b, ctx: ShardCtx):
+    """``y`` (a `tp_product` result) plus the bias ``b`` (a
+    `ShardedTensor` of ``y``'s last dims): a part cut along a dim takes
+    its block of ``b``; partial sums take a bias cut over ``model`` in
+    blocks, each block once, and a replicated one after the reduction;
+    a replicated product adds it whole."""
+    off = (y.parts[0] if isinstance(y, Split) else y).ndim - b.ndim
+    kind, _ = tp_layout(b, ())
+    if not isinstance(y, Split) or (y.dim == "sum" and kind == "replicated"):
+        y = ctx.whole(y)
+        return y + cast(b.full(ctx.device, ctx.data_slot), y.dtype)
+    if y.dim == "sum":
+        def add_block(s, part):
+            rng = b.model_range(s.m)
+            z = torch.zeros(part.shape[off:], dtype=part.dtype,
+                            device=part.device)
+            z[tuple(slice(a, c) for a, c in rng)] = cast(
+                b.block(s.m, s.device, ctx.data_slot), part.dtype)
+            return part + z
+
+        return Split(ctx.per_slot(add_block, y), "sum")
+    k = y.dim - off
+    if k < 0:
+        raise ValueError(f"a {b.shape} bias on a part cut along dim {y.dim}")
+
+    def add_cut(s, part):
+        n = part.shape[y.dim]
+        rng = b.model_range(s.m)
+        bm = b.block(s.m, s.device, ctx.data_slot)
+        if any(r != (0, d) for i, (r, d) in enumerate(zip(rng, b.shape))
+               if i != k) or rng[k] not in ((0, b.shape[k]),
+                                            (s.m * n, (s.m + 1) * n)):
+            raise ValueError(f"a bias {b.spec} does not follow its "
+                             f"product's cut along dim {y.dim}")
+        if rng[k] == (0, b.shape[k]):  # replicated: the slot's slice
+            bm = bm.narrow(k, s.m * n, n)
+        return part + cast(bm, part.dtype)
+
+    return Split(ctx.per_slot(add_cut, y), y.dim)
 
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:

@@ -12,7 +12,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from .common import ParamDecl, ShardCtx, cast
+from .common import (ParamDecl, ShardCtx, Split, cast, tp_bias, tp_layout,
+                     tp_product)
 
 # ---------------------------------------------------------------------------
 # norms
@@ -66,10 +67,39 @@ def embed_lookup(p: dict, tokens: torch.Tensor, ctx: ShardCtx,
                  scale_by_sqrt_d: bool = False) -> torch.Tensor:
     # gather the rows first, then cast: the same values as casting the
     # whole table, without a compute-dtype copy of it every step
-    x = cast(p["table"][tokens.long()], ctx.compute_dtype)
+    if ctx.tp:
+        x = _embed_tp(p["table"], tokens, ctx)
+    else:
+        x = cast(p["table"][tokens.long()], ctx.compute_dtype)
     if scale_by_sqrt_d:
         x = x * math.sqrt(p["table"].shape[-1])
     return x
+
+
+def _embed_tp(table, tokens: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The lookup on a mesh, by where the table's ``model`` axis lies:
+    over vocab, each model slot looks up the tokens in its range (zeros
+    elsewhere) and the rows are summed over ``model``; over d_model,
+    each looks up its columns and they are joined; nowhere, the table is
+    gathered onto the data slot's device."""
+    kind, at = tp_layout(table, ())
+    dt = ctx.compute_dtype
+    if kind == "replicated":
+        return cast(table.full(ctx.device, ctx.data_slot)[tokens.long()], dt)
+    tok = tokens.long()
+
+    def look(s):
+        blk = table.block(s.m, s.device, ctx.data_slot)
+        t = tok.to(s.device)
+        if at == 1:  # columns of d_model
+            return cast(blk[t], dt)
+        lo, hi = table.model_range(s.m)[0]
+        mine = (t >= lo) & (t < hi)
+        rows = blk[torch.clamp(t - lo, 0, hi - lo - 1)]
+        return cast(torch.where(mine[..., None], rows, 0.0), dt)
+
+    return ctx.whole(Split(ctx.per_slot(look),
+                           "sum" if at == 0 else tok.ndim))
 
 
 def unembed_decls(d: int, vocab: int) -> dict:
@@ -81,7 +111,26 @@ def unembed_decls(d: int, vocab: int) -> dict:
 
 def unembed(p: dict | None, x: torch.Tensor, ctx: ShardCtx,
             tied_table: torch.Tensor | None = None,
-            softcap: float | None = None) -> torch.Tensor:
+            softcap: float | None = None):
+    """float32 logits; on a mesh with a ``model`` axis, a `Split` cut
+    over vocab where the head's weight is (the reference's constraint),
+    else whole on the data slot's device."""
+    if ctx.tp:
+        if tied_table is not None:
+            y = tp_product(x, tied_table, ctx, contract=(1,),
+                           fn=lambda a, w: a @ cast(w, a.dtype).t())
+        else:
+            y = tp_product(x, p["kernel"], ctx)
+        if isinstance(y, Split) and y.dim == "sum":
+            y = ctx.whole(y)
+
+        def finish(_, lg):
+            lg = lg.float()
+            return softcap * torch.tanh(lg / softcap) if softcap else lg
+
+        if isinstance(y, Split):
+            return Split(ctx.per_slot(finish, y), y.dim)
+        return finish(None, y)
     if tied_table is not None:
         logits = x @ cast(tied_table, x.dtype).t()
     else:
@@ -152,6 +201,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p: dict, x: torch.Tensor, kind: str, ctx: ShardCtx) -> torch.Tensor:
+    """The MLP; weights still in their pieces on a tensor-parallel mesh
+    (a dense block's) are split over ``model`` (`_mlp_tp`), gathered
+    ones (the MoE's shared expert) run whole."""
+    if ctx.tp and not torch.is_tensor(p["down"]):
+        return _mlp_tp(p, x, kind, ctx)
     dt = x.dtype
     if kind in ("swiglu", "geglu"):
         g = x @ cast(p["gate"], dt)
@@ -167,3 +221,36 @@ def apply_mlp(p: dict, x: torch.Tensor, kind: str, ctx: ShardCtx) -> torch.Tenso
     if "down_b" in p:
         y = y + cast(p["down_b"], dt)
     return y
+
+
+def _mlp_tp(p: dict, x: torch.Tensor, kind: str, ctx: ShardCtx):
+    """The MLP on a mesh: ``gate``/``up`` column-parallel over ff (the
+    activation on each slot's slice), ``down`` row-parallel, its partial
+    sums reduced over ``model`` and ``down_b`` added once after; other
+    layouts by `tp_product`'s rule (partial sums reduced before the
+    activation)."""
+    xs = ctx.fan_out(x)
+
+    def ready(y):  # cut or whole: the activation is element-wise
+        return ctx.whole(y) if isinstance(y, Split) and y.dim == "sum" else y
+
+    if kind in ("swiglu", "geglu"):
+        g = ready(tp_product(xs, p["gate"], ctx))
+        u = ready(tp_product(xs, p["up"], ctx))
+
+        def act(_, gm, um):
+            return (F.silu(gm) if kind == "swiglu" else gelu(gm)) * um
+    else:
+        g = tp_product(xs, p["up"], ctx)
+        if "up_b" in p:
+            g = tp_bias(g, p["up_b"], ctx)
+        g = u = ready(g)
+
+        def act(_, gm, um):
+            return gelu(gm)
+    h = Split(ctx.per_slot(act, g, u), g.dim) if isinstance(g, Split) \
+        else act(None, g, u)
+    y = tp_product(h, p["down"], ctx)
+    if "down_b" in p:
+        y = tp_bias(y, p["down_b"], ctx)
+    return ctx.whole(y)

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from .attention import chunked_attention
+from .attention import chunked_attention, write_ring_piece
 from .common import ParamDecl, ShardCtx, cast
 from .layers import apply_norm, norm_decls, rope
 
@@ -104,7 +104,7 @@ def mla_decode(p, x, cache, ctx: ShardCtx, cfg, meta):
     c_new, kr_new, q_nope, q_rope = _latent(p, x, cfg, pos)
     if not torch.is_tensor(cache["c_kv"]):  # split over cache_seq on a mesh
         return _mla_decode_pieces(p, x, cache, cfg, pos, c_new, kr_new,
-                                  q_nope, q_rope), cache
+                                  q_nope, q_rope, ctx.data_slot), cache
     slot = pos[:, 0].long()
     bidx = torch.arange(b, device=x.device)
     c, krope, cpos = cache["c_kv"], cache["k_rope"], cache["pos"]
@@ -127,37 +127,49 @@ def mla_decode(p, x, cache, ctx: ShardCtx, cfg, meta):
     return y, cache
 
 
-def _mla_decode_pieces(p, x, cache, cfg, pos, c_new, kr_new, q_nope, q_rope):
+def _mla_decode_pieces(p, x, cache, cfg, pos, c_new, kr_new, q_nope, q_rope,
+                       data_slot=None):
     """Absorbed decode against a latent cache split along its sequence
     (`SeqShards`): the new latent written into the piece owning slot
     ``pos``, each piece's partial softmax (max, sum, latent sum) on its
-    device in float32, merged by log-sum-exp on x's device."""
-    from .attention import combine_partials, write_ring_piece
+    device in float32 (its slot issuing the work), merged by log-sum-exp
+    on x's device."""
+    from ..distributed.placement import issuing
+    from .attention import merge_pieces
 
-    b, dt = x.shape[0], x.dtype
+    dt = x.dtype
     q_abs = torch.einsum("bohk,rhk->bhr", q_nope.float(),
                          cast(p["wk_b"], dt).float())
     n = cache["c_kv"].length
     parts = []
-    for (lo, hi, c, dev), (_, _, kr, _), (_, _, cp, _) in zip(
-            cache["c_kv"].parts, cache["k_rope"].parts, cache["pos"].parts):
-        bidx = torch.arange(b, device=dev)
-        p_d = pos.to(dev)
-        slot = p_d[:, 0].long() % n
-        write_ring_piece(c, bidx, slot, lo, hi, c_new[:, 0].to(dev))
-        write_ring_piece(kr, bidx, slot, lo, hi, kr_new[:, 0].to(dev))
-        write_ring_piece(cp, bidx, slot, lo, hi, p_d[:, 0])
-        s_lat = torch.einsum("bhr,bsr->bhs", q_abs.to(dev), c.float())
-        s_rope = torch.einsum("bohk,bsk->bhs", q_rope.float().to(dev),
-                              kr.float())
-        s = (s_lat + s_rope) * _scale(cfg)
-        valid = (cp[:, None, :] <= p_d[:, :1][:, None, :]) \
-            & (cp[:, None, :] >= 0)
-        s = torch.where(valid, s, NEG)
-        m = s.amax(dim=-1)
-        e = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
-        acc = torch.einsum("bhs,bsr->bhr", e, c.float())
-        parts.append(tuple(t.to(x.device) for t in (m, e.sum(dim=-1), acc)))
-    out_lat = combine_partials(parts).to(dt)  # (B,H,kr)
+    for (lo, hi, c, dev), (_, _, kr, _), (_, _, cp, _), tag in zip(
+            cache["c_kv"].parts, cache["k_rope"].parts, cache["pos"].parts,
+            cache["c_kv"].slots):
+        with issuing(tag):
+            parts.append(_latent_piece(q_abs, q_rope, c_new, kr_new, pos,
+                                       (lo, hi, n), (c, kr, cp), dev, cfg))
+    out_lat = merge_pieces(parts, x.device, data_slot).to(dt)  # (B,H,kr)
     out = torch.einsum("bhr,rhk->bhk", out_lat, cast(p["wv_b"], dt))
     return torch.einsum("bhk,hkd->bd", out, cast(p["wo"], dt))[:, None, :]
+
+
+def _latent_piece(q_abs, q_rope, c_new, kr_new, pos, span, piece, dev, cfg):
+    """One piece ``(c_kv, k_rope, pos)`` holding slots ``span`` ``(lo,
+    hi, n)`` of ``n``: the new latent written where its slot falls, the
+    piece's (max, sum, latent sum) on its device."""
+    (lo, hi, n), (c, kr, cp) = span, piece
+    b = q_abs.shape[0]
+    bidx = torch.arange(b, device=dev)
+    p_d = pos.to(dev)
+    slot = p_d[:, 0].long() % n
+    write_ring_piece(c, bidx, slot, lo, hi, c_new[:, 0].to(dev))
+    write_ring_piece(kr, bidx, slot, lo, hi, kr_new[:, 0].to(dev))
+    write_ring_piece(cp, bidx, slot, lo, hi, p_d[:, 0])
+    s_lat = torch.einsum("bhr,bsr->bhs", q_abs.to(dev), c.float())
+    s_rope = torch.einsum("bohk,bsk->bhs", q_rope.float().to(dev), kr.float())
+    s = (s_lat + s_rope) * _scale(cfg)
+    valid = (cp[:, None, :] <= p_d[:, :1][:, None, :]) & (cp[:, None, :] >= 0)
+    s = torch.where(valid, s, NEG)
+    m = s.amax(dim=-1)
+    e = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return m, e.sum(dim=-1), torch.einsum("bhs,bsr->bhr", e, c.float())

@@ -19,10 +19,16 @@ the flat tree `quantize_param_tree` takes and ``load_state_dict`` takes
 back.
 
 On a mesh (``ctx.mesh``) a call computes one data slot: the parameters
-are `ShardedTensor`s, gathered onto the slot's device just before use —
-a repeat unit's inside its remat region, so the recompute gathers them
-again — and the loss is returned as partial sums (`loss_parts`) that
-the step adds over the slots before it divides (`loss_from_parts`).
+are `ShardedTensor`s, taken just before use — a repeat unit's inside
+its remat region, so the recompute takes them again — and the loss is
+returned as partial sums (`loss_parts`) that the step adds over the
+slots before it divides (`loss_from_parts`).  On a mesh with a
+``model`` axis the attention, dense MLP, embedding and head products
+are split over the slot's model slots (`nn.common.tp_product`; the
+blocks' dispatch is `blocks.gather_block`): the logits stay cut over
+vocab, and the loss's log-sum-exp is taken over the cut
+(`vocab_parallel_xent`); other weights are gathered onto the slot's
+device.
 """
 from __future__ import annotations
 
@@ -33,9 +39,10 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .blocks import BlockMeta, block_apply, block_decls, block_decode
-from .common import (ParamDecl, ShardCtx, flatten_tree, map_tree, torch_dtype,
-                     unflatten_tree)
+from .blocks import (BlockMeta, block_apply, block_decls, block_decode,
+                     gather_block)
+from .common import (ParamDecl, ShardCtx, Split, flatten_tree, map_tree,
+                     torch_dtype, unflatten_tree)
 from .layers import (apply_norm, embed_decls, embed_lookup, norm_decls,
                      sinusoidal, unembed, unembed_decls)
 from .moe import switch_aux
@@ -145,11 +152,26 @@ def _layer(tree, r: int) -> dict:
     return map_tree(lambda t: t[r], tree)
 
 
+def _gather_unit(unit: dict, metas, ctx: ShardCtx) -> dict:
+    """A repeat unit's weights as its blocks take them (`gather_block`)."""
+    return {f"slot{j}": gather_block(unit[f"slot{j}"], ctx, m)
+            for j, m in enumerate(metas)}
+
+
 def _unit_apply(x, unit: dict, metas, ctx: ShardCtx, cfg):
     """One repeat unit of a stage: its blocks in order, its weights
-    gathered first on a mesh.  Returns (x, the blocks' caches, the list
+    taken first on a mesh.  Returns (x, the blocks' caches, the list
     of its MoE blocks' routing sums)."""
-    unit = ctx.gather(unit)
+    if ctx.mesh is None:
+        return _unit_blocks(x, unit, metas, ctx, cfg)
+    from ..distributed.placement import issuing
+
+    with issuing(None):  # the data slot's: a remat recompute runs here too
+        return _unit_blocks(x, _gather_unit(unit, metas, ctx), metas, ctx,
+                            cfg)
+
+
+def _unit_blocks(x, unit: dict, metas, ctx: ShardCtx, cfg):
     cs, sums = [], []
     for j, meta in enumerate(metas):
         x, c, a = block_apply(unit[f"slot{j}"], x, ctx, cfg, meta)
@@ -161,14 +183,19 @@ def _unit_apply(x, unit: dict, metas, ctx: ShardCtx, cfg):
 
 def _gather_top(params, ctx: ShardCtx) -> dict:
     """The parameters outside the stages gathered onto the slot's device
-    (the stages stay as they are: a unit gathers its own)."""
+    (the stages stay as they are: a unit gathers its own); on a
+    tensor-parallel mesh the embedding and head stay in their pieces."""
+    keep = ("embed", "lm_head") if ctx.tp else ()
     return dict(params, **ctx.gather(
-        {k: v for k, v in params.items() if not k.startswith("stage")}))
+        {k: v for k, v in params.items()
+         if not k.startswith("stage") and k not in keep}))
 
 
-def forward(params, batch, cfg, ctx: ShardCtx):
+def forward(params, batch, cfg, ctx: ShardCtx, whole_logits: bool = True):
     """Full-sequence pass.  Returns (logits, the MoE blocks' routing
-    sums, caches|None).
+    sums, caches|None).  On a tensor-parallel mesh the logits are joined
+    over vocab (an all-gather), or with ``whole_logits=False`` left a
+    `Split` cut over vocab where the head cuts them.
 
     A stage's entry of ``params`` may also be the list of its repeats'
     unit trees (the train step's per-layer leaves).  With
@@ -204,6 +231,8 @@ def forward(params, batch, cfg, ctx: ShardCtx):
                  for k in per_repeat[0][j]}
                 for j in range(len(st.metas))))
     logits = _head(params, x, cfg, ctx)
+    if whole_logits:
+        logits = ctx.whole(logits)
     return logits, sums, caches
 
 
@@ -224,7 +253,8 @@ def decode_step(params, batch, caches, ctx: ShardCtx, cfg):
         sp = params[f"stage{si}"]
         cache_si = caches[si]
         for r in range(st.repeat):
-            unit = ctx.gather(_layer(sp, r))
+            unit = _gather_unit(_layer(sp, r), st.metas, ctx) \
+                if ctx.mesh is not None else _layer(sp, r)
             for j, meta in enumerate(st.metas):
                 cache = _layer(cache_si[j], r)
                 if ctx.mesh is not None:
@@ -236,7 +266,7 @@ def decode_step(params, batch, caches, ctx: ShardCtx, cfg):
                                     meta)
                 if ctx.mesh is not None:
                     close()
-    logits = _head(params, x, cfg, ctx)
+    logits = ctx.whole(_head(params, x, cfg, ctx))
     return logits, caches
 
 
@@ -244,18 +274,49 @@ def loss_parts(params, batch, cfg, ctx: ShardCtx) -> dict:
     """The loss's sums over ``batch``'s tokens: ``xent`` (masked token
     cross-entropy), ``zsq`` (masked logZ²), ``count`` (the mask's sum),
     ``tokens`` (an int) and ``aux`` (the forward's MoE routing sums)."""
-    logits, aux, _ = forward(params, batch, cfg, ctx)
+    logits, aux, _ = forward(params, batch, cfg, ctx, whole_logits=False)
     labels = batch["labels"].long()
     mask = batch.get("mask")
+    if isinstance(logits, Split):
+        logz, ll = vocab_parallel_xent(logits, labels, ctx)
+    else:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=logits.device)
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+                          device=logz.device)
     xent = (logz - ll) * mask
     return {"xent": xent.sum(), "zsq": ((logz * mask) ** 2).sum(),
             "count": mask.sum(), "tokens": labels.numel(), "aux": aux}
+
+
+def vocab_parallel_xent(logits: Split, labels: torch.Tensor,
+                        ctx: ShardCtx) -> tuple:
+    """(logZ, the label's logit) over float32 logits cut over vocab (a
+    `Split` of even blocks, slot ``m``'s the ``m``-th), on the data
+    slot's device: the max an all-reduce max (no gradient), the sum of
+    exponentials an all-reduce sum, the label's logit taken on the slot
+    that owns it and summed."""
+    from ..distributed.placement import all_reduce_max
+
+    n = logits.parts[0].shape[-1]
+    mx = all_reduce_max(ctx.per_slot(
+        lambda s, lg: lg.detach().amax(dim=-1), logits), ctx.device,
+        ctx.data_slot)
+
+    def stats(s, lg):
+        lab = labels.to(s.device) - s.m * n
+        mine = (lab >= 0) & (lab < n)
+        ll = torch.take_along_dim(lg, torch.clamp(lab, 0, n - 1)[..., None],
+                                  dim=-1)[..., 0]
+        return (torch.exp(lg - mx.to(s.device)[..., None]).sum(dim=-1),
+                torch.where(mine, ll, 0.0))
+
+    st = ctx.per_slot(stats, logits)
+    se = ctx.whole(Split([a for a, _ in st], "sum"))
+    ll = ctx.whole(Split([b for _, b in st], "sum"))
+    return mx + torch.log(se), ll
 
 
 def _global_aux(stats, cfg, tokens: int, device) -> torch.Tensor:

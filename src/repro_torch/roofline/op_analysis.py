@@ -42,7 +42,13 @@ and what the eager port itself does, with no fusion:
 
 Every number is of the call as traced: on a mesh it is whatever the
 traced data slots computed (`repro_torch.launch.dryrun` traces one and
-charges it to each).  HLO text parsing has no counterpart here.
+charges it to each).  On a tensor-parallel mesh each op and collective
+is also counted under its issuer (`distributed.placement.issuing`: the
+device slot of the data slot's model group that computes it), so that
+`OpCounter.device_cost` reads what the busiest device of the group
+computes and holds: the untagged work, which the reference repeats on
+every device of the group, and the busiest issuer's own.  HLO text
+parsing has no counterpart here.
 """
 from __future__ import annotations
 
@@ -223,9 +229,11 @@ def _whole(t: torch.Tensor) -> bool:
             and _nbytes(t) == t.untyped_storage().nbytes())
 
 
-def _collectives(before: dict, after: dict, cost: CompCost) -> None:
+def _collectives(before: dict, after: dict, cost: CompCost,
+                 tagged: dict | None = None) -> None:
     """Add the collectives counted between two snapshots of
-    `placement.COLLECTIVES` to ``cost``."""
+    `placement.COLLECTIVES` to ``cost``, and those recorded under an
+    issuer (a ``(slot, issuer)`` key) to ``tagged[issuer]`` too."""
     for key, rec in after.items():
         kind, slot, n = key
         old = before.get(key, {})
@@ -234,16 +242,24 @@ def _collectives(before: dict, after: dict, cost: CompCost) -> None:
             continue
         ob = rec["operand_bytes"] - old.get("operand_bytes", 0)
         rb = rec["result_bytes"] - old.get("result_bytes", 0)
-        link = collective_link_bytes(kind, rb, ob, n)
-        cost.coll_bytes[kind] = cost.coll_bytes.get(kind, 0.0) + link
-        cost.coll_counts[kind] = cost.coll_counts.get(kind, 0) + calls
-        cost.coll_by_slot[slot] = cost.coll_by_slot.get(slot, 0.0) + link
-        raw = cost.coll_raw.setdefault(
-            kind, {"calls": 0, "operand_bytes": 0, "result_bytes": 0})
-        raw["calls"] += calls
-        raw["operand_bytes"] += ob
-        raw["result_bytes"] += rb
-        cost._hbm(kind, ob + rb)
+        targets = [cost]
+        if tagged is not None and isinstance(slot, tuple):
+            targets.append(tagged.setdefault(slot[1], CompCost()))
+        for c in targets:
+            _add_collective(c, kind, slot, n, calls, ob, rb)
+
+
+def _add_collective(cost: CompCost, kind, slot, n, calls, ob, rb) -> None:
+    link = collective_link_bytes(kind, rb, ob, n)
+    cost.coll_bytes[kind] = cost.coll_bytes.get(kind, 0.0) + link
+    cost.coll_counts[kind] = cost.coll_counts.get(kind, 0) + calls
+    cost.coll_by_slot[slot] = cost.coll_by_slot.get(slot, 0.0) + link
+    raw = cost.coll_raw.setdefault(
+        kind, {"calls": 0, "operand_bytes": 0, "result_bytes": 0})
+    raw["calls"] += calls
+    raw["operand_bytes"] += ob
+    raw["result_bytes"] += rb
+    cost._hbm(kind, ob + rb)
 
 
 def _snapshot() -> dict:
@@ -255,28 +271,39 @@ class OpCounter(TorchDispatchMode):
     OpCounter() as oc:`` … ``oc.phase("update")`` …; ``oc.costs`` maps
     each phase to its `CompCost` (its ``peak_live_bytes`` measured from
     the live bytes at the phase's start), ``oc.total()`` adds them (the
-    peak over the whole trace)."""
+    peak over the whole trace).  ``oc.tagged[phase][issuer]`` is the
+    part of a phase each issuer computed, and `device_cost` the busiest
+    device's share."""
 
     def __init__(self, phase: str = "step"):
         super().__init__()
         self.costs: dict[str, CompCost] = {}
-        self._live: dict[int, tuple] = {}  # id(storage) → (bytes, finalizer)
+        self.tagged: dict[str, dict] = {}
+        self.dev_peak: dict[str, int] = {}
+        # id(storage) → (bytes, finalizer, issuer)
+        self._live: dict[int, tuple] = {}
         self._cur = 0
+        self._cur_by: dict = {None: 0}  # live bytes by issuer
         self._peak = 0
         self._phase_base = 0
+        self._dev_base = 0
         self._name = phase
         self._coll = {}
+        self._tagging = False
 
     # -- phases -------------------------------------------------------------
     def __enter__(self):
         self._coll = _snapshot()
+        self._tagging = placement.TAGGING["on"]
+        placement.TAGGING["on"] = True
         self._start(self._name)
         return super().__enter__()
 
     def __exit__(self, *exc):
         out = super().__exit__(*exc)
         self._close()
-        for _, fin in self._live.values():
+        placement.TAGGING["on"] = self._tagging
+        for _, fin, _ in self._live.values():
             fin.detach()
         self._live.clear()
         return out
@@ -284,12 +311,32 @@ class OpCounter(TorchDispatchMode):
     def _start(self, name: str) -> None:
         self._name = name
         self._cost = self.costs.setdefault(name, CompCost())
+        self._tags = self.tagged.setdefault(name, {})
         self._phase_base = self._cur
+        self._dev_base = self._device_now()
+        self.dev_peak.setdefault(name, 0)
 
     def _close(self) -> None:
         now = _snapshot()
-        _collectives(self._coll, now, self._cost)
+        _collectives(self._coll, now, self._cost, self._tags)
         self._coll = now
+
+    def device_cost(self, phase: str) -> CompCost:
+        """The busiest device of the traced data slots' model group in
+        ``phase``: the untagged part (every device of the group repeats
+        it) and the busiest issuer's part (by FLOPs, then kernel bytes);
+        its peak the largest rise of the untagged and one issuer's live
+        bytes together."""
+        out = CompCost()
+        out.add(self.costs[phase])
+        tags = self.tagged.get(phase, {})
+        for c in tags.values():
+            out.add(c, -1.0)
+        if tags:
+            out.add(max(tags.values(),
+                        key=lambda c: (c.flops, c.kernel_bytes)))
+        out.peak_live_bytes = self.dev_peak.get(phase, 0)
+        return out
 
     def phase(self, name: str) -> None:
         """End the current phase and count what follows as ``name``."""
@@ -304,11 +351,16 @@ class OpCounter(TorchDispatchMode):
         return out
 
     # -- the storages -------------------------------------------------------
-    def _free(self, key: int) -> None:
-        nb, _ = self._live.pop(key)
-        self._cur -= nb
+    def _device_now(self) -> int:
+        tags = [v for k, v in self._cur_by.items() if k is not None]
+        return self._cur_by[None] + max(tags, default=0)
 
-    def _allocated(self, out, args) -> None:
+    def _free(self, key: int) -> None:
+        nb, _, tag = self._live.pop(key)
+        self._cur -= nb
+        self._cur_by[tag] -= nb
+
+    def _allocated(self, out, args, tag) -> None:
         inputs = {id(t.untyped_storage()) for t in _tensors(args)}
         for t in _tensors(out):
             st = t.untyped_storage()
@@ -316,13 +368,17 @@ class OpCounter(TorchDispatchMode):
             if key in inputs or key in self._live:
                 continue
             nb = st.nbytes()
-            self._live[key] = (nb, weakref.finalize(st, self._free, key))
+            self._live[key] = (nb, weakref.finalize(st, self._free, key), tag)
             self._cur += nb
+            self._cur_by[tag] = self._cur_by.get(tag, 0) + nb
             if self._cur > self._peak:
                 self._peak = self._cur
             rise = self._cur - self._phase_base
             if rise > self._cost.peak_live_bytes:
                 self._cost.peak_live_bytes = rise
+            dev = self._device_now() - self._dev_base
+            if dev > self.dev_peak[self._name]:
+                self.dev_peak[self._name] = dev
 
     # -- the ops ------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -335,12 +391,15 @@ class OpCounter(TorchDispatchMode):
             return out
         if func.namespace == "profiler":
             return out
-        self._count(func, base, args, kwargs, out)
-        self._allocated(out, args)
+        tag = placement.current_issuer()
+        self._count(self._cost, func, base, args, kwargs, out)
+        if tag is not None:
+            self._count(self._tags.setdefault(tag, CompCost()), func, base,
+                        args, kwargs, out)
+        self._allocated(out, args, tag)
         return out
 
-    def _count(self, func, base, args, kwargs, out) -> None:
-        c = self._cost
+    def _count(self, c: CompCost, func, base, args, kwargs, out) -> None:
         c.ops += 1
         c.ops_by_name[base] += 1
         ins = list(_tensors((args, kwargs)))

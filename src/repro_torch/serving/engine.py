@@ -16,10 +16,13 @@ On a mesh (``mesh=``, ``rules=``; decode rules by default) the
 parameters are placed as `repro`'s dry run places them
 (``sanitized_shardings(…, param_pspecs(…), tp_fallback_axis="model")``)
 and the caches by `cache_pspecs`.  Each data slot computes its rows of
-the batch with the weights gathered onto its device; a cache sharded
-over ``cache_seq`` is attended piece by piece (sequence-parallel
-decode), other cache leaves are read and written in their pieces.  The
-logits are assembled on the first data slot's device.
+the batch, its dense products split over its model slots
+(`nn.common.tp_product`: no weight of theirs is gathered, as the
+decode rules replicate ``d_model``); a cache sharded over ``cache_seq``
+is attended piece by piece (sequence-parallel decode), other cache
+leaves are read and written in their pieces.  Each slot's logits are
+joined over vocab on its device (an all-gather), then assembled on the
+first data slot's device.
 """
 from __future__ import annotations
 

@@ -19,8 +19,10 @@ On a mesh (``make_train_step(cfg, hp, mesh, rules)``) the state is
 placed by ``sanitized_shardings(mesh, train_state_pspecs(...))`` and the
 batch by `batch_shardings`: every leaf a `ShardedTensor`.  The step is
 data-parallel over the rules' batch axes: each data slot runs its rows
-of every microbatch on its own device, the weights all-gathered there
-(a repeat unit's inside its remat region), and the slots' loss sums are
+of every microbatch on its own device and its model slots (the
+tensor-parallel products of `nn.common.tp_product`), each weight taken
+in the block its slot computes with, gathered over the data axes (a
+repeat unit's inside its remat region), and the slots' loss sums are
 added on the first slot's device and divided by the global mask count
 before one ``backward()`` over the whole multi-device graph; autograd
 sums every slot's gradient into the pieces' preset ``.grad`` (the

@@ -1472,3 +1472,4 @@ def test_dry_run_equals_a_real_step_on_card_slots(cuda, arch):
         rep["traffic"]["gather_bytes"] > 0
     assert raw["reduce-scatter"]["operand_bytes"] == \
         rep["traffic"]["reduce_scatter_bytes"] > 0
+    assert raw["all-reduce"] == rep["collectives"]["all-reduce"]

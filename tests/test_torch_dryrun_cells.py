@@ -47,15 +47,20 @@ def test_run_cell_on_the_production_mesh(arch, shape, multi_pod, tmp_path):
     assert (r["n_devices"], r["n_data_slots"]) == (n_dev, d)
     assert r["traced"] == ("all slots" if d == 1 else "one data slot")
     assert r["op_flops_per_dev"] > 0 and r["ops_per_dev"] > 0
-    # the slots compute the same; a train step's update adds no FLOPs
-    assert r["op_flops_total"] == d * r["op_flops_per_dev"]
+    # the data slots compute the same; a train step's update adds no
+    # FLOPs; a device computes its (data, model) slot's part of its data
+    # slot's: the split products' share and the replicated ones whole
+    assert r["op_flops_total"] == d * r["op_flops_per_data_slot"]
+    assert r["op_flops_per_dev"] <= r["op_flops_per_data_slot"]
+    assert r["n_model_slots"] == 16
     assert r["mem_per_device_bytes"] == (r["mem_argument_bytes"]
                                          + r["mem_temp_bytes"])
     assert r["fits_hbm"] == (r["mem_per_device_bytes"] <= HBM_BYTES)
     terms = {k: r[f"{k}_term_s"] for k in ("compute", "memory",
                                            "collective")}
     assert r["dominant"] == max(terms, key=terms.get)
-    # the port gathers every weight whole onto a data slot: each slot
-    # all-gathers and its FLOPs are at least the model's share
+    # each slot all-gathers (its model block of a weight over the data
+    # axes, a gathered mixer's weights or a norm's scale) and a device's
+    # FLOPs are at least the model's share
     assert r["collective_counts"]["all-gather"] > 0
     assert r["op_flops_per_dev"] >= r["model_flops_per_dev"]

@@ -88,8 +88,9 @@ def test_dry_run_equals_a_real_step_on_cpu_slots(arch):
     """The dry run of a (2, 4) cell on ``meta`` slots against one real
     train step on CPU slots, its parameters in the dtypes `init_params`
     gives them: its FLOPs are `FlopCounterMode`'s count of the step, its
-    all-gather and reduce-scatter bytes the step's `TRAFFIC` (the card's
-    counterpart: `tests/test_torch_cuda.py`)."""
+    all-gather and reduce-scatter bytes the step's `TRAFFIC`, its
+    all-reduces the step's `COLLECTIVES` (the card's counterpart:
+    `tests/test_torch_cuda.py`)."""
     from torch_differential import dryrun_vs_step
 
     rep = dryrun_vs_step(arch, ["cpu"] * 8)
@@ -99,3 +100,6 @@ def test_dry_run_equals_a_real_step_on_cpu_slots(arch):
         rep["traffic"]["gather_bytes"] > 0
     assert raw["reduce-scatter"]["operand_bytes"] == \
         rep["traffic"]["reduce_scatter_bytes"] > 0
+    # the all-reduces (over ``model``: the tensor-parallel products; the
+    # clip's norm) are the step's `COLLECTIVES`, calls and bytes
+    assert raw["all-reduce"] == rep["collectives"]["all-reduce"]

@@ -1113,7 +1113,8 @@ def dryrun_vs_step(arch: str, devices, mesh_shape=(2, 4), rows: int = 4,
     mesh of ``devices`` slots, and the port's dry run of the same cell on
     ``meta`` slots (every slot traced): ``{"dry": run_cell's result,
     "flops": `FlopCounterMode`'s count of the real step, "traffic": the
-    `TRAFFIC` it moved}``."""
+    `TRAFFIC` it moved, "collectives": its `COLLECTIVES` summed by
+    kind}``."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -1147,8 +1148,15 @@ def dryrun_vs_step(arch: str, devices, mesh_shape=(2, 4), rows: int = 4,
     placed = device_put({k: v.to(dev) for k, v in batch.items()},
                         batch_shardings(mesh, rules, batch))
     step = make_train_step(cfg, TrainHParams(), mesh, rules)
+    from repro_torch.distributed.placement import COLLECTIVES
+
     reset_traffic()
     with FlopCounterMode(display=False) as fc:
         step(state, placed)
+    coll: dict = {}
+    for (kind, _, _), rec in COLLECTIVES.items():
+        mine = coll.setdefault(kind, dict.fromkeys(rec, 0))
+        for f, v in rec.items():
+            mine[f] += v
     return {"dry": dry, "flops": fc.get_total_flops(),
-            "traffic": dict(TRAFFIC)}
+            "traffic": dict(TRAFFIC), "collectives": coll}
