@@ -243,7 +243,20 @@ against the push's host clock.  After those timings:
                   bf16 and float32, teacher-forced by the unsharded
                   engine's greedy tokens (logits within 5% / 1e-4 of
                   their scale, every float32 argmax equal), decode steps
-                  by events beside the unsharded engine's; every arch
+                  by events beside the unsharded engine's; the other
+                  four block kinds at their published widths, depth cut
+                  to fit the card (mixtral-8x22b at 1 layer: 8 experts,
+                  2 a model slot; deepseek-v3-671b's 3 dense layers: MLA,
+                  128 heads, 32 a slot; recurrentgemma-2b's (R, R, A);
+                  mamba2-370m at 8 layers: SSD, 32 heads, 8 a slot), each
+                  two bf16 steps unsharded and on the mesh (loss and
+                  grad norm 1e-3, step 1's update direction, the sign of
+                  the params' move from their init, flipped in under
+                  1%), then served the same way as qwen2.5-3b, its
+                  caches checked cut over model; each cell's step and
+                  decode ms, kernels a step and peak beside the
+                  unsharded, and mixtral's dry run (every slot traced)
+                  equal to its step's FLOPs and `COLLECTIVES`; every arch
                   reduced, float32, TF32 off, two train steps and greedy
                   decoding in both decode cases on the mesh against the
                   card unsharded (1e-4, `tests/torch_differential.py`
@@ -289,6 +302,7 @@ before that line; without a CUDA device it exits 2 at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -3323,33 +3337,25 @@ def mesh_train_check(dev, smi, mesh) -> dict:
     return out
 
 
-def mesh_serve_full(dev, smi, mesh) -> dict:
-    """qwen2.5-3b at full width served on the mesh in decode rules (the
-    batch over data, the caches' ring over model), bf16 and float32,
-    against the unsharded engine on the card: the mesh's prefill and 15
-    decode steps teacher-forced by the unsharded engine's greedy tokens,
-    each decode step by CUDA events (where every argmax agrees, the
-    mesh's own greedy tokens are those tokens)."""
+def _serve_vs(cfg, params, mesh, prompts, cache_check, dev) -> dict:
+    """``cfg`` served on the mesh in decode rules, bf16 and float32,
+    against the unsharded engine on the card: the mesh's prefill and
+    MESH_NEW − 1 decode steps teacher-forced by the unsharded engine's
+    greedy tokens, each decode step by CUDA events (where every argmax
+    agrees, the mesh's own greedy tokens are those tokens), the logits
+    within 5% / 1e-4 of their scale, every float32 argmax equal;
+    ``cache_check(state)`` looks at the prefill's placed caches."""
     import statistics
 
-    import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed import make_rules
-    from repro_torch.nn import init_params, model_decls
     from repro_torch.serving import ServeEngine
 
-    cfg = get_config("qwen2.5-3b")
-    params = init_params(model_decls(cfg),
-                         torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (MESH_SERVE_BATCH, MESH_PROMPT)).astype(np.int32)
-    rules = make_rules(mesh, "decode", MESH_SERVE_BATCH)
-    out = {"arch": cfg.name, "mesh": dict(mesh.shape), "rules": {
+    rules = make_rules(mesh, "decode", prompts.shape[0])
+    out = {"mesh": dict(mesh.shape), "rules": {
         k: rules[k] for k in ("batch", "cache_seq", "kv_heads", "d_model")},
-        "batch": MESH_SERVE_BATCH, "prompt": MESH_PROMPT,
+        "batch": prompts.shape[0], "prompt": prompts.shape[1],
         "new_tokens": MESH_NEW, "cache_len": MESH_CACHE}
     for dtype, bound in (("bfloat16", LM_BF16_REL), ("float32", LM_F32_REL)):
         c = dataclasses.replace(cfg, compute_dtype=dtype)
@@ -3359,22 +3365,20 @@ def mesh_serve_full(dev, smi, mesh) -> dict:
         del plain
         eng = ServeEngine(c, params, MESH_CACHE, mesh=mesh, rules=rules)
         logits, st = eng.prefill(prompts)
-        k = st["caches"][0][0]["k"]
-        check(len(k.groups()) == 8 and k.spec[3] == "model",
-              f"decode caches not split over the ring: {k.spec}")
+        cache_check(st)
         steps, m_ms = [logits[:, -1]], []
         for i in range(MESH_NEW - 1):  # teacher-forced by plain's tokens
             (logits, st), t = _events_ms(lambda: eng.decode(ptok[:, i], st))
             m_ms.append(t)
             steps.append(logits[:, -1])
         gap = logit_gap(torch.stack(steps, 1), torch.stack(plog, 1))
-        check(gap["rel"] <= bound, f"mesh {dtype} decode logits "
+        check(gap["rel"] <= bound, f"{cfg.name} mesh {dtype} decode logits "
                                    f"{gap['rel']:.3g} of the scale from the "
                                    f"unsharded engine's, bound {bound}")
         agree = gap["argmax_agree"]
         if dtype == "float32":
-            check(agree == 1.0, f"mesh float32 greedy tokens differ: "
-                                f"{agree}")
+            check(agree == 1.0, f"{cfg.name} mesh float32 greedy tokens "
+                                f"differ: {agree}")
         del st, logits, steps, eng
         free_cuda()
         out[dtype] = {"logits_vs_unsharded": {**gap, "bound_rel": bound},
@@ -3383,10 +3387,372 @@ def mesh_serve_full(dev, smi, mesh) -> dict:
                       "decode_ms_all": m_ms,
                       "unsharded_decode_ms_median": statistics.median(p_ms),
                       "unsharded_decode_ms_all": p_ms}
+    return out
+
+
+def mesh_serve_full(dev, smi, mesh) -> dict:
+    """qwen2.5-3b at full width served on the mesh in decode rules (the
+    batch over data, the caches' ring over model), bf16 and float32,
+    against the unsharded engine on the card (`_serve_vs`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn import init_params, model_decls
+
+    cfg = get_config("qwen2.5-3b")
+    params = init_params(model_decls(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_SERVE_BATCH, MESH_PROMPT)).astype(np.int32)
+
+    def ring(st):
+        k = st["caches"][0][0]["k"]
+        check(len(k.groups()) == 8 and k.spec[3] == "model",
+              f"decode caches not split over the ring: {k.spec}")
+
+    out = {"arch": cfg.name, **_serve_vs(cfg, params, mesh, prompts, ring,
+                                         dev)}
     del params
     free_cuda()
     return {**out, "device": torch.cuda.get_device_name(0),
             "nvidia_smi": smi}
+
+
+# the second half of item 8d on the card: each block kind at its
+# published widths, its depth cut so that the unsharded and the mesh
+# runs' states fit the card one after the other (float32 master
+# weights, bf16 compute, remat, the arch's own optimizer), two train
+# steps of the train phase's shape each way and the serve check
+MESH_BLOCK_CELLS = {
+    "mixtral-8x22b": {"n_layers": 1},  # 8 experts over model, 2 a slot
+    "deepseek-v3-671b": {"n_layers": 3},  # its 3 dense layers: MLA
+    "recurrentgemma-2b": {"n_layers": 3},  # one (R, R, A) pattern
+    "mamba2-370m": {"n_layers": 8},  # SSD: 32 heads, 8 a slot
+}
+MESH_BLOCK_STEPS = 2
+MESH_WORST_LEAVES = 4  # the leaves a cell names, most flipped first
+# cells whose step-1 update direction is held in float32 (TF32 off),
+# both runs' bf16 directions reported beside it: bf16 rounding that the
+# unsharded run cannot share moves more than 1% of the directions there
+# while the float32 runs agree to 1e-6 (H100 80GB HBM3, 700 W; this
+# script and benchmarks/port_mesh_flips.py): mixtral's top-k routes
+# 0.51% of the routed slots to other experts (1.66% flipped, every layer
+# below the FFN); mamba2's SSD backward amplifies its row-parallel
+# out_proj's bf16 partial sums, the only part of its forward that
+# differs (1.40% flipped on (1, 4) and (2, 4) slots, 0.15% on (2, 1):
+# data parallelism alone)
+MESH_DIRECTION_F32 = ("mixtral-8x22b", "mamba2-370m")
+
+
+def _update_signs(params, decls, dev):
+    """(leaf, the sign of each element's step-1 update as int8 on
+    ``dev``), one leaf at a time: the params after step 1 (gathered when
+    placed) less the init they started from (step 0 runs at lr 0), the
+    init drawn again leaf by leaf from the CUDA generator's seed 0 as
+    `init_params` draws it."""
+    import torch
+
+    from repro_torch.distributed import gather
+    from repro_torch.nn import flatten_tree
+    from repro_torch.nn.common import _draw
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    now = flatten_tree(params)
+    for k, d in flatten_tree(decls).items():
+        p0 = _draw(d, gen, dev)
+        yield k, torch.sign(gather(now[k], dev) - p0).to(torch.int8)
+        del p0
+
+
+def _cell_steps(step, state, batch, after_step1) -> tuple:
+    """MESH_BLOCK_STEPS steps (each by CUDA events, the peak memory from
+    a reset), then one more under `FlopCounterMode` and `torch.profiler`:
+    (state, ms, losses, grad norms, peak bytes, the one step's FLOPs and
+    kernels, the `COLLECTIVES` and `TRAFFIC` of the first step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed import TRAFFIC, reset_traffic
+
+    ms, losses, gnorms, coll, traffic = [], [], [], {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_traffic()
+    for i in range(MESH_BLOCK_STEPS):
+        (state, m), t = _events_ms(lambda: step(state, batch))
+        ms.append(t)
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+        if i == 0:
+            coll.update(_collective_totals())
+            traffic.update(TRAFFIC)
+        if i == 1:
+            after_step1(state)
+    peak = torch.cuda.max_memory_allocated()
+    with FlopCounterMode(display=False) as fc, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    return (state, ms, losses, gnorms, peak, fc.get_total_flops(), kernels,
+            coll, traffic)
+
+
+@contextlib.contextmanager
+def _routes():
+    """A list the MoE's top-k appends each forward's routed experts to
+    (a recompute's and a traced step's too)."""
+    import torch
+
+    from repro_torch.nn import moe
+
+    seen, real = [], moe.top_k
+
+    def spy(x, k):
+        v, i = real(x, k)
+        if torch.is_grad_enabled():
+            seen.append(i.detach().reshape(-1, k).sort(-1).values)
+        return v, i
+
+    moe.top_k = spy
+    try:
+        yield seen
+    finally:
+        moe.top_k = real
+
+
+def _train_pair(cfg, decls, dev, mesh, batch) -> dict:
+    """MESH_BLOCK_STEPS train steps of ``cfg`` unsharded and then on the
+    mesh from the same init (`_cell_steps` each), and where step 1's
+    update direction (`_update_signs`) differs; for an MoE config, the
+    share of the first step's routed slots whose experts differ (the
+    first MoE layer's forward: the unsharded run's groups against the
+    data slots' in order)."""
+    import torch
+
+    from repro_torch.distributed import (batch_shardings, device_put,
+                                         make_rules)
+    from repro_torch.distributed.placement import data_slots
+    from repro_torch.nn import init_params, stage_plan
+    from repro_torch.training import (OptHParams, TrainHParams,
+                                      make_train_step, train_state_init)
+
+    hp = TrainHParams(opt=OptHParams(learning_rate=TRAIN_LR,
+                                     warmup_steps=TRAIN_WARMUP,
+                                     total_steps=MESH_BLOCK_STEPS + 1))
+
+    def init():
+        return init_params(decls, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+
+    u_signs, flips = {}, {}
+    with _routes() as u_routes:
+        state = train_state_init(init(), cfg)
+        free_cuda()
+        u = _cell_steps(make_train_step(cfg, hp), state, batch,
+                        lambda st: u_signs.update(
+                            (k, v.cpu()) for k, v in _update_signs(
+                                st["params"], decls, dev)))
+    u_first = u_routes[:1]
+    del state, u_routes
+    u = u[1:]
+    free_cuda()
+
+    def count_flips(st):
+        for k, v in _update_signs(st["params"], decls, dev):
+            flips[k] = (int((v != u_signs[k].to(dev)).sum()), v.numel())
+        free_cuda()
+
+    rules = make_rules(mesh, "train")
+    with _routes() as m_routes:
+        state = _mesh_state(cfg, decls, init, mesh, rules)
+        mbatch = device_put(batch, batch_shardings(mesh, rules, batch))
+        step = make_train_step(cfg, hp, mesh, rules)
+        free_cuda()
+        m = _cell_steps(step, state, mbatch, count_flips)
+    # a forward records its MoE layers in order, the mesh's data slot
+    # by data slot: the first layer's of each
+    n_moe = sum(st.repeat * sum(mt.ffn == "moe" for mt in st.metas)
+                for st in stage_plan(cfg))
+    rerouted = None
+    if u_first:
+        a = u_first[0]
+        b = torch.cat([m_routes[d * n_moe] for d in range(len(data_slots(
+            mesh, rules, TRAIN_BATCH)))]).to(a.device)
+        rerouted = float((a != b).any(-1).float().mean())
+    specs = {k: tuple(x.spec) for k, x in _mixer_leaves(m[0]["params"])}
+    del state, mbatch, step, m_routes
+    m = m[1:]
+    free_cuda()
+    n_flip = sum(f for f, _ in flips.values())
+    n_all = sum(n for _, n in flips.values())
+    keys = ("step_ms", "losses", "grad_norms", "peak_bytes",
+            "flops_a_step", "kernels_a_step")
+    return {"unsharded": dict(zip(keys, u[:6])),
+            "mesh_run": dict(zip(keys, m[:6])),
+            "collectives_first_step": m[6], "traffic_first_step": m[7],
+            "loss_rel_by_step": [abs(a - b) / abs(b)
+                                 for a, b in zip(m[1], u[1])],
+            "grad_norm_rel_by_step": [abs(a - b) / abs(b)
+                                      for a, b in zip(m[2], u[2])],
+            "step1_update_sign_flips": {
+                "elements": n_all, "flipped": n_flip,
+                "share": n_flip / n_all,
+                "bound_share": MESH_SIGN_FLIP_SHARE,
+                "worst_leaves": sorted(
+                    ((k, f / n) for k, (f, n) in flips.items()),
+                    key=lambda kv: -kv[1])[:MESH_WORST_LEAVES]},
+            "routed_slots_rerouted_step0": rerouted,
+            "mixer_specs_train": specs}
+
+
+def mesh_block_cell(dev, smi, mesh, arch: str) -> dict:
+    """``arch`` at its published widths cut to MESH_BLOCK_CELLS' depth:
+    MESH_BLOCK_STEPS bf16 train steps unsharded and then on the mesh from
+    the same init (the train phase's batch and schedule, `_train_pair`),
+    every step's loss and grad norm held to the unsharded run's (1e-3)
+    and the direction of step 1's update agreeing in all but 1% of the
+    elements, in float32 for MESH_DIRECTION_F32's cells (bf16's reported
+    beside it).  Then served on the mesh against the
+    unsharded engine (`_serve_vs`), its caches checked cut over model.
+    Each run's step and decode ms, kernels a step and peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.nn import count_params, init_params, model_decls
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), **MESH_BLOCK_CELLS[arch])
+    decls = model_decls(cfg)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                    kind="markov"))
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in pipe.global_batch_at(0).items()}
+    bf = _train_pair(cfg, decls, dev, mesh, batch)
+    f32 = _train_pair(dataclasses.replace(cfg, compute_dtype="float32"),
+                      decls, dev, mesh, batch) \
+        if arch in MESH_DIRECTION_F32 else None
+    held = (f32 or bf)["step1_update_sign_flips"]
+    train_s = time.perf_counter() - t_start
+
+    params = init_params(decls, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_SERVE_BATCH, MESH_PROMPT)).astype(np.int32)
+
+    def where(st):  # each layer's cache cut over model as the rules say
+        for stage in st["caches"]:
+            for slot in stage:
+                for k, x in slot.items():
+                    if k in ("state", "h", "conv_tail", "c_kv", "k", "v"):
+                        check("model" in tuple(x.spec), f"{arch} cache "
+                              f"{k} {tuple(x.spec)} not cut over model")
+
+    t0 = time.perf_counter()
+    serve = _serve_vs(cfg, params, mesh, prompts, where, dev)
+    del params
+    free_cuda()
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "params": count_params(decls), "mesh": dict(mesh.shape),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer":
+           cfg.optimizer, "compute_dtype": cfg.compute_dtype, **bf,
+           "metrics_bound_rel": MESH_BF16_METRIC_REL,
+           "update_direction_held_in": "float32" if f32 else "bfloat16",
+           "float32": None if f32 is None else {
+               k: f32[k] for k in ("step1_update_sign_flips",
+                                   "routed_slots_rerouted_step0",
+                                   "loss_rel_by_step",
+                                   "grad_norm_rel_by_step")},
+           "serve": serve, "wall_s": {"train": train_s,
+                                      "serve": time.perf_counter() - t0},
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit({"phase": "mesh_block_cell", **out})
+    u, m = bf["unsharded"], bf["mesh_run"]
+    check(all(map(math.isfinite, m["losses"] + m["grad_norms"]
+                  + u["losses"] + u["grad_norms"])),
+          f"{arch}: loss {u['losses']} / {m['losses']}, grad_norm "
+          f"{u['grad_norms']} / {m['grad_norms']}")
+    worst = max(bf["loss_rel_by_step"] + bf["grad_norm_rel_by_step"])
+    check(worst <= MESH_BF16_METRIC_REL,
+          f"{arch} mesh bf16 loss / grad norm vs unsharded: {worst}, bound "
+          f"{MESH_BF16_METRIC_REL}")
+    check(held["flipped"] <= MESH_SIGN_FLIP_SHARE * held["elements"],
+          f"{arch} mesh step 1's update direction "
+          f"({out['update_direction_held_in']}) differs from the "
+          f"unsharded run's in {held['flipped']} of {held['elements']} "
+          f"elements ({held['worst_leaves']})")
+    return out
+
+
+def _mixer_leaves(params):
+    """The placed mixer and FFN weights of the first stage's first slot,
+    and of an MoE FFN wherever it is."""
+    from repro_torch.nn import flatten_tree
+
+    return [(k, x) for k, x in flatten_tree(params).items()
+            if (k.startswith("stage0/slot0/") or "/ffn/" in k and "gate" in k)
+            and "norm" not in k]
+
+
+def mesh_block_dryrun(cell: dict) -> dict:
+    """The dry run of the mixtral cell (1 layer, its experts over
+    ``model``) on (2, 4) ``meta`` slots, every slot traced, against its
+    measured mesh step: FLOPs equal to `FlopCounterMode`'s count of a
+    real step, and every collective kind's calls, operand and result
+    bytes equal to the step's `COLLECTIVES` (its all-gathers and
+    reduce-scatters the weights' `TRAFFIC`)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.training import OptHParams, TrainHParams
+
+    arch = cell["arch"]
+    cfg = dataclasses.replace(get_config(arch), **MESH_BLOCK_CELLS[arch])
+    hp = TrainHParams(opt=OptHParams(learning_rate=TRAIN_LR,
+                                     warmup_steps=TRAIN_WARMUP,
+                                     total_steps=MESH_BLOCK_STEPS + 1))
+    t0 = time.perf_counter()
+    dry = run_cell(arch, ShapeSpec("mesh_block", TRAIN_SEQ, TRAIN_BATCH,
+                                   "train"), mesh_shape=MESH_SHAPE, hp=hp,
+                   all_slots=True, out_dir=None, cfg=cfg)
+    raw = dry["collective_raw_total"]
+    coll, traffic = cell["collectives_first_step"], cell["traffic_first_step"]
+    out = {"arch": arch, "host_s": time.perf_counter() - t0,
+           "flops": {"dryrun": dry["op_flops_total"],
+                     "flop_counter_mode": cell["mesh_run"]["flops_a_step"]},
+           "collectives": {"dryrun": raw, "step": coll},
+           "traffic": {"dryrun_all_gather_result":
+                       raw.get("all-gather", {}).get("result_bytes"),
+                       "dryrun_reduce_scatter_operand":
+                       raw.get("reduce-scatter", {}).get("operand_bytes"),
+                       "step": traffic},
+           "mem_one_device_bytes": {
+               "dryrun": dry["mem_one_device_bytes"],
+               "max_memory_allocated": cell["mesh_run"]["peak_bytes"]},
+           "ops_total": dry["ops_total"],
+           "kernels_a_step": cell["mesh_run"]["kernels_a_step"],
+           "per_device": {k: dry[k] for k in (
+               "op_flops_per_dev", "collective_bytes_per_dev",
+               "mem_per_device_bytes", "dominant")}}
+    emit({"phase": "mesh_block_dryrun", **out})
+    check(dry["op_flops_total"] == cell["mesh_run"]["flops_a_step"],
+          f"{arch} dry run FLOPs {dry['op_flops_total']} vs "
+          f"FlopCounterMode's {cell['mesh_run']['flops_a_step']}")
+    want = {k: {f: int(v) for f, v in r.items()} for k, r in coll.items()}
+    check(raw == want, f"{arch} dry run collectives {raw} vs the step's "
+                       f"COLLECTIVES {want}")
+    check(out["traffic"]["dryrun_all_gather_result"]
+          == traffic["gather_bytes"]
+          and out["traffic"]["dryrun_reduce_scatter_operand"]
+          == traffic["reduce_scatter_bytes"],
+          f"{arch} dry run gather / reduce-scatter bytes vs TRAFFIC "
+          f"{traffic}")
+    return out
 
 
 def mesh_checkpoint(dev, mesh) -> dict:
@@ -3475,6 +3841,11 @@ def mesh_leg(dev, smi) -> dict:
     timed("train_check", lambda: mesh_train_check(dev, smi, mesh))
     serve = timed("serve_full", lambda: mesh_serve_full(dev, smi, mesh))
     emit({"phase": "mesh_serve_full", **serve})
+    cells = {}
+    for arch in MESH_BLOCK_CELLS:
+        cells[arch] = timed(f"cell_{arch}", lambda: mesh_block_cell(
+            dev, smi, mesh, arch))
+    timed("cell_dryrun", lambda: mesh_block_dryrun(cells["mixtral-8x22b"]))
     reduced = timed("reduced", lambda: {
         arch: mesh_vs(arch, [dev] * 8, dev, bound=MESH_REDUCED_REL)
         for arch in sorted(all_configs())})
@@ -3495,7 +3866,18 @@ def mesh_leg(dev, smi) -> dict:
             "step_ms": train["mesh_run"]["step_ms_median_1_4"],
             "step_kernels_traced":
             train["mesh_run"]["traced"]["kernels_seen"],
-            "peak_bytes": train["mesh_run"]["peak_bytes"]}
+            "peak_bytes": train["mesh_run"]["peak_bytes"],
+            "block_cells": {a: {
+                "step_ms": c["mesh_run"]["step_ms"],
+                "unsharded_step_ms": c["unsharded"]["step_ms"],
+                "decode_ms_bf16": c["serve"]["bfloat16"]["decode_ms_median"],
+                "unsharded_decode_ms_bf16":
+                c["serve"]["bfloat16"]["unsharded_decode_ms_median"],
+                "kernels_a_step": c["mesh_run"]["kernels_a_step"],
+                "unsharded_kernels_a_step": c["unsharded"]["kernels_a_step"],
+                "peak_bytes": c["mesh_run"]["peak_bytes"],
+                "unsharded_peak_bytes": c["unsharded"]["peak_bytes"]}
+                for a, c in cells.items()}}
 
 
 def main() -> int:

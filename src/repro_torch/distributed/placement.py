@@ -30,7 +30,11 @@ cards the copies cross NVLink; no process group is involved:
     gradients' all-reduce), `from_model_slots` (the partial sums'
     all-reduce; backward, the gradient handed to each slot),
     `gather_model_parts` (the parts cut along a dimension joined: an
-    all-gather) and `all_reduce_max`.
+    all-gather), `all_reduce_max`, `reduce_scatter_model` (the partial
+    sums reduced, each slot keeping its block of a dimension; backward,
+    the all-gather) and `regroup_model` (each slot's parts of a
+    dimension re-cut into the ranges each slot asks for: point-to-point
+    sends, a collective-permute each way).
 
 `TRAFFIC` counts the bytes the weight all-gathers and their backward
 moved.  `COLLECTIVES` counts every collective of this module (and the
@@ -66,8 +70,10 @@ __all__ = ["COLLECTIVES", "COLLECTIVE_KINDS", "MODEL_AXIS", "SeqShards",
            "all_reduce_sum", "current_issuer", "data_slots", "device_put",
            "from_blocks", "from_model_slots", "gather", "gather_model_parts",
            "issuing", "open_cache", "placed_bytes", "record_collective",
-           "reset_traffic", "rows_of", "slot_index", "sync_replicas",
-           "tag_graph", "to_model_slots", "zeros_placed"]
+           "reduce_scatter_model", "regroup_model", "repeat_factor",
+           "repeated", "reset_traffic",
+           "rows_of", "slot_index", "sync_replicas", "tag_graph",
+           "to_model_slots", "zeros_placed"]
 
 Index = tuple  # ((start, stop), ...) a dimension
 MODEL_AXIS = "model"
@@ -106,6 +112,28 @@ def issuing(tag):
         yield
     finally:
         _ISSUERS.pop()
+
+
+# the multiplicities named by `repeated`, innermost last
+_REPEATS: list = []
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """The ops inside stand for ``n`` identical ones: a loop whose every
+    iteration has the same shapes, walked once on ``meta`` tensors, which
+    carry no values.  An `OpCounter` counts each op ``n`` times (its
+    memory once: an iteration frees what the one before made)."""
+    _REPEATS.append(int(n))
+    try:
+        yield
+    finally:
+        _REPEATS.pop()
+
+
+def repeat_factor() -> int:
+    """How many ops each op dispatched now stands for (`repeated`)."""
+    return math.prod(_REPEATS)
 
 
 def current_issuer():
@@ -518,6 +546,138 @@ class _JoinSlots(torch.autograd.Function):
                                zip(g.split(sizes, dim=dim), devices))
 
 
+class _ScatterSlots(torch.autograd.Function):
+    """The model slots' partial sums (each the whole tensor) → slot
+    ``m``'s block of ``dim`` of their sum, on its device (a
+    reduce-scatter); the backward joins the blocks' gradients on every
+    slot (an all-gather)."""
+
+    @staticmethod
+    def forward(ctx, meta, *parts):
+        devices, dim, slot = meta
+        n = len(parts)
+        size = parts[0].shape[dim] // n
+        out = tuple(_summed([p.narrow(dim, m * size, size) for p in parts],
+                            d) for m, d in enumerate(devices))
+        ctx.meta = (devices, dim, slot)
+        record_collective("reduce-scatter", _nbytes(parts[0]),
+                          sum(map(_nbytes, out)), n, slot)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        devices, dim, slot = ctx.meta
+        out = tuple(torch.cat([g.to(d) for g in grads], dim=dim)
+                    for d in devices)
+        record_collective("all-gather", sum(map(_nbytes, grads)),
+                          _nbytes(out[0]), len(grads), slot)
+        return (None,) + out
+
+
+def _untagged(out) -> None:
+    """Mark the autograd node behind ``out`` as the data slot's own, so
+    that `tag_graph` stops there: a move between model slots belongs to
+    none of them."""
+    if TAGGING["on"] and out and out[0].grad_fn is not None:
+        out[0].grad_fn.metadata["issuer"] = None
+
+
+def reduce_scatter_model(parts, dim: int, devices, slot=None) -> list:
+    """The sum of the model slots' ``parts`` cut evenly along ``dim``:
+    slot ``m``'s block on ``devices[m]`` (reduce-scatter)."""
+    out = list(_ScatterSlots.apply((list(devices), dim, slot), *parts))
+    _untagged(out)
+    return out
+
+
+class _Regroup(torch.autograd.Function):
+    """Parts of a tensor cut along ``dim`` (part ``k`` holding the global
+    range ``have[k]``) → for each slot ``m`` one tensor a range of
+    ``need[m]``, on its device; the backward sends each range's gradient
+    back to the parts holding it (added where several slots asked for
+    the same range)."""
+
+    @staticmethod
+    def forward(ctx, meta, *parts):
+        have, need, devices, dim, tags, slot = meta
+        ctx.meta = meta
+        ctx.shapes = [p.shape for p in parts]
+        out = []
+        for m, ranges in enumerate(need):
+            moved = 0
+            for a, b in ranges:
+                pieces = []
+                for k, (ha, hb) in enumerate(have):
+                    lo, hi = max(a, ha), min(b, hb)
+                    if lo >= hi:
+                        continue
+                    t = parts[k].narrow(dim, lo - ha, hi - lo)
+                    if k != m:
+                        moved += _nbytes(t)
+                    pieces.append(t.to(devices[m]))
+                out.append(torch.cat(pieces, dim=dim) if len(pieces) > 1
+                           else pieces[0].clone())
+            _record_permute(moved, len(have), slot, tags[m])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        have, need, devices, dim, tags, slot = ctx.meta
+        sums = [None] * len(have)
+        dtype = next(g.dtype for g in grads if g is not None)
+        # a range several slots asked for sums their gradients: 16-bit
+        # ones added in float32 and rounded once, as `_summed` adds
+        wide = torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+            else dtype
+        it = iter(grads)
+        for m, ranges in enumerate(need):
+            moved = 0
+            for a, b in ranges:
+                g = next(it)
+                if g is None:
+                    continue
+                for k, (ha, hb) in enumerate(have):
+                    lo, hi = max(a, ha), min(b, hb)
+                    if lo >= hi:
+                        continue
+                    if sums[k] is None:
+                        sums[k] = torch.zeros(ctx.shapes[k], dtype=wide,
+                                              device=devices[k])
+                    t = g.narrow(dim, lo - a, hi - lo)
+                    if k != m:
+                        moved += _nbytes(t)
+                    sums[k].narrow(dim, lo - ha, hi - lo).add_(
+                        t.to(devices[k]))
+            _record_permute(moved, len(have), slot, tags[m])
+        return (None,) + tuple(None if t is None else t.to(dtype)
+                               for t in sums)
+
+
+def _record_permute(moved: int, group: int, slot, tag) -> None:
+    if moved:
+        with issuing(tag):
+            record_collective("collective-permute", moved, moved, group,
+                              slot)
+
+
+def regroup_model(parts, dim: int, have, need, devices, tags,
+                  slot=None) -> list:
+    """Re-cut a tensor held by the model slots as ``parts`` along ``dim``
+    (part ``k``: the global range ``have[k]``): slot ``m`` receives, on
+    ``devices[m]``, one tensor for each range of ``need[m]``, in order.
+    What a slot receives from the other slots is recorded as a
+    collective-permute issued by it (``tags[m]``), each way."""
+    meta = ([tuple(h) for h in have], [list(map(tuple, r)) for r in need],
+            list(devices), dim, list(tags), slot)
+    flat = list(_Regroup.apply(meta, *parts))
+    _untagged(flat)
+    out, i = [], 0
+    for ranges in need:
+        out.append(flat[i:i + len(ranges)])
+        i += len(ranges)
+    return out
+
+
 def _summed(parts, device) -> torch.Tensor:
     """The parts added in order on ``device``; 16-bit floats added in
     float32 and rounded once, as a matmul accumulates its products."""
@@ -536,8 +696,7 @@ def to_model_slots(x: torch.Tensor, devices, home, slot=None) -> list:
     """``x`` (on ``home``, the data slot's device) as one tensor a model
     slot, on ``devices``; its backward is the gradients' all-reduce."""
     out = list(_ToSlots.apply((list(devices), home, slot), x))
-    if TAGGING["on"] and out[0].grad_fn is not None:
-        out[0].grad_fn.metadata["issuer"] = None
+    _untagged(out)
     return out
 
 
@@ -655,16 +814,45 @@ def _slot_rows(x: ShardedTensor, lo: int, hi: int):
     return groups
 
 
-def open_cache(tree: dict, ctx, seq_dims: dict) -> tuple[dict, Any]:
+def _model_view(x: ShardedTensor, k: int, ctx, lo: int, hi: int):
+    """The data slot's rows ``[lo, hi)`` of ``x`` as a `Split` of the
+    pieces its model slots hold, cut along dim ``k`` over ``model``
+    alone (each part a view of the piece on its slot's device); None
+    where the pieces do not lie so."""
+    from ..nn.common import Split
+
+    entries = list(x.spec) + [None] * (x.ndim - len(x.spec))
+    if entries[k] != MODEL_AXIS or any(
+            MODEL_AXIS in _axes(e) for d, e in enumerate(entries) if d != k):
+        return None
+    parts = []
+    for s in ctx.model_slots:
+        want = x.model_range(s.m)[1:]
+        i = next((i for i, idx in enumerate(x.index)
+                  if x.devices[i] == s.device and idx[1:] == want
+                  and idx[0][0] <= lo and hi <= idx[0][1]), None)
+        if i is None:
+            return None
+        a = x.index[i][0][0]
+        parts.append(x.pieces[i][lo - a:hi - a])
+    return Split(parts, k)
+
+
+def open_cache(tree: dict, ctx, seq_dims: dict,
+               model_dims: dict | None = None) -> tuple[dict, Any]:
     """One layer's decode cache (a dict of sharded leaves) as ``ctx``'s
     data slot sees it: ``(view, close)``.
 
     When every leaf keeps the slot's rows in one piece on the slot's
     device, the view holds those rows as tensors written in place; when
     every leaf is cut along its ``seq_dims`` dimension only (one piece a
-    block), as `SeqShards` the mixer attends piece by piece; otherwise
-    the rows are gathered onto the slot's device and ``close()`` writes
-    them back into every piece (replicas included)."""
+    block), as `SeqShards` the mixer attends piece by piece; when every
+    leaf is cut over ``model`` along its ``model_dims`` dimension (the
+    recurrent states, on a tensor-parallel mesh), as a `Split` of views
+    of its model slots' pieces, each read and written in place by its
+    slot; otherwise the rows are gathered onto the slot's device and
+    ``close()`` writes them back into every piece (replicas
+    included)."""
     lo, hi = ctx.rows
     dev = ctx.device
     kinds, views = {}, {}
@@ -673,6 +861,12 @@ def open_cache(tree: dict, ctx, seq_dims: dict) -> tuple[dict, Any]:
         kinds[key] = "gather"
         if groups is None:
             continue
+        k = (model_dims or {}).get(key)
+        if k is not None and ctx.tp:
+            view = _model_view(x, k, ctx, lo, hi)
+            if view is not None:
+                kinds[key], views[key] = "model", view
+                continue
         if len(groups) == 1:
             ids = next(iter(groups.values()))
             if len(ids) == 1 and x.devices[ids[0]] == dev:

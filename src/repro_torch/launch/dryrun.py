@@ -21,14 +21,17 @@ piece of the mesh) is traced once.  ``all_slots=True`` also traces the
 step as it runs on one device with every slot (`chip_smoke.py`'s mesh
 phase): its totals and ``mem_one_device_bytes``.
 
-A data slot's work is split over its model slots (the attention, MLP,
-embedding and head products: `nn.common.tp_product`; the ring pieces of
-a decode cache): each op is counted under the device slot that issues
-it, and a device is charged with what its (data, model) slot computes —
-the data slot's untagged work, which the reference repeats on every
-device of the model group, and its own model slot's part
-(`OpCounter.device_cost`).  The MoE FFN, MLA and the recurrent mixers
-still run gathered on the data slot's device (ROADMAP 8d, second half).
+A data slot's work is split over its model slots (every mixer's and
+FFN's products, the embedding and the head: `nn.common.tp_product`; the
+ring pieces of a decode cache; the recurrent states' pieces): each op
+is counted under the device slot that issues it, and a device is
+charged with what its (data, model) slot computes — the data slot's
+untagged work (the MoE routing, MLA's latent projections, the products
+of weights replicated over ``model``), which the reference repeats on
+every device of the model group, and its own model slot's part
+(`OpCounter.device_cost`).  A step-by-step loop whose iterations all
+have one shape (the RG-LRU scan) is walked once on ``meta`` tensors and
+counted for every iteration (`distributed.placement.repeated`).
 """
 from __future__ import annotations
 

@@ -53,17 +53,18 @@ def block_decls(cfg, meta: BlockMeta) -> dict:
 
 def gather_block(p: dict, ctx: ShardCtx, meta: BlockMeta) -> dict:
     """A block's weights as its apply takes them on a mesh: on a
-    tensor-parallel mesh (`ShardCtx.tp`) the attention mixer's and the
-    dense MLP's stay in their pieces, which their products take by
-    `tp_product`'s rule (and raise on a spec it cannot take); the MoE
-    FFN, MLA, the recurrent mixers and the norms are gathered whole onto
-    the data slot's device."""
+    tensor-parallel mesh (`ShardCtx.tp`) the mixer's and the FFN's stay
+    in their pieces, which their products take by `tp_product`'s rule
+    (and raise on a spec it cannot take); only the norms (the block's
+    and MLA's ``q_norm``/``kv_norm``) are gathered whole onto the data
+    slot's device.  Without ``model`` everything is gathered there."""
     if not ctx.tp:
         return ctx.gather(p)
-    own = {"mixer"} if meta.mixer == "attn" else set()
-    if meta.ffn == "mlp":
-        own.add("ffn")
-    return {k: v if k in own else ctx.gather(v) for k, v in p.items()}
+    out = {k: v if k in ("mixer", "ffn") else ctx.gather(v)
+           for k, v in p.items()}
+    out["mixer"] = {k: ctx.gather(v) if k.endswith("_norm") else v
+                    for k, v in p["mixer"].items()}
+    return out
 
 
 def _attn_meta(cfg, meta: BlockMeta) -> AttnMeta:

@@ -19,14 +19,18 @@ The logical axes feed ``param_pspecs``: through the rules of
 `repro_torch.distributed.sharding` they say where a mesh stores each
 leaf (`repro_torch.distributed.placement`).
 
-On a mesh with a ``model`` axis the dense products are tensor-parallel
-(`tp_product`): each follows its weight's ``model`` axis, as XLA's
-partitioner follows the reference's input shardings —
+On a mesh with a ``model`` axis every product of a block is
+tensor-parallel (`tp_product`): each follows its weight's ``model``
+axis, as XLA's partitioner follows the reference's input shardings —
 
   * on an output dimension: column-parallel, the output stays cut over
     the data slot's model slots (a `Split`);
   * on the contraction dimension: row-parallel, each model slot's
-    partial sum, reduced over ``model`` (`ShardCtx.whole`);
+    partial sum, reduced over ``model`` (`ShardCtx.whole`), or reduced
+    and cut (`ShardCtx.scatter`);
+  * on a dimension the operand and the output share (an einsum's batch
+    dimension: the MoE's experts, MLA's heads in decode): each model
+    slot computes its block of it;
   * nowhere (`sanitize_spec` dropped it): replicated, computed once on
     the data slot's device with the weight gathered there.
 """
@@ -216,13 +220,13 @@ class ShardCtx:
 
     On a mesh one call runs one data slot: its rows ``rows`` of the
     global batch, on its device ``device``.  Where the mesh has a
-    ``model`` axis (`tp`), the attention, MLP, embedding and head
-    products are split over the slot's model slots (`model_slots`,
-    `tp_product`): each computes with its own block of the weights,
-    gathered over the data axes only, and the residual stream stays on
-    the data slot's device.  Other weights (the MoE FFN, MLA, the
-    recurrent mixers, the norms) are gathered whole onto that device by
-    `gather` just before use.  Unsharded every such branch is skipped."""
+    ``model`` axis (`tp`), every mixer's and FFN's products, the
+    embedding and the head are split over the slot's model slots
+    (`model_slots`, `tp_product`): each computes with its own block of
+    the weights, gathered over the data axes only, and the residual
+    stream stays on the data slot's device.  Only the norms are gathered
+    whole onto that device by `gather` just before use.  Unsharded every
+    such branch is skipped."""
 
     positions: torch.Tensor | None = None  # (B, S) int32 absolute positions
     compute_dtype: torch.dtype = torch.bfloat16
@@ -319,12 +323,68 @@ class ShardCtx:
         return gather_model_parts(x.parts, x.dim, self.device, devs,
                                   self.data_slot)
 
+    def scatter(self, x: Split, dim: int) -> Split:
+        """Partial sums reduced over the model slots, each keeping its
+        block of ``dim`` (a reduce-scatter)."""
+        from ..distributed.placement import reduce_scatter_model
 
-def tp_layout(w, contract: tuple) -> tuple[str, int | None]:
+        return Split(reduce_scatter_model(
+            x.parts, dim, [s.device for s in self.model_slots],
+            self.data_slot), dim)
+
+    def regroup(self, x: Split, have, need) -> list:
+        """``x`` cut along ``x.dim`` (part ``m`` the global range
+        ``have[m]``) re-cut: slot ``m`` gets one tensor a range of
+        ``need[m]`` (point-to-point moves, recorded)."""
+        from ..distributed.placement import regroup_model
+
+        return regroup_model(x.parts, x.dim, have, need,
+                             [s.device for s in self.model_slots],
+                             [s.tag for s in self.model_slots],
+                             self.data_slot)
+
+    def replicated(self, tree: Tree) -> Tree:
+        """``tree``'s sharded leaves whole on the data slot's device, each
+        of them replicated over ``model`` (a block computed once there,
+        as `tp_product`'s replicated rule); a leaf cut over ``model``
+        raises: the block's products take it."""
+        def one(w):
+            if tp_layout(w, ())[0] != "replicated":
+                raise ValueError(f"a {w.shape} weight cut over model "
+                                 f"({w.spec}) where its block is computed "
+                                 f"whole")
+            return w.full(self.device, self.data_slot)
+
+        from ..distributed.placement import ShardedTensor
+
+        return map_tree(lambda t: one(t) if isinstance(t, ShardedTensor)
+                        else t, tree)
+
+
+def slot_block(w, s: ModelSlot, ctx: ShardCtx, dim: int,
+               rng: tuple[int, int]) -> torch.Tensor:
+    """Model slot ``s``'s block ``rng`` of ``w``'s dim ``dim`` (a
+    `ShardedTensor`, every other dim whole) on its device: its block
+    where ``w`` is cut over ``model`` just so, its slice where ``w`` is
+    replicated over ``model``; another cut raises."""
+    kind, at = tp_layout(w, ())
+    got = w.model_range(s.m)[dim]
+    if kind == "replicated" or (at == dim and got == tuple(rng)):
+        blk = w.block(s.m, s.device, ctx.data_slot)
+        return blk if got == tuple(rng) else blk.narrow(
+            dim, rng[0], rng[1] - rng[0])
+    raise ValueError(f"a {w.shape} weight cut {w.spec}: model slot {s.m} "
+                     f"needs {rng} of its dim {dim}, it holds {got}")
+
+
+def tp_layout(w, contract: tuple,
+              shared: tuple = ()) -> tuple[str, int | None]:
     """Where ``w``'s ``model`` axis lies, for a product contracting its
-    dims ``contract``: ``("row", i)`` on ``contract[i]``, ``("column",
-    j)`` on its ``j``-th other dim, ``("replicated", None)`` nowhere.  A
-    ``model`` axis on two dims, or with another axis on one, raises."""
+    dims ``contract`` and sharing its dims ``shared`` with the operand
+    and the output: ``("row", i)`` on ``contract[i]``, ``("shared", i)``
+    on ``shared[i]``, ``("column", j)`` on its ``j``-th other dim,
+    ``("replicated", None)`` nowhere.  A ``model`` axis on two dims, or
+    with another axis on one, raises."""
     entries = list(w.spec) + [None] * (w.ndim - len(w.spec))
     dims = [d for d, e in enumerate(entries)
             if e is not None and "model" in (e if isinstance(e, tuple)
@@ -337,7 +397,10 @@ def tp_layout(w, contract: tuple) -> tuple[str, int | None]:
     d = dims[0]
     if d in contract:
         return "row", contract.index(d)
-    return "column", [k for k in range(w.ndim) if k not in contract].index(d)
+    if d in shared:
+        return "shared", shared.index(d)
+    return "column", [k for k in range(w.ndim)
+                      if k not in contract and k not in shared].index(d)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
@@ -351,39 +414,52 @@ def matmul(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
 
 
 def tp_product(x, w, ctx: ShardCtx, n_in: int = 1, fn=None,
-               contract: tuple | None = None):
+               contract: tuple | None = None, shared: tuple = ()):
     """``fn(x, w)`` (default `matmul` over ``n_in`` leading dims of w)
     by the rule of ``w``'s ``model`` axis (a `ShardedTensor`):
     replicated — a tensor on the data slot's device; column — a `Split`
-    cut along the output; row — a `Split` of partial sums.  ``x``: a
-    tensor on the data slot's device or a `Split` (its copies, or cut
-    along the contraction dim of a row product); ``contract``: w's
-    contraction dims when ``fn`` is not `matmul`'s (x's last dims, in
-    that order)."""
+    cut along the output; row — a `Split` of partial sums; shared — a
+    `Split` cut along the shared dim.  ``x``: a tensor on the data
+    slot's device or a `Split` (its copies, or cut along the
+    contraction dim of a row product or the shared dim of a shared
+    one); ``contract``: w's contraction dims when ``fn`` is not
+    `matmul`'s (x's last dims, in that order); ``shared``: ``(w's dim,
+    x's dim, the output's dim)`` of each dim w shares with x and the
+    output (an einsum's batch dims; the output ends with w's other
+    dims)."""
     contract = tuple(range(n_in)) if contract is None else contract
     fn = fn or (lambda a, b: matmul(a, b, n_in))
-    kind, at = tp_layout(w, contract)
+    kind, at = tp_layout(w, contract, tuple(d[0] for d in shared))
     nc = len(contract)
     if kind == "replicated":
         return fn(ctx.whole(x), w.full(ctx.device, ctx.data_slot))
     xp = x.parts[0] if isinstance(x, Split) else x
-    xdim = xp.ndim - nc + at  # the cut dim of x (row) or of the output
+    if kind == "shared":
+        wdim, xdim, odim = shared[at]
+    else:  # the cut dim of x (row); the output's is counted from its end
+        wdim, xdim = contract[at] if kind == "row" else None, \
+            xp.ndim - nc + at
+        odim = at - (w.ndim - nc - len(shared)) if kind == "column" \
+            else "sum"
 
     def blk(s):
         return w.block(s.m, s.device, ctx.data_slot)
 
-    if kind == "row" and isinstance(x, Split) and x.dim == xdim:
-        return Split(ctx.per_slot(lambda s, xm: fn(xm, blk(s)), x), "sum")
+    if kind != "column" and isinstance(x, Split) and x.dim == xdim:
+        return Split(ctx.per_slot(lambda s, xm: fn(xm, blk(s)), x), odim)
     xs = x if isinstance(x, Split) and x.dim == "copy" \
         else ctx.fan_out(ctx.whole(x))
 
     def one(s, xm):
-        if kind == "row":  # the slot's slice of the contraction
-            a, b = w.model_range(s.m)[contract[at]]
+        if kind != "column":  # the slot's slice of x's cut dim
+            a, b = w.model_range(s.m)[wdim]
             xm = xm.narrow(xdim, a, b - a)
         return fn(xm, blk(s))
 
-    return Split(ctx.per_slot(one, xs), xdim if kind == "column" else "sum")
+    parts = ctx.per_slot(one, xs)
+    if kind == "column":
+        odim += parts[0].ndim
+    return Split(parts, odim)
 
 
 def tp_bias(y, b, ctx: ShardCtx):

@@ -23,12 +23,14 @@ are `ShardedTensor`s, taken just before use — a repeat unit's inside
 its remat region, so the recompute takes them again — and the loss is
 returned as partial sums (`loss_parts`) that the step adds over the
 slots before it divides (`loss_from_parts`).  On a mesh with a
-``model`` axis the attention, dense MLP, embedding and head products
-are split over the slot's model slots (`nn.common.tp_product`; the
+``model`` axis every mixer's and FFN's products, the embedding and the
+head are split over the slot's model slots (`nn.common.tp_product`; the
 blocks' dispatch is `blocks.gather_block`): the logits stay cut over
 vocab, and the loss's log-sum-exp is taken over the cut
-(`vocab_parallel_xent`); other weights are gathered onto the slot's
-device.
+(`vocab_parallel_xent`); only the norms are gathered onto the slot's
+device.  A recurrent mixer's cache comes out of prefill cut over its
+model slots (a `Split` of each leaf), and decode opens its pieces in
+place.
 """
 from __future__ import annotations
 
@@ -227,7 +229,7 @@ def forward(params, batch, cfg, ctx: ShardCtx, whole_logits: bool = True):
             per_repeat.append(cs)
         if caches is not None:
             caches.append(tuple(
-                {k: torch.stack([cs[j][k] for cs in per_repeat])
+                {k: _stacked([cs[j][k] for cs in per_repeat])
                  for k in per_repeat[0][j]}
                 for j in range(len(st.metas))))
     logits = _head(params, x, cfg, ctx)
@@ -236,10 +238,24 @@ def forward(params, batch, cfg, ctx: ShardCtx, whole_logits: bool = True):
     return logits, sums, caches
 
 
+def _stacked(layers):
+    """The repeats' cache leaves stacked; `Split`s (a tensor-parallel
+    mixer's state, cut over its model slots) part by part."""
+    if isinstance(layers[0], Split):
+        return Split([torch.stack(ps) for ps in zip(*(t.parts
+                                                      for t in layers))],
+                     layers[0].dim + 1)
+    return torch.stack(layers)
+
+
 # the sequence dimension of a decode cache's leaves (one layer, one
 # slot's rows): the dimension `cache_seq` shards
 _CACHE_SEQ_DIM = {"attn": {"k": 2, "v": 2, "pos": 1},
                   "mla": {"c_kv": 1, "k_rope": 1, "pos": 1}}
+# the dimension of a recurrent state that ``model`` cuts (its heads or
+# channels): each model slot reads and writes its piece
+_CACHE_MODEL_DIM = {"ssd": {"state": 1, "conv_tail": 2},
+                    "rglru": {"h": 1, "conv_tail": 2}}
 
 
 def decode_step(params, batch, caches, ctx: ShardCtx, cfg):
@@ -261,7 +277,8 @@ def decode_step(params, batch, caches, ctx: ShardCtx, cfg):
                     from ..distributed.placement import open_cache
 
                     cache, close = open_cache(
-                        cache, ctx, _CACHE_SEQ_DIM.get(meta.mixer, {}))
+                        cache, ctx, _CACHE_SEQ_DIM.get(meta.mixer, {}),
+                        _CACHE_MODEL_DIM.get(meta.mixer))
                 x, _ = block_decode(unit[f"slot{j}"], x, cache, ctx, cfg,
                                     meta)
                 if ctx.mesh is not None:

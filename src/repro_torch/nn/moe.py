@@ -7,6 +7,18 @@ tokens are split into G groups, each group scatters into its own
 Router styles: `softmax` (Mixtral) and `sigmoid_norm` (DeepSeek-V3).
 Shared experts (DeepSeek) are a plain dense MLP added to the routed path.
 
+On a tensor-parallel mesh the routing runs once on the data slot's
+device (the router by `tp_product`'s rule; the top-k, the ranks and the
+capacity drops as unsharded, so every drop is the unsharded one), and
+the expert products follow their weights' ``model`` axis: on the
+experts, each model slot builds the rows of ``buf`` of its experts from
+its copy of the tokens (the reference's tokens are replicated over
+``model``: no data moves), runs them, and combines its experts' rows of
+each routed slot into a partial output, summed over the slots (an
+all-reduce); on ``expert_ff``, ``gate``/``up`` column- and ``down``
+row-parallel on the whole ``buf``, each slot combining its partial
+``yb``; replicated, computed on the data slot's device.
+
 `top_k` breaks ties toward the lower expert index, as ``jax.lax.top_k``
 does (a stable descending sort); ``torch.topk`` promises no order.
 """
@@ -17,7 +29,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from .common import ParamDecl, ShardCtx, cast
+from .common import ParamDecl, ShardCtx, Split, cast, tp_layout, tp_product
 from .layers import apply_mlp, mlp_decls
 
 
@@ -94,8 +106,13 @@ def moe_apply(p, x: torch.Tensor, ctx: ShardCtx, cfg):
     cap = max(k, int(cfg.capacity_factor * tg * k / e))
     xt = x.reshape(g, tg, d)
     dev = x.device
+    tp = ctx.tp and not torch.is_tensor(p["gate"])
+    xs = ctx.fan_out(xt) if tp else None
 
-    logits = (xt @ cast(p["router"], x.dtype)).float()
+    if tp:
+        logits = ctx.whole(tp_product(xs, p["router"], ctx)).float()
+    else:
+        logits = (xt @ cast(p["router"], x.dtype)).float()
     if cfg.router == "sigmoid_norm":
         scores = torch.sigmoid(logits)
         w, idx = top_k(scores, k)
@@ -112,23 +129,16 @@ def moe_apply(p, x: torch.Tensor, ctx: ShardCtx, cfg):
     pos = torch.stack([_positions_in_expert(e_flat[gi], e) for gi in range(g)])
     keep = pos < cap
     p_idx = torch.where(keep, pos, cap).long()
-    x_rep = torch.repeat_interleave(xt, k, dim=1)  # (G, Tg*k, d)
-    gidx = torch.arange(g, device=dev)[:, None]
-    row = (gidx * e + e_flat) * (cap + 1) + p_idx  # (G, Tg*k)
-    buf = torch.zeros((g * e * (cap + 1), d), dtype=x.dtype, device=dev)
-    buf.index_add_(0, row.reshape(-1),
-                   (x_rep * keep[..., None].to(x.dtype)).reshape(-1, d))
-    buf = buf.reshape(g, e, cap + 1, d)[:, :, :cap]  # (G, E, C, d)
-
-    h_g = torch.einsum("gecd,edf->gecf", buf, cast(p["gate"], x.dtype))
-    h_u = torch.einsum("gecd,edf->gecf", buf, cast(p["up"], x.dtype))
-    h = F.silu(h_g) * h_u
-    yb = torch.einsum("gecf,efd->gecd", h, cast(p["down"], x.dtype))
-
-    p_read = torch.clamp(p_idx, max=cap - 1)
-    y_sel = yb[gidx, e_flat, p_read] * keep[..., None].to(yb.dtype)
-    y_sel = y_sel.reshape(g, tg, k, d) * w[..., None].to(yb.dtype)
-    y = y_sel.sum(dim=2).reshape(b, s, d)
+    route = (e_flat, p_idx, keep, cap, k)
+    if tp:
+        y = _experts_tp(p, xt, xs, w, route, ctx).reshape(b, s, d)
+    else:
+        buf = _dispatch(xt, route, 0, e)
+        h_g = torch.einsum("gecd,edf->gecf", buf, cast(p["gate"], x.dtype))
+        h_u = torch.einsum("gecd,edf->gecf", buf, cast(p["up"], x.dtype))
+        h = F.silu(h_g) * h_u
+        yb = torch.einsum("gecf,efd->gecd", h, cast(p["down"], x.dtype))
+        y = _combine(yb, w, route, 0).reshape(b, s, d)
 
     # the load-balance aux's sums (switch-style)
     counts = torch.zeros((e,), dtype=torch.float32, device=dev).index_add_(
@@ -136,6 +146,89 @@ def moe_apply(p, x: torch.Tensor, ctx: ShardCtx, cfg):
     if cfg.n_shared_experts:
         y = y + apply_mlp(p["shared"], x, "swiglu", ctx)
     return y, torch.stack([probs.sum(dim=(0, 1)), counts])
+
+
+def _local(route, e0: int, e1: int, dev):
+    """The routed slots of experts ``[e0, e1)`` on ``dev``: (each slot's
+    expert less e0, clamped into the range; its rank; whether it is
+    kept and local)."""
+    e_flat, p_idx, keep = (t.to(dev) for t in route[:3])
+    local = keep & (e_flat >= e0) & (e_flat < e1)
+    return torch.clamp(e_flat - e0, 0, e1 - e0 - 1), p_idx, local
+
+
+def _dispatch(xt, route, e0: int, e1: int) -> torch.Tensor:
+    """The (G, e1 − e0, C, d) buffer of experts ``[e0, e1)``: each kept
+    routed slot's token at (its expert, its rank)."""
+    g, tg, d = xt.shape
+    cap, k = route[3], route[4]
+    em = e1 - e0
+    el, p_idx, local = _local(route, e0, e1, xt.device)
+    x_rep = torch.repeat_interleave(xt, k, dim=1)  # (G, Tg*k, d)
+    gidx = torch.arange(g, device=xt.device)[:, None]
+    row = (gidx * em + el) * (cap + 1) + torch.where(local, p_idx, cap)
+    buf = torch.zeros((g * em * (cap + 1), d), dtype=xt.dtype,
+                      device=xt.device)
+    buf.index_add_(0, row.reshape(-1),
+                   (x_rep * local[..., None].to(xt.dtype)).reshape(-1, d))
+    return buf.reshape(g, em, cap + 1, d)[:, :, :cap]  # (G, E, C, d)
+
+
+def _combine(yb, w, route, e0: int) -> torch.Tensor:
+    """(G, Tg, d): each token's kept routed slots of the experts ``yb``
+    holds (from ``e0`` on) read back, weighted by ``w`` and summed."""
+    g, em, cap, d = yb.shape
+    k = route[4]
+    el, p_idx, local = _local(route, e0, e0 + em, yb.device)
+    gidx = torch.arange(g, device=yb.device)[:, None]
+    p_read = torch.clamp(p_idx, max=cap - 1)
+    y_sel = yb[gidx, el, p_read] * local[..., None].to(yb.dtype)
+    y_sel = y_sel.reshape(g, -1, k, d) * w[..., None].to(yb.dtype)
+    return y_sel.sum(dim=2)
+
+
+def _experts_tp(p, xt, xs, w, route, ctx: ShardCtx) -> torch.Tensor:
+    """The routed experts on a tensor-parallel mesh: (G, Tg, d) on the
+    data slot's device.  ``xs``: the tokens' copies on the model slots;
+    ``w``: the routing weights."""
+    dt = xt.dtype
+    e = p["gate"].shape[0]
+
+    def prod(h, wt, eq):
+        return tp_product(h, wt, ctx, contract=(1,), shared=((0, 1, 1),),
+                          fn=lambda a, b: torch.einsum(eq, a, cast(b, dt)))
+
+    def ready(y):  # cut or whole: the activation is element-wise
+        return ctx.whole(y) if isinstance(y, Split) and y.dim == "sum" else y
+
+    if tp_layout(p["gate"], (1,), (0,))[0] == "shared":
+        def rows(s, xm):
+            a, b = p["gate"].model_range(s.m)[0]
+            return _dispatch(xm, route, a, b)
+
+        buf = Split(ctx.per_slot(rows, xs), 1)
+    else:
+        buf = _dispatch(xt, route, 0, e)
+    hg = ready(prod(buf, p["gate"], "gecd,edf->gecf"))
+    hu = ready(prod(buf, p["up"], "gecd,edf->gecf"))
+    if isinstance(hg, Split) != isinstance(hu, Split) or (
+            isinstance(hg, Split) and hg.dim != hu.dim):
+        raise ValueError(f"gate {p['gate'].spec} and up {p['up'].spec} "
+                         f"cut their outputs apart")
+    h = Split(ctx.per_slot(lambda _, gm, um: F.silu(gm) * um, hg, hu),
+              hg.dim) if isinstance(hg, Split) else F.silu(hg) * hu
+    yb = prod(h, p["down"], "gecf,efd->gecd")
+    if not isinstance(yb, Split):
+        return _combine(yb, w, route, 0)
+    ws = ctx.fan_out(w)
+
+    def comb(s, ybm, wm):
+        e0 = p["down"].model_range(s.m)[0][0] if yb.dim == 1 else 0
+        return _combine(ybm, wm, route, e0)
+
+    # experts or partial sums: a partial output; d_model: its block
+    return ctx.whole(Split(ctx.per_slot(comb, yb, ws),
+                           2 if yb.dim == 3 else "sum"))
 
 
 def switch_aux(sums: torch.Tensor, tokens: int, cfg) -> torch.Tensor:

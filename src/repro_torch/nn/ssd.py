@@ -7,13 +7,27 @@ matrix L, linear across chunks through the carried state).  Includes the
 depthwise causal conv1d (width 4) over the xBC stream — a literal FIR
 filter bank — and its BLMAC bit-layer evaluation (`blmac_conv1d`) for
 quantized weights.
+
+On a tensor-parallel mesh the mixer splits over its heads.  ``in_proj``
+is column-parallel over its stored blocks of z | x | B | C | dt, which
+do not line up with the heads, so its output is re-cut by
+point-to-point moves (`ShardCtx.regroup`): each model slot receives its
+heads' z and dt and the conv channels of its ``conv_w`` block, runs the
+conv there (with its piece of the decode conv tail, in place), and a
+second re-cut hands it its heads' x and B and C whole.  Each slot scans
+its heads (``a_log``, ``dt_bias``, ``d_skip`` and its piece of the
+decode state by heads); the gated norm's sum of squares is all-reduced
+over ``model``; ``out_proj`` is row-parallel over ``heads_flat``.  A
+mixer whose weights keep ``heads_flat`` whole runs on the data slot's
+device.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .common import ParamDecl, ShardCtx, cast
+from .common import (ParamDecl, ShardCtx, Split, cast, slot_block, tp_layout,
+                     tp_product)
 
 
 def ssd_decls(cfg) -> dict:
@@ -95,30 +109,25 @@ def _gated_norm(p, y, z, eps=1e-6):
     return (gf * torch.rsqrt(var + eps) * p["norm_scale"]).to(y.dtype)
 
 
-def ssd_apply(p, x, ctx: ShardCtx, cfg, meta, chunk: int | None = None):
-    """Full-sequence SSD.  Returns (y, cache|None) where cache carries the
-    final SSM state and conv tail for decode continuation."""
-    bsz, s, _ = x.shape
-    if chunk is None:
-        chunk = cfg.ssm_chunk
-    h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    d_in = h * pdim
-    z, xbc, dt = _split(p, x, cfg)
-    xbc, conv_tail = causal_conv1d(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :d_in].reshape(bsz, s, h, pdim)
-    bmat = xbc[..., d_in : d_in + n]  # (B,S,N): one B/C group
-    cmat = xbc[..., d_in + n :]
-    dt = softplus(dt.float() + p["dt_bias"])  # (B,S,H)
-    a = -torch.exp(p["a_log"])  # (H,)
+def _chunked(xs, bmat, cmat, dt, dt_bias, a_log, chunk: int):
+    """The chunked scan from a zero state: xs (B, S, H, P), B and C
+    (B, S, N), dt (B, S, H) before its bias → (y (B, S, H, P), the final
+    state (B, H, N, P))."""
+    bsz, s, h, pdim = xs.shape
+    n = bmat.shape[-1]
+    dt = softplus(dt.float() + dt_bias)  # (B,S,H)
+    a = -torch.exp(a_log)  # (H,)
     da = dt * a  # (B,S,H) ≤ 0
 
     q = min(chunk, s)
     while s % q:
         q -= 1
     nc = s // q
-    causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                   device=x.device))[None, :, :, None]
-    state = torch.zeros((bsz, h, n, pdim), dtype=x.dtype, device=x.device)
+    # the pairs j > i, whose exp(cs_i − cs_j) overflows on a long chunk:
+    # masked before the exp, so that their gradient is 0, not 0·inf
+    later = torch.triu(torch.ones((q, q), dtype=torch.bool,
+                                  device=xs.device), 1)[None, :, :, None]
+    state = torch.zeros((bsz, h, n, pdim), dtype=xs.dtype, device=xs.device)
     ys = []
     for i in range(nc):
         sl = slice(i * q, (i + 1) * q)
@@ -127,7 +136,7 @@ def ssd_apply(p, x, ctx: ShardCtx, cfg, meta, chunk: int | None = None):
         cs = torch.cumsum(dac, dim=1)  # (B,Q,H) f32, ≤ 0
         # intra-chunk: L[i,j] = exp(cs_i − cs_j) for i ≥ j
         li = cs[:, :, None, :] - cs[:, None, :, :]  # (B,Qi,Qj,H)
-        decay = torch.where(causal, torch.exp(li), 0.0).to(xc.dtype)
+        decay = torch.exp(li.masked_fill(later, -torch.inf)).to(xc.dtype)
         cb = torch.einsum("bin,bjn->bij", cc, bc)[..., None]
         w_ij = cb * decay * dtc.to(xc.dtype)[:, None, :, :]
         y_diag = torch.einsum("bijh,bjhp->bihp", w_ij, xc)
@@ -141,7 +150,45 @@ def ssd_apply(p, x, ctx: ShardCtx, cfg, meta, chunk: int | None = None):
         chunk_decay = torch.exp(cs[:, -1, :]).to(state.dtype)  # (B,H)
         state = state * chunk_decay[:, :, None, None] + sb
         ys.append(y_diag + y_off)  # (B,Q,H,P)
-    y = torch.cat(ys, dim=1)
+    return torch.cat(ys, dim=1), state
+
+
+def _step(xs, bvec, cvec, dt, dt_bias, a_log, prev):
+    """One recurrence step: xs (B, H, P), B and C (B, N), dt (B, H)
+    before its bias, the state ``prev`` (B, H, N, P) → (y (B, H, P), the
+    new state)."""
+    dt = softplus(dt.float() + dt_bias)  # (B,H)
+    a = -torch.exp(a_log)
+    decay = torch.exp(dt * a).to(xs.dtype)  # (B,H)
+    state = prev * decay[:, :, None, None]
+    state = state + torch.einsum(
+        "bh,bn,bhp->bhnp", dt.to(xs.dtype), bvec, xs
+    )
+    return torch.einsum("bn,bhnp->bhp", cvec, state), state
+
+
+def ssd_apply(p, x, ctx: ShardCtx, cfg, meta, chunk: int | None = None):
+    """Full-sequence SSD.  Returns (y, cache|None) where cache carries the
+    final SSM state and conv tail for decode continuation."""
+    if chunk is None:
+        chunk = cfg.ssm_chunk
+    if ctx.tp:
+        out = _ssd_tp(p, x, ctx, cfg, chunk)
+        if out is not None:
+            y, state, tail = out
+            cache = {"state": state, "conv_tail": tail} \
+                if ctx.make_cache else None
+            return y, cache
+        p = ctx.replicated(p)
+    bsz, s, _ = x.shape
+    h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    d_in = h * pdim
+    z, xbc, dt = _split(p, x, cfg)
+    xbc, conv_tail = causal_conv1d(xbc, p["conv_w"], p["conv_b"])
+    xs = xbc[..., :d_in].reshape(bsz, s, h, pdim)
+    bmat = xbc[..., d_in : d_in + n]  # (B,S,N): one B/C group
+    cmat = xbc[..., d_in + n :]
+    y, state = _chunked(xs, bmat, cmat, dt, p["dt_bias"], p["a_log"], chunk)
     y = y + xs * p["d_skip"][None, None, :, None].to(x.dtype)
     y = _gated_norm(p, y.reshape(bsz, s, d_in), z)
     out = y @ cast(p["out_proj"], x.dtype)
@@ -154,6 +201,14 @@ def ssd_apply(p, x, ctx: ShardCtx, cfg, meta, chunk: int | None = None):
 def ssd_decode(p, x, cache, ctx: ShardCtx, cfg, meta):
     """Single-step recurrence.  x: (B, 1, d).  The state and conv tail
     are written into ``cache``'s tensors in place."""
+    if ctx.tp:
+        out = _ssd_tp(p, x, ctx, cfg, 1, cache)
+        if out is not None:
+            y, state, tail = out
+            for key, new in (("state", state), ("conv_tail", tail)):
+                ctx.per_slot(lambda s, c, t: c.copy_(t), cache[key], new)
+            return y, cache
+        p = ctx.replicated(p)
     bsz = x.shape[0]
     h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     d_in = h * pdim
@@ -163,17 +218,95 @@ def ssd_decode(p, x, cache, ctx: ShardCtx, cfg, meta):
     xs = xbc[:, 0, :d_in].reshape(bsz, h, pdim)
     bvec = xbc[:, 0, d_in : d_in + n]
     cvec = xbc[:, 0, d_in + n :]
-    dt = softplus(dt[:, 0].float() + p["dt_bias"])  # (B,H)
-    a = -torch.exp(p["a_log"])
-    decay = torch.exp(dt * a).to(x.dtype)  # (B,H)
-    state = cache["state"] * decay[:, :, None, None]
-    state = state + torch.einsum(
-        "bh,bn,bhp->bhnp", dt.to(x.dtype), bvec, xs
-    )
-    y = torch.einsum("bn,bhnp->bhp", cvec, state)
+    y, state = _step(xs, bvec, cvec, dt[:, 0], p["dt_bias"], p["a_log"],
+                     cache["state"])
     y = y + xs * p["d_skip"][None, :, None].to(x.dtype)
     y = _gated_norm(p, y.reshape(bsz, 1, d_in), z)
     out = y @ cast(p["out_proj"], x.dtype)
     cache["state"].copy_(state)
     cache["conv_tail"].copy_(conv_tail)
     return out, cache
+
+
+def _ssd_tp(p, x, ctx: ShardCtx, cfg, chunk: int, cache=None):
+    """The mixer on a tensor-parallel mesh: (y, the final state `Split`
+    over heads, the conv tail `Split` over ``conv_w``'s blocks), or None
+    where ``in_proj`` keeps ``heads_flat`` whole.  ``cache``: decode's
+    (state, conv tail) views cut over ``model``, or None for the full
+    sequence (the state starts at zero)."""
+    splits = [isinstance(c, Split) for c in (cache or {}).values()]
+    if tp_layout(p["in_proj"], (0,))[0] == "replicated":
+        if any(splits):
+            raise ValueError("an SSD cache cut over model where in_proj "
+                             "keeps heads_flat whole")
+        return None
+    if cache is not None and not all(splits):
+        raise ValueError("an SSD cache not cut over model with its heads")
+    bsz, s, _ = x.shape
+    h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    d_in = h * pdim
+    dt_ = x.dtype
+    zx = tp_product(ctx.fan_out(x), p["in_proj"], ctx)
+    if not (isinstance(zx, Split) and zx.dim == 2):
+        raise ValueError(f"in_proj {p['in_proj'].spec}: no product takes it")
+    slots = ctx.model_slots
+    heads = []
+    for sl in slots:  # each slot's heads: the rows of its out_proj block
+        r0, r1 = p["out_proj"].model_range(sl.m)[0]
+        if (r0, r1) == (0, d_in) or r0 % pdim or r1 % pdim:
+            raise ValueError(f"out_proj {p['out_proj'].spec} does not cut "
+                             f"the heads over model")
+        heads.append((r0 // pdim, r1 // pdim))
+    conv = [p["conv_w"].model_range(sl.m)[1] for sl in slots]
+    # z | conv channels of the slot's conv_w block | dt, from in_proj's
+    # blocks
+    dt0 = 2 * d_in + 2 * n
+    got = ctx.regroup(zx, [p["in_proj"].model_range(sl.m)[1] for sl in slots],
+                      [[(h0 * pdim, h1 * pdim), (d_in + c0, d_in + c1),
+                        (dt0 + h0, dt0 + h1)]
+                       for (h0, h1), (c0, c1) in zip(heads, conv)])
+
+    def conv1d(sl, xbc):
+        rng = conv[sl.m]
+        tail = None if cache is None else cache["conv_tail"].parts[sl.m]
+        return causal_conv1d(xbc, slot_block(p["conv_w"], sl, ctx, 1, rng),
+                             slot_block(p["conv_b"], sl, ctx, 0, rng), tail)
+
+    cv = ctx.per_slot(conv1d, Split([g[1] for g in got], 2))
+    # the slot's heads of x, and B and C whole
+    xbc = ctx.regroup(Split([c[0] for c in cv], 2), conv,
+                      [[(h0 * pdim, h1 * pdim), (d_in, d_in + 2 * n)]
+                       for h0, h1 in heads])
+
+    def scan(sl, zm, xm, bcm, dtm):
+        hm = heads[sl.m]
+        dt_bias, a_log, d_skip = (slot_block(p[k], sl, ctx, 0, hm)
+                                  for k in ("dt_bias", "a_log", "d_skip"))
+        xs = xm.reshape(bsz, s, -1, pdim)
+        bmat, cmat = bcm[..., :n], bcm[..., n:]
+        if cache is None:
+            y, state = _chunked(xs, bmat, cmat, dtm, dt_bias, a_log, chunk)
+            y = y + xs * d_skip[None, None, :, None].to(dt_)
+        else:
+            y, state = _step(xs[:, 0], bmat[:, 0], cmat[:, 0], dtm[:, 0],
+                             dt_bias, a_log, cache["state"].parts[sl.m])
+            y = (y + xs[:, 0] * d_skip[None, :, None].to(dt_))[:, None]
+        g = (y.reshape(bsz, s, -1) * F.silu(zm)).float()
+        return g, (g * g).sum(dim=-1, keepdim=True), state
+
+    sc = ctx.per_slot(scan, Split([g[0] for g in got], 2),
+                      Split([t[0] for t in xbc], 2),
+                      Split([t[1] for t in xbc], 2),
+                      Split([g[2] for g in got], 2))
+    # the gated norm's mean square over the whole d_in (an all-reduce)
+    var = ctx.fan_out(ctx.whole(Split([t[1] for t in sc], "sum")) / d_in)
+
+    def normed(sl, g, vm):
+        h0, h1 = heads[sl.m]
+        scale = slot_block(p["norm_scale"], sl, ctx, 0,
+                           (h0 * pdim, h1 * pdim))
+        return (g * torch.rsqrt(vm + 1e-6) * scale).to(dt_)
+
+    yn = Split(ctx.per_slot(normed, Split([t[0] for t in sc], 2), var), 2)
+    out = ctx.whole(tp_product(yn, p["out_proj"], ctx))
+    return out, Split([t[2] for t in sc], 1), Split([c[1] for c in cv], 2)

@@ -47,8 +47,10 @@ is also counted under its issuer (`distributed.placement.issuing`: the
 device slot of the data slot's model group that computes it), so that
 `OpCounter.device_cost` reads what the busiest device of the group
 computes and holds: the untagged work, which the reference repeats on
-every device of the group, and the busiest issuer's own.  HLO text
-parsing has no counterpart here.
+every device of the group, and the busiest issuer's own.  An op
+inside `distributed.placement.repeated` (n) stands for n identical ops
+(a loop walked once on ``meta`` tensors) and is counted n times.  HLO
+text parsing has no counterpart here.
 """
 from __future__ import annotations
 
@@ -392,10 +394,16 @@ class OpCounter(TorchDispatchMode):
         if func.namespace == "profiler":
             return out
         tag = placement.current_issuer()
-        self._count(self._cost, func, base, args, kwargs, out)
-        if tag is not None:
-            self._count(self._tags.setdefault(tag, CompCost()), func, base,
-                        args, kwargs, out)
+        costs = [self._cost] if tag is None else [
+            self._cost, self._tags.setdefault(tag, CompCost())]
+        n = placement.repeat_factor()
+        for c in costs:
+            if n == 1:
+                self._count(c, func, base, args, kwargs, out)
+            else:  # one op standing for n (`placement.repeated`)
+                one = CompCost()
+                self._count(one, func, base, args, kwargs, out)
+                c.add(one, n)
         self._allocated(out, args, tag)
         return out
 

@@ -16,13 +16,15 @@ On a mesh (``mesh=``, ``rules=``; decode rules by default) the
 parameters are placed as `repro`'s dry run places them
 (``sanitized_shardings(…, param_pspecs(…), tp_fallback_axis="model")``)
 and the caches by `cache_pspecs`.  Each data slot computes its rows of
-the batch, its dense products split over its model slots
+the batch, its products split over its model slots
 (`nn.common.tp_product`: no weight of theirs is gathered, as the
 decode rules replicate ``d_model``); a cache sharded over ``cache_seq``
-is attended piece by piece (sequence-parallel decode), other cache
-leaves are read and written in their pieces.  Each slot's logits are
-joined over vocab on its device (an all-gather), then assembled on the
-first data slot's device.
+is attended piece by piece (sequence-parallel decode), the SSD and
+RG-LRU states cut over ``model`` are read and written in their model
+slots' pieces (prefill places each slot's part where it lies), other
+cache leaves are read and written in their pieces.  Each slot's logits
+are joined over vocab on its device (an all-gather), then assembled on
+the first data slot's device.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from ..distributed.placement import data_slots, from_blocks, rows_of
 from ..distributed.sharding import (NamedSharding, PartitionSpec, make_rules,
                                     sanitize_spec, sanitized_shardings)
 from ..kernels.runtime import as_device_tensor, resolve_device
-from ..nn.common import ShardCtx, map_tree, map_trees, torch_dtype
+from ..nn.common import ShardCtx, Split, map_tree, map_trees, torch_dtype
 from ..nn.model import as_tree, decode_step, forward
 
 __all__ = ["AsyncBankServer", "ServeEngine", "abstract_caches",
@@ -93,11 +95,12 @@ def make_prefill_fn(cfg, cache_len: int, mesh=None, rules=None):
                                     _global_shapes(blocks[0][1], b))
 
         def place(sh, *slot_leaves):
-            t0 = slot_leaves[0]
-            shape = (t0.shape[0], b) + tuple(t0.shape[2:])
-            return from_blocks(sh, shape, t0.dtype, [
-                (((0, t0.shape[0]), rows) + tuple((0, n) for n in t.shape[2:]),
-                 t) for (rows, _), t in zip(blocks, slot_leaves)])
+            cut = _cache_blocks(slot_leaves[0])
+            t0 = cut[0][1]
+            return from_blocks(sh, (t0.shape[0], b) + _extent(cut), t0.dtype, [
+                (((0, t.shape[0]), rows) + index, t)
+                for (rows, _), leaf in zip(blocks, slot_leaves)
+                for index, t in _cache_blocks(leaf)])
 
         caches = map_trees(place, shard, *[c for _, c in blocks])
         pos = from_blocks(_pos_sharding(mesh, rules, b), (b,), torch.int32,
@@ -107,11 +110,37 @@ def make_prefill_fn(cfg, cache_len: int, mesh=None, rules=None):
     return prefill if mesh is None else prefill_mesh
 
 
+def _cache_blocks(leaf) -> list[tuple]:
+    """A data slot's stacked cache leaf as ``(index of dims 2.., tensor)``
+    blocks: a tensor whole, a `Split` (a recurrent state cut over the
+    model slots) part by part, each where it lies."""
+    if not isinstance(leaf, Split):
+        return [(tuple((0, n) for n in leaf.shape[2:]), leaf)]
+    out, at = [], 0
+    for t in leaf.parts:
+        n = t.shape[leaf.dim]
+        out.append((tuple((at, at + n) if d == leaf.dim else (0, t.shape[d])
+                          for d in range(2, t.ndim)), t))
+        at += n
+    return out
+
+
+def _extent(blocks) -> tuple:
+    """The dims 2.. of the tensor ``blocks`` cover."""
+    return tuple(max(idx[d][1] for idx, _ in blocks)
+                 for d in range(len(blocks[0][0])))
+
+
 def _global_shapes(tree, b: int):
     """A slot's stacked cache tree as ``meta`` tensors of the whole
     batch's shapes (``b`` rows on dim 1)."""
-    return map_tree(lambda t: torch.empty((t.shape[0], b) + tuple(t.shape[2:]),
-                                          dtype=t.dtype, device="meta"), tree)
+    def one(leaf):
+        blocks = _cache_blocks(leaf)
+        t = blocks[0][1]
+        return torch.empty((t.shape[0], b) + _extent(blocks), dtype=t.dtype,
+                           device="meta")
+
+    return map_tree(one, tree)
 
 
 def make_decode_fn(cfg, mesh=None, rules=None):

@@ -12,12 +12,14 @@ over all 256 pieces of every leaf (5–40 s); `launch.dryrun --all` runs
 them all."""
 import dataclasses
 import json
+import math
 
 import pytest
 
 from repro_torch.configs import SHAPES, all_configs, cells_for, get_config
 from repro_torch.launch.dryrun import run_cell
 from repro_torch.launch.mesh import HBM_BYTES
+from repro_torch.nn import model_decls
 
 CASES = ([(a, "decode_32k", mp) for a in sorted(all_configs())
           for mp in (False, True)]
@@ -60,7 +62,13 @@ def test_run_cell_on_the_production_mesh(arch, shape, multi_pod, tmp_path):
                                            "collective")}
     assert r["dominant"] == max(terms, key=terms.get)
     # each slot all-gathers (its model block of a weight over the data
-    # axes, a gathered mixer's weights or a norm's scale) and a device's
-    # FLOPs are at least the model's share
+    # axes or a norm's scale) and a device's FLOPs are at least the
+    # model's share less the embedding lookup's: 2·N·D counts an untied
+    # table's parameters, whose lookup computes no product (every other
+    # product is split over ``model`` or repeated on each device)
     assert r["collective_counts"]["all-gather"] > 0
-    assert r["op_flops_per_dev"] >= r["model_flops_per_dev"]
+    emb = model_decls(cfg).get("embed")
+    table = 0 if cfg.tie_embeddings or emb is None else math.prod(
+        emb["table"].shape)
+    assert r["op_flops_per_dev"] >= r["model_flops_per_dev"] * (
+        1 - table / r["n_active_params"])

@@ -2,7 +2,8 @@
 conv1d and its BLMAC bit-layer evaluation, the chunked SSD at several
 chunk sizes and its decode, the RG-LRU block (the reference's
 associative scan against the port's float32 step-by-step scan) and its
-decode.  Float32; the reference's own tolerances: SSD 2e-3
+decode, and the SSD gradient on a long chunk, finite in the port where
+the reference's is NaN.  Float32; the reference's own tolerances: SSD 2e-3
 (``tests/test_ssd_rglru.py:32``), RG-LRU rtol 1e-4 / atol 1e-5 (``:55``);
 the conv at the RG-LRU one.
 """
@@ -102,6 +103,36 @@ def test_ssd_chunked_prefill_and_decode(chunk):
                                    atol=SSD_TOL)
     np.testing.assert_allclose(tc["state"].numpy(), np.asarray(rc["state"]),
                                rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_gradient_stays_finite_on_a_long_chunk():
+    """On a chunk of 256 the intra-chunk decay's masked pairs reach
+    exp(+150) and overflow: the reference takes ``where(causal,
+    exp(li), 0)``, whose gradient there is 0·inf (NaN); the port masks
+    before the exp, so its forward is the reference's and its gradient
+    finite."""
+    tcfg, rcfg, tp, rp = _pair(rssd.ssd_decls, "mamba2-370m", 2,
+                               d_model=48, ssm_heads=4, ssm_head_dim=8,
+                               ssm_state=16)
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((1, 256, 48)) * 0.3).astype(np.float32)
+
+    def rloss(xx):
+        y, _ = rssd.ssd_apply(rp, xx, rcommon.ShardCtx(
+            compute_dtype=jnp.float32), rcfg, None, chunk=256)
+        return y.sum()
+
+    rg = jax.grad(rloss)(jnp.asarray(x))
+    assert not np.isfinite(np.asarray(rg)).all()
+    tx = _t(x).requires_grad_()
+    ty, _ = tssd.ssd_apply(tp, tx, tcommon.ShardCtx(
+        compute_dtype=torch.float32), tcfg, None, chunk=256)
+    ty.sum().backward()
+    assert torch.isfinite(tx.grad).all()
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(
+        rssd.ssd_apply(rp, jnp.asarray(x), rcommon.ShardCtx(
+            compute_dtype=jnp.float32), rcfg, None, chunk=256)[0]),
+        rtol=SSD_TOL, atol=SSD_TOL)
 
 
 def test_ssd_prefill_matches_its_own_stepwise_decode():

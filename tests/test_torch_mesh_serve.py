@@ -145,8 +145,8 @@ def test_attention_caches_are_attended_piece_by_piece(gb, pieces,
     kinds = []
     real = pl.open_cache
 
-    def spy(tree, ctx, seq_dims):
-        view, close = real(tree, ctx, seq_dims)
+    def spy(tree, ctx, *dims):
+        view, close = real(tree, ctx, *dims)
         kinds.append(type(view["k"]).__name__)
         return view, close
 

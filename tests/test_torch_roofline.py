@@ -3,7 +3,8 @@ the properties `tests/test_roofline.py` holds the reference's HLO
 analyzer to — hand-computable matmuls exact, an L-layer stack L times
 one layer, a one-row cache write counted at the row and not the buffer —
 and its own: `FlopCounterMode`'s count on the same call, views free,
-peak live bytes, the placement layer's collectives."""
+peak live bytes, the placement layer's collectives, and the RG-LRU
+scan walked once on ``meta`` counted for every step."""
 import dataclasses
 
 import pytest
@@ -221,3 +222,43 @@ def test_ring_factors_are_the_reference_s(kind):
             "reduce-scatter": 200 * 3 / 4, "all-to-all": 800 * 3 / 4,
             "collective-permute": 800.0}[kind]
     assert collective_link_bytes(kind, 800, 200, 4) == want
+
+
+@pytest.mark.parametrize("steps", [3, 64])
+def test_a_scan_walked_once_on_meta_counts_every_step(steps):
+    """The RG-LRU scan on ``meta`` walks one step for all of them
+    (`placement.repeated`): its forward and backward counts equal those
+    of the same scan walked step by step on the CPU."""
+    from repro_torch.nn.rglru import linear_scan
+
+    def counts(device):
+        a = torch.rand((2, steps, 8), device=device, requires_grad=True)
+        b = torch.rand((2, steps, 8), device=device, requires_grad=True)
+        with OpCounter() as oc:
+            linear_scan(a, b).sum().backward()
+        c = oc.total()
+        return (c.ops, c.kernel_bytes, c.hbm_bytes, c.flops,
+                dict(c.ops_by_name))
+
+    assert counts("meta") == counts("cpu")
+
+
+def test_the_scan_backward_equals_autograd_of_its_steps():
+    """`linear_scan`'s backward walks the recurrence back: bit for bit
+    the gradients autograd takes of the forward's steps."""
+    from repro_torch.nn.rglru import linear_scan
+
+    g = torch.Generator().manual_seed(0)
+    a = torch.rand((2, 33, 5), generator=g, requires_grad=True)
+    b = torch.randn((2, 33, 5), generator=g, requires_grad=True)
+    w = torch.randn((2, 33, 5), generator=g)
+    a2, b2 = (t.detach().clone().requires_grad_() for t in (a, b))
+    h2 = torch.empty_like(b2)
+    prev = b2[:, 0]
+    h2[:, 0] = prev
+    for t in range(1, 33):
+        prev = a2[:, t] * prev + b2[:, t]
+        h2[:, t] = prev
+    (linear_scan(a, b) * w).sum().backward()
+    (h2 * w).sum().backward()
+    assert torch.equal(a.grad, a2.grad) and torch.equal(b.grad, b2.grad)
