@@ -20,6 +20,18 @@ before it and read just after:
                   written in the caller's order; bit-exact against the
                   plain version in full and the numpy oracle on 64
                   sampled rows;
+  * sweep_taps  — the §3.1 sweep banks at both ends of `TAPS_RANGE` (55
+                  and 255 taps, 9,900 filters each), designed by
+                  `sweep_bank` in a process pool of 2 each (the two pools
+                  at once), quantized to 16 bits and packed by
+                  `pack_bank_trits`, through the kernel
+                  module's `blmac_fir_bank(x, packed, taps)` on 1 channel ×
+                  4,096 samples; one K1 launch a call, bit-exact against
+                  the plain version in full and the numpy oracle on 64
+                  sampled rows; prints each bank's groups, its mean §3.3
+                  BLMAC additions a filter (`fir_blmac_additions_batch`, a
+                  count), K1's CUDA-event time at that shape and the
+                  phase's wall seconds;
   * specialized — `blmac_fir` on one 127-tap filter over 2**20 samples,
                   `FilterBankEngine(mode="specialized")` on 8 filters × 2
                   channels and the one-filter `FilterBankEngine` (auto mode)
@@ -302,6 +314,7 @@ before that line; without a CUDA device it exits 2 at once.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import importlib
@@ -340,6 +353,7 @@ DISPATCH_FILTERS = (1, 16, 32, 256)  # the plans printed, at SERVE_TAPS
 CROSSOVER_FILTERS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 WRAP_CHECK_ROWS = 8
 SWEEP_TAPS, SWEEP_SAMPLES, SWEEP_CHECK_ROWS = 127, 16384, 64
+SWEEP_ENDS_SAMPLES, SWEEP_ENDS_WORKERS = 4096, 2  # the sweep_taps phase
 SPEC_SAMPLES = 1 << 20
 SPEC_CHUNK, SPEC_PUSHES, SPEC_CHANNELS = 4096, 8, 2
 OPS_TILE = 1024  # blmac_fir / blmac_fir_bank default signal tile
@@ -461,6 +475,77 @@ def bank_plain(frames, sched, taps: int, tile: int):
     y = torch.cat(plain_groups(frames, sched, taps, tile))
     y = y.reshape(y.shape[0], frames.shape[0], -1)
     return y.index_select(0, torch.as_tensor(sched.inv, device=frames.device))
+
+
+def sweep_taps_leg(dev, smi, rng) -> int:
+    """The sweep banks at both ends of `TAPS_RANGE` through the kernel
+    module's `blmac_fir_bank` on the raw packed operand: one K1 launch a
+    call, bit-exact against the plain version of the same schedule and
+    the numpy oracle on sampled rows.  Returns the K1 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compiler import (MERGE_DEFAULT, pack_bank_trits,
+                                      plan_bank_schedule)
+    from repro_torch.core import po2_quantize_batch
+    from repro_torch.core.costmodel import fir_blmac_additions_batch
+    from repro_torch.filters import (TAPS_RANGE, fir_bit_layers_batch,
+                                     sweep_bank)
+
+    bf = importlib.import_module("repro_torch.kernels.blmac_fir")
+    t_phase = time.perf_counter()
+    ends = (TAPS_RANGE[0], TAPS_RANGE[-1])
+    # both banks' pools at once: a spawned worker's start (its import of
+    # the port) is most of a pool's time
+    with concurrent.futures.ThreadPoolExecutor(len(ends)) as ex:
+        designs = list(ex.map(
+            lambda t: sweep_bank(t, workers=SWEEP_ENDS_WORKERS), ends))
+    design_s = time.perf_counter() - t_phase
+    banks, launches = [], 0
+    for taps, h in zip(ends, designs):
+        t0 = time.perf_counter()
+        q, _ = po2_quantize_batch(h, 16)
+        packed = pack_bank_trits(q)
+        pack_s = time.perf_counter() - t0
+        x = torch.as_tensor(rng.integers(-128, 128, (1, SWEEP_ENDS_SAMPLES)),
+                            dtype=torch.int32, device=dev)
+        bf.reset_launch_counts()
+        y = bf.blmac_fir_bank(x, packed, taps)
+        torch.cuda.synchronize()
+        n = bf.bank_apply.launches
+        check(n == 1 and bf.specialized_call.launches == 0,
+              f"sweep_taps {taps}: {n} K1 launches, want 1")
+        launches += n
+        sched = plan_bank_schedule(packed, None, MERGE_DEFAULT)
+        frames, n_out = bf.frame_signal_batch(x, taps, OPS_TILE)
+        check(tuple(y.shape) == (len(q), 1, n_out),
+              f"sweep_taps {taps}: output {tuple(y.shape)}")
+        diff = max_abs_diff(y, bank_plain(frames, sched, taps,
+                                          OPS_TILE)[:, :, :n_out])
+        check(diff == 0, f"sweep_taps {taps}: K1 differs from plain by {diff}")
+        rows = np.sort(rng.choice(len(q), SWEEP_CHECK_ROWS, replace=False))
+        got = y[torch.as_tensor(rows, device=dev)].cpu().numpy()
+        check(np.array_equal(got, fir_bit_layers_batch(x.cpu().numpy(),
+                                                       q[rows])),
+              f"sweep_taps {taps}: rows differ from the numpy oracle")
+        terms = bf.bank_terms(sched, taps, dev)
+        banks.append({
+            "taps": taps, "filters": len(q), "samples": SWEEP_ENDS_SAMPLES,
+            "n_layers": packed.shape[1], "words": packed.shape[2],
+            "groups": len(sched.groups),
+            "zero_groups": sum(not g.sel_layers for g in sched.groups),
+            "bank_launches": n, "max_abs_diff_vs_plain": diff,
+            "oracle_rows_checked": SWEEP_CHECK_ROWS,
+            "mean_blmac_additions": float(
+                fir_blmac_additions_batch(q).mean()),
+            "quantize_pack_s": pack_s,
+            "kernel_ms": cuda_ms(lambda: bf.bank_apply(
+                frames, terms, OPS_TILE, n_out), target_ms=100.0)})
+        del y, frames, terms
+    emit({"phase": "sweep_taps", "banks": banks, "bank_launches": launches,
+          "design_s": design_s, "design_workers": SWEEP_ENDS_WORKERS,
+          "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return launches
 
 
 def serve_push_breakdown(eng, chunks) -> dict:
@@ -3999,6 +4084,9 @@ def main() -> int:
           "bank_launches": sweep_launches, "max_abs_diff_vs_plain": sweep_diff,
           "oracle_rows_checked": SWEEP_CHECK_ROWS})
 
+    # -- sweep_taps leg: the sweep banks at 55 and 255 taps, packed raw ----
+    sweep_taps_launches = sweep_taps_leg(dev, smi, rng)
+
     # -- the cost model's "cuda" lane, fitted on this card (the specialized
     # leg's one-filter auto engine plans with it) ---------------------------
     from repro_torch.core.costmodel import calibrate_backend
@@ -4211,10 +4299,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/blmac_bank.cu",
          "replaces": "src/repro/kernels/blmac_fir.py:200",
          "replaces_function": "_fir_kernel_bank",
-         "launches": (serve_launches + sweep_launches
+         "launches": (serve_launches + sweep_launches + sweep_taps_launches
                       + machine_launches["bank_apply"]
                       + sharded_launches["bank_apply"]),
          "launches_by_leg": {"serve": serve_launches, "sweep": sweep_launches,
+                             "sweep_taps": sweep_taps_launches,
                              "machine": machine_launches["bank_apply"],
                              "sharded": sharded_launches["bank_apply"]},
          "shape": f"{len(sweep_q)} filters x {SWEEP_TAPS} taps x 1 channel x "

@@ -6,7 +6,8 @@ on-disk formats, so programs and tail snapshots move between the two
 packages unchanged:
 
   * `compile_bank` / `compile_packed` / `program_from_arrays` —
-    content-addressed compilation,
+    content-addressed compilation; `pack_bank_trits` — the bank
+    kernel's raw packed-trit operand, without a program,
   * `BlmacProgram` — the artifact (schedules and pulse tuples memoized
     on it), `save()` / `load()`,
   * `plan_bank_schedule` / `BankSchedule` / `superlayer_schedule` — the
@@ -23,7 +24,7 @@ from .lowering import BACKENDS, Lowered, lower
 from .optimize import OptimizedProgram, cse_pass
 from .program import (BlmacProgram, CompileSpec, PROGRAM_FORMAT_VERSION,
                       ProgramFormatError, compile_bank, compile_packed,
-                      program_from_arrays)
+                      pack_bank_trits, program_from_arrays)
 from .schedule import (BankSchedule, MAX_BANK_TILE, MERGE_DEFAULT, TileGroup,
                        default_bank_tile, plan_bank_schedule,
                        superlayer_schedule)
@@ -51,6 +52,7 @@ __all__ = [
     "cse_pass",
     "default_bank_tile",
     "lower",
+    "pack_bank_trits",
     "plan_bank_schedule",
     "program_from_arrays",
     "superlayer_schedule",

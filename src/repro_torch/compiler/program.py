@@ -46,6 +46,7 @@ __all__ = [
     "PROGRAM_FORMAT_VERSION",
     "compile_bank",
     "compile_packed",
+    "pack_bank_trits",
     "program_from_arrays",
 ]
 
@@ -73,6 +74,38 @@ class CompileSpec:
     coeff_bits: int = 16
     sample_bits: int = 8
     n_layers: int | None = None
+
+
+def _bank_digits(qbank: np.ndarray, n_layers: int | None) -> np.ndarray:
+    """(B, taps) symmetric ints → (B, M, L) CSD digits of the folded half,
+    counted in `cache_stats()["counters"]["csd_packings"]`."""
+    _bump("csd_packings")
+    half = qbank.shape[-1] // 2
+    return csd_digits(qbank[:, : half + 1], n_digits=n_layers)
+
+
+def pack_bank_trits(
+    qbank: np.ndarray,
+    n_layers: int | None = None,
+    sample_bits: int = 8,
+) -> np.ndarray:
+    """(B, taps) symmetric int coefficients → (B, n_layers, n_words) uint32
+    packed trit words over the folded half-filter (M = taps//2 + 1 rows),
+    layer-major: the bank kernel's raw operand, word for word the
+    reference's.
+
+    Asserts type I and the §2.1 int32 accumulator bound for
+    ``sample_bits`` inputs here, once per pack; `blmac_fir_bank` and
+    `compile_packed` take the result as it is.  Prefer `compile_bank`
+    beyond a one-off pack: it caches the result content-addressed.
+    """
+    qbank = np.asarray(qbank, np.int64)
+    if qbank.ndim != 2:
+        raise ValueError("qbank must be (n_filters, taps)")
+    require_type1(qbank, "bank kernel")
+    assert_int32_bound(qbank, sample_bits, "bank kernel")
+    digits = _bank_digits(qbank, n_layers)  # (B, M, L)
+    return pack_trits(np.swapaxes(digits, 1, 2))  # (B, L, n_words)
 
 
 def _qbank_key(qbank: np.ndarray, spec: CompileSpec):
@@ -634,9 +667,7 @@ def compile_bank(coeffs, spec: CompileSpec | None = None) -> BlmacProgram:
         return prog
     require_type1(qbank, "compile_bank")
     assert_int32_bound(qbank, spec.sample_bits, "compile_bank")
-    _bump("csd_packings")
-    digits = csd_digits(qbank[:, : qbank.shape[-1] // 2 + 1],
-                        n_digits=spec.n_layers)  # (B, M, L) — once
+    digits = _bank_digits(qbank, spec.n_layers)  # (B, M, L) — once
     packed = pack_trits(np.swapaxes(digits, 1, 2))  # (B, L, n_words)
     pkey = _packed_key(packed, qbank.shape[-1], spec.sample_bits)
     # a bank first seen through `compile_packed` is registered under its

@@ -46,7 +46,11 @@ from ..kernels.ops import as_device_tensor
 from ..kernels.runtime import (DEFAULT_TILE, autotune_bank_dispatch,
                                resolve_device)
 
-__all__ = ["FilterBankEngine", "DEFAULT_TILE"]
+# the reference's legacy crossover (banks below it → specialized), kept
+# for callers that force a mode; the planner decides ``mode="auto"``
+SPECIALIZE_THRESHOLD = 8
+
+__all__ = ["FilterBankEngine", "SPECIALIZE_THRESHOLD", "DEFAULT_TILE"]
 
 
 class FilterBankEngine:

@@ -2,12 +2,15 @@
 
 The port's copy of `repro.filters.fir`: ``firwin_batch`` reproduces
 ``scipy.signal.firwin`` (windowed-sinc with passband-centre scaling) for
-thousands of filters in one numpy pass.  Normalized frequencies follow
-scipy's convention: Nyquist = 1.0.
+thousands of filters in one numpy pass, or across a process pool
+(``workers=``) for the paper's sweep banks.  Normalized frequencies
+follow scipy's convention: Nyquist = 1.0.
 """
 from __future__ import annotations
 
 import functools
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
 from typing import Literal, Sequence
 
 import numpy as np
@@ -56,15 +59,32 @@ def firwin_batch(
     bands: Sequence[np.ndarray],
     window: str | tuple = "hamming",
     scale: bool = True,
+    workers: int | None = None,
 ) -> np.ndarray:
     """Design ``len(bands)`` filters of ``numtaps`` taps at once.
 
     ``bands[i]`` is an (n_bands_i, 2) array of passband edges.  Returns
     float64 (n_filters, numtaps), the reference's construction, step for
     step (same summed-sinc terms, same passband-centre scaling rule).
+
+    ``workers`` > 1 splits a bank of at least ``4 * workers`` filters
+    into contiguous slices designed in a process pool: every filter is
+    designed on its own (the scaling is per filter), so the slices
+    concatenate to the same bank, bit for bit, as ``workers=None``.  The
+    workers are spawned (a fork is unsafe once torch or CUDA has started
+    threads), so a pool first pays each worker's import of the package.
     """
     if numtaps % 2 == 0:
         raise ValueError("type-I FIR filters need an odd tap count")
+    if workers and workers > 1 and len(bands) >= 4 * workers:
+        chunks = np.array_split(np.arange(len(bands)), workers)
+        spawn = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=workers, mp_context=spawn) as pool:
+            parts = pool.map(
+                _firwin_chunk,
+                [(numtaps, [bands[i] for i in c], window, scale) for c in chunks],
+            )
+            return np.concatenate(list(parts), axis=0)
     nf = len(bands)
     m = np.arange(numtaps, dtype=np.float64) - (numtaps - 1) / 2.0  # (T,)
     # flatten all bands with an owner index so one vector pass handles
@@ -89,6 +109,12 @@ def firwin_batch(
         s = np.einsum("ft,ft->f", h, c)
         h /= s[:, None]
     return h
+
+
+def _firwin_chunk(args) -> np.ndarray:
+    """Process-pool worker: design one contiguous slice of a bank."""
+    numtaps, bands, window, scale = args
+    return firwin_batch(numtaps, bands, window, scale)
 
 
 def design_bank(

@@ -12,13 +12,14 @@ total N(N−1) per tap count (9,900 at N=100); taps sweep 55..255 odd
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 
 from .fir import FilterKind, bands_for, firwin_batch
 
-__all__ = ["SweepSpec", "sweep_specs", "sweep_bank", "TAPS_RANGE"]
+__all__ = ["SweepSpec", "sweep_specs", "sweep_bank", "iter_sweep",
+           "TAPS_RANGE"]
 
 TAPS_RANGE = tuple(range(55, 256, 2))  # odd only: type I
 
@@ -47,10 +48,25 @@ def sweep_bank(
     n_div: int = 100,
     window: str | tuple = "hamming",
     specs: Sequence[SweepSpec] | None = None,
+    workers: int | None = None,
 ) -> np.ndarray:
-    """Design the full (n_div*(n_div-1), numtaps) bank for one tap count."""
+    """Design the full (n_div*(n_div-1), numtaps) bank for one tap count;
+    ``workers`` fans the design across a process pool (`firwin_batch`)."""
     if specs is None:
         specs = sweep_specs(n_div)
     return firwin_batch(
-        numtaps, [bands_for(s.kind, s.cutoff) for s in specs], window
+        numtaps, [bands_for(s.kind, s.cutoff) for s in specs], window,
+        workers=workers,
     )
+
+
+def iter_sweep(
+    n_div: int = 100,
+    taps: Sequence[int] = TAPS_RANGE,
+    window: str | tuple = "hamming",
+    workers: int | None = None,
+) -> Iterator[tuple[int, np.ndarray]]:
+    """Yield (numtaps, bank) across the tap sweep, one bank at a time."""
+    specs = sweep_specs(n_div)
+    for t in taps:
+        yield t, sweep_bank(t, n_div, window, specs, workers=workers)

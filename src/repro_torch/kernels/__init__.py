@@ -16,15 +16,21 @@
                     CUDA kernel ``csrc/blmac_pulse_matmul.cu``
   resolve_device  — ``None`` means the GPU (a loud error without one);
                     ``device="cpu"`` runs the plain versions
+  pack_bank_trits, plan_bank_schedule, BankSchedule, superlayer_schedule
+                  — the bank's packed-trit operand and its schedule,
+                    re-exported from `repro_torch.compiler`
 """
-from .blmac_matmul import pulse_dequantize, pulse_quantize
-from .ops import blmac_fir, blmac_fir_bank, pulse_matmul_op
+from ..compiler import (BankSchedule, pack_bank_trits, plan_bank_schedule,
+                        superlayer_schedule)
+from .ops import (blmac_fir, blmac_fir_bank, pulse_dequantize, pulse_matmul_op,
+                  pulse_quantize)
 from .runtime import (DEFAULT_TILE, SPECIALIZE_BANK_MAX,
                       autotune_bank_dispatch, resolve_device)
 from ..core.costmodel import BankDispatchPlan
 from . import ref
 
-__all__ = ["BankDispatchPlan", "DEFAULT_TILE", "SPECIALIZE_BANK_MAX",
-           "autotune_bank_dispatch", "blmac_fir", "blmac_fir_bank",
+__all__ = ["BankDispatchPlan", "BankSchedule", "DEFAULT_TILE",
+           "SPECIALIZE_BANK_MAX", "autotune_bank_dispatch", "blmac_fir",
+           "blmac_fir_bank", "pack_bank_trits", "plan_bank_schedule",
            "pulse_dequantize", "pulse_matmul_op", "pulse_quantize", "ref",
-           "resolve_device"]
+           "resolve_device", "superlayer_schedule"]

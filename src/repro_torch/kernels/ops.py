@@ -13,11 +13,12 @@ from ..compiler import compile_bank
 from ..core.csd import require_type1
 from .blmac_fir import (FAST_PATH_MAX, MERGE_DEFAULT, blmac_fir_specialized,
                         blmac_fir_bank as _bank_kernel)
-from .blmac_matmul import GROUP, pulse_matmul
+from .blmac_matmul import (GROUP, pulse_dequantize, pulse_matmul,
+                           pulse_quantize)
 from .runtime import as_device_tensor, resolve_device
 
 __all__ = ["blmac_fir", "blmac_fir_bank", "as_device_tensor",
-           "pulse_matmul_op"]
+           "pulse_dequantize", "pulse_matmul_op", "pulse_quantize"]
 
 
 def blmac_fir(

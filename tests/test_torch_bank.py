@@ -4,8 +4,11 @@ The ragged-chunk cases of `tests/test_bank.py`, each pushed through
 `repro_torch.filters.FilterBankEngine` (on the CPU, i.e. the kernels'
 plain versions) and `repro.filters.FilterBankEngine` (its compiled XLA
 lane for the packed mode, the interpreted specialized kernel for the
-specialized mode); every chunk must be equal (tolerance 0).
+specialized mode); every chunk must be equal (tolerance 0).  Also the
+bank call on the raw packed operand (`pack_bank_trits`) against the
+reference's call on the same words.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -13,8 +16,11 @@ import torch
 from differential import adversarial_bank, sampled_sweep_bank
 from repro.filters import FilterBankEngine as RefEngine
 from repro.filters import fir_bit_layers_batch
+from repro.kernels.blmac_fir import blmac_fir_bank as ref_bank
 from repro_torch.compiler import compile_bank
 from repro_torch.filters import FilterBankEngine
+from repro_torch.kernels import pack_bank_trits
+from repro_torch.kernels.blmac_fir import blmac_fir_bank
 
 MODES = ["packed", "specialized"]
 
@@ -164,3 +170,23 @@ def test_snapshot_restore_resumes_the_stream():
     three = FilterBankEngine(q, channels=3, device="cpu")
     with pytest.raises(ValueError):
         three.restore_tail(snap)
+
+
+@pytest.mark.parametrize("taps,n_filters,channels", [(7, 1, 2), (55, 24, 1),
+                                                     (127, 9, 2), (255, 6, 1)])
+def test_bank_call_on_the_raw_packed_operand(taps, n_filters, channels):
+    """`blmac_fir_bank(x, pack_bank_trits(q), taps)` on a CPU tensor (the
+    plain versions; one filter takes the specialized fast path) against
+    the reference's call on the same operand (its compiled XLA lane) and
+    the oracle, tolerance 0."""
+    q = sampled_sweep_bank(taps, n_div=10, n_filters=n_filters, seed=taps)
+    x = np.random.default_rng(taps).integers(-128, 128, (channels, 900))
+    packed = pack_bank_trits(q)
+    got = blmac_fir_bank(torch.as_tensor(x), packed, taps, tile=256)
+    assert got.device.type == "cpu" and got.dtype == torch.int32
+    want = np.asarray(ref_bank(jnp.asarray(x), packed, taps, tile=256,
+                               lane="xla"))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), fir_bit_layers_batch(x, q))
+    one = blmac_fir_bank(torch.as_tensor(x[0]), packed, taps, tile=256)
+    assert np.array_equal(one.numpy(), want[:, 0])

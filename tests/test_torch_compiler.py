@@ -178,3 +178,63 @@ def test_cache_stats_count_one_compile_per_bank():
     assert stats["counters"]["csd_packings"] == 1
     assert stats["counters"]["schedule_plans"] == 1
     assert stats["program"]["hits"] >= 2
+
+
+@pytest.mark.parametrize("n_layers", [None, 18])
+@pytest.mark.parametrize("taps", [7, 55, 127, 255])
+def test_pack_bank_trits_words_and_keys_match_reference(taps, n_layers):
+    """The raw packed operand, word for word, at both ends of the sweep's
+    tap range and below it; the program wrapped around it carries the
+    reference's key, and so does the bank compiled at that layer count."""
+    q = random_type1_bank(40, taps, seed=taps, density=0.7)
+    q[3] = 0  # an all-zero filter packs to zero words
+    packed = tc.pack_bank_trits(q, n_layers)
+    want = rc.pack_bank_trits(q, n_layers)
+    assert packed.dtype == want.dtype == np.uint32
+    assert packed.shape == want.shape
+    assert packed.shape[1] == (n_layers or want.shape[1])
+    assert packed.shape[2] == -(-(taps // 2 + 1) // 16)
+    assert np.array_equal(packed, want)
+    port = tc.compile_packed(packed, taps)
+    ref = rc.compile_packed(want, taps)
+    assert port.key == ref.key
+    assert np.array_equal(port.qbank, q)
+    spec = tc.CompileSpec(n_layers=packed.shape[1])
+    assert tc.compile_bank(q, spec).key == port.key == \
+        rc.compile_bank(q, rc.CompileSpec(n_layers=packed.shape[1])).key
+
+
+def _sym(half: np.ndarray) -> np.ndarray:
+    return np.concatenate([half, half[:, :-1][:, ::-1]], axis=1)
+
+
+BAD_BANKS = {
+    "even_taps": (lambda: np.ones((2, 4), np.int64), {}),
+    "asymmetric": (lambda: np.arange(10).reshape(2, 5), {}),
+    "one_dimensional": (lambda: np.ones(5, np.int64), {}),
+    "over_bound_16bit_samples": (
+        lambda: _sym(np.full((1, 128), (1 << 15) - 1, np.int64)),
+        {"sample_bits": 16}),
+    "over_bound_coefficients": (
+        lambda: _sym(np.full((2, 8), 1 << 26, np.int64)), {}),
+}
+
+
+@pytest.mark.parametrize("bank", sorted(BAD_BANKS))
+def test_pack_bank_trits_raises_what_reference_raises(bank):
+    make, kw = BAD_BANKS[bank]
+    with pytest.raises((ValueError, OverflowError)) as ref_err:
+        rc.pack_bank_trits(make(), **kw)
+    with pytest.raises(ref_err.type) as port_err:
+        tc.pack_bank_trits(make(), **kw)
+    assert str(port_err.value) == str(ref_err.value)
+
+
+def test_pack_bank_trits_at_the_paper_bound_and_csd_count():
+    """255 taps of 2**15 − 1 fit 8-bit samples (no raise, the reference's
+    words); each pack is one CSD encoding in `cache_stats`."""
+    ok = _sym(np.full((1, 128), (1 << 15) - 1, np.int64))
+    tc.clear_caches()
+    assert np.array_equal(tc.pack_bank_trits(ok), rc.pack_bank_trits(ok))
+    tc.pack_bank_trits(ok)
+    assert tc.cache_stats()["counters"]["csd_packings"] == 2

@@ -29,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.compiler import compile_bank
+from repro_torch.compiler import (MERGE_DEFAULT, compile_bank, pack_bank_trits,
+                                  plan_bank_schedule)
 from repro_torch.core import po2_quantize_batch
 from repro_torch.filters import (FilterBankEngine, fir_bit_layers_batch,
                                  spread_lowpass_qbank, sweep_bank)
@@ -39,6 +40,7 @@ from repro_torch.kernels import (blmac_fir, blmac_fir_bank, pulse_dequantize,
 from repro_torch.kernels import blmac_matmul as bmm
 from repro_torch.kernels.blmac_matmul import pulse_matmul
 from repro_torch.kernels.ref import pulse_decode_ref, pulse_matmul_ref
+from repro_torch.kernels.blmac_fir import blmac_fir_bank as raw_bank_call
 from repro_torch.kernels.blmac_fir import (SpecializedProgram, bank_apply,
                                            bank_call_plain, bank_output,
                                            bank_schedule_apply, bank_terms,
@@ -300,6 +302,27 @@ def test_bank_launches_once_a_call(cuda):
         outs.append(eng.push(x[:, a:b]))
         assert bank_apply.launches == (1 if b > 62 else 0), (a, b)
     assert np.array_equal(np.concatenate(outs, 2), fir_bit_layers_batch(x, q))
+
+
+@pytest.mark.parametrize("taps", [55, 255])
+def test_bank_kernel_on_the_raw_packed_operand(cuda, taps):
+    """Sweep filters at both ends of the tap range, packed by
+    `pack_bank_trits` and handed to `blmac_fir_bank(x, packed, taps)`
+    of the kernel module: one K1 launch, equal to the plain version of
+    the same schedule and to the numpy oracle."""
+    q = _sweep_rows(taps, 300, seed=taps)
+    packed = pack_bank_trits(q)
+    x = _samples(3000, "8bit", taps, channels=2)
+    reset_launch_counts()
+    got = raw_bank_call(x.to(cuda), packed, taps)
+    torch.cuda.synchronize()
+    assert bank_apply.launches == 1 and specialized_call.launches == 0
+    assert got.shape == (300, 2, 3000 - taps + 1)
+    sched = plan_bank_schedule(packed, None, MERGE_DEFAULT)
+    frames, n_out = frame_signal_batch(x, taps, 1024)
+    want = bank_schedule_apply(frames, sched, taps, 1024, n_out)
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(want.numpy(), fir_bit_layers_batch(x.numpy(), q))
 
 
 def test_bank_kernel_rejects_what_it_cannot_take(cuda):
