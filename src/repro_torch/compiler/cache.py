@@ -7,7 +7,8 @@ content), hit/miss stats of the caches that key on a program's digest
 the expensive recomputations (CSD packings, schedule plans, CSE mines,
 §4 machine-cycle computes).
 `cache_stats()` is the single observability point; it also reports the
-specialized-kernel LRU, whose entries hold device-resident pulse tables.
+bank kernel's table cache and the specialized-kernel LRU, whose entries
+hold device-resident tables.
 """
 from __future__ import annotations
 
@@ -78,12 +79,15 @@ class ProgramCache:
 PROGRAM_CACHE = ProgramCache()
 
 # hit/miss stats of caches that live outside this module but key on program
-# digests: the dispatch planner's (kernels/runtime.py `_AUTOTUNE_CACHE`)
-# and the optimized-program memo (compiler/optimize.py `_CSE_MEMO`, whose
-# hits are `cse_pass` calls answered without re-mining)
+# digests or schedules: the dispatch planner's (kernels/runtime.py
+# `_AUTOTUNE_CACHE`), the optimized-program memo (compiler/optimize.py
+# `_CSE_MEMO`, whose hits are `cse_pass` calls answered without re-mining)
+# and K1's host tables (kernels/blmac_fir.py `_TERMS_CACHE`, one entry per
+# schedule and device)
 STATS: "dict[str, CacheStat]" = {
     "autotune": CacheStat(),
     "cse": CacheStat(),
+    "terms": CacheStat(),
 }
 
 # event counters: each key counts actual recomputation events, not lookups
@@ -107,14 +111,17 @@ def cache_stats() -> dict:
         {"program": {"hits", "misses", "size"},
          "autotune": {"hits", "misses", "size"},
          "cse": {"hits", "misses", "size"},
+         "terms": {"hits", "misses", "size"},
          "specialized": {"hits", "misses", "size"},
          "counters": {"csd_packings": ..., "schedule_plans": ...,
                       "cse_passes": ..., "machine_cycle_computes": ...,
                       ...}}
     """
-    info = _module("..kernels.blmac_fir").specialized_program.cache_info()
+    fir = _module("..kernels.blmac_fir")
+    info = fir.specialized_program.cache_info()
     sizes = {"autotune": len(_module("..kernels.runtime")._AUTOTUNE_CACHE),
-             "cse": len(_module(".optimize")._CSE_MEMO)}
+             "cse": len(_module(".optimize")._CSE_MEMO),
+             "terms": len(fir._TERMS_CACHE)}
     out = {
         "program": {
             "hits": PROGRAM_CACHE.stat.hits,
@@ -140,5 +147,7 @@ def clear_caches() -> None:
     _module(".optimize")._CSE_MEMO.clear()
     for stat in STATS.values():
         stat.reset()
-    _module("..kernels.blmac_fir").specialized_program.cache_clear()
+    fir = _module("..kernels.blmac_fir")
+    fir._TERMS_CACHE.clear()
+    fir.specialized_program.cache_clear()
     COUNTERS.clear()

@@ -35,6 +35,7 @@ from ..core.csd import (assert_int32_bound, csd_decode, csd_digits,
 from ..core.io import atomic_write, check_format_header
 from ..core.machine import MachineSpec
 from ..core.rle import code_count_batch
+from ..tracing import span
 from .cache import PROGRAM_CACHE, _bump
 from .schedule import (BankSchedule, MERGE_DEFAULT, default_bank_tile,
                        plan_bank_schedule)
@@ -647,51 +648,54 @@ def compile_bank(coeffs, spec: CompileSpec | None = None) -> BlmacProgram:
     True
     """
     spec = spec or CompileSpec()
-    coeffs = np.atleast_2d(np.asarray(coeffs))
-    if coeffs.ndim != 2:
-        raise ValueError("coeffs must be (n_filters, taps)")
-    if coeffs.dtype.kind == "f":
-        from ..core.quantize import po2_quantize_batch
+    with span("compile.lookup"):
+        coeffs = np.atleast_2d(np.asarray(coeffs))
+        if coeffs.ndim != 2:
+            raise ValueError("coeffs must be (n_filters, taps)")
+        if coeffs.dtype.kind == "f":
+            from ..core.quantize import po2_quantize_batch
 
-        qbank, exponents = po2_quantize_batch(coeffs, spec.coeff_bits)
-        exponents = np.ascontiguousarray(exponents, np.int64)
-    elif coeffs.dtype.kind in "iu":
-        qbank = coeffs.astype(np.int64)
-        exponents = np.zeros(qbank.shape[0], np.int64)
-    else:
-        raise TypeError(f"cannot compile coefficients of dtype {coeffs.dtype}")
-    qbank = np.ascontiguousarray(qbank)
-    qkey = _qbank_key(qbank, spec)
-    prog = PROGRAM_CACHE.get(qkey)
+            qbank, exponents = po2_quantize_batch(coeffs, spec.coeff_bits)
+            exponents = np.ascontiguousarray(exponents, np.int64)
+        elif coeffs.dtype.kind in "iu":
+            qbank = coeffs.astype(np.int64)
+            exponents = np.zeros(qbank.shape[0], np.int64)
+        else:
+            raise TypeError(
+                f"cannot compile coefficients of dtype {coeffs.dtype}")
+        qbank = np.ascontiguousarray(qbank)
+        qkey = _qbank_key(qbank, spec)
+        prog = PROGRAM_CACHE.get(qkey)
     if prog is not None:
         return prog
-    require_type1(qbank, "compile_bank")
-    assert_int32_bound(qbank, spec.sample_bits, "compile_bank")
-    digits = _bank_digits(qbank, spec.n_layers)  # (B, M, L) — once
-    packed = pack_trits(np.swapaxes(digits, 1, 2))  # (B, L, n_words)
-    pkey = _packed_key(packed, qbank.shape[-1], spec.sample_bits)
-    # a bank first seen through `compile_packed` is registered under its
-    # packed digest only: adopt that program, index it under this key too
-    existing = PROGRAM_CACHE.get(pkey)
-    if existing is not None:
-        PROGRAM_CACHE.put(existing, qkey)
-        return existing
-    _bump("bank_compiles")
-    occupancy = np.ascontiguousarray(layer_occupancy(digits))
-    prog = BlmacProgram(
-        qbank=qbank,
-        exponents=exponents,
-        packed=packed,
-        occupancy=occupancy,
-        signatures=np.ascontiguousarray(occupancy_signatures(occupancy)),
-        pulse_counts=np.count_nonzero(digits, axis=(1, 2)).astype(np.int64),
-        spec=spec,
-        key=pkey[1].hex(),
-    )
-    prog._half_digits = np.ascontiguousarray(digits)
-    prog._half_digits.setflags(write=False)
-    PROGRAM_CACHE.put(prog, qkey, pkey)
-    return prog
+    with span("build.program"):
+        require_type1(qbank, "compile_bank")
+        assert_int32_bound(qbank, spec.sample_bits, "compile_bank")
+        digits = _bank_digits(qbank, spec.n_layers)  # (B, M, L) — once
+        packed = pack_trits(np.swapaxes(digits, 1, 2))  # (B, L, n_words)
+        pkey = _packed_key(packed, qbank.shape[-1], spec.sample_bits)
+        # a bank first seen through `compile_packed` is registered under its
+        # packed digest only: adopt that program, index it under this key too
+        existing = PROGRAM_CACHE.get(pkey)
+        if existing is not None:
+            PROGRAM_CACHE.put(existing, qkey)
+            return existing
+        _bump("bank_compiles")
+        occupancy = np.ascontiguousarray(layer_occupancy(digits))
+        prog = BlmacProgram(
+            qbank=qbank,
+            exponents=exponents,
+            packed=packed,
+            occupancy=occupancy,
+            signatures=np.ascontiguousarray(occupancy_signatures(occupancy)),
+            pulse_counts=np.count_nonzero(digits, axis=(1, 2)).astype(np.int64),
+            spec=spec,
+            key=pkey[1].hex(),
+        )
+        prog._half_digits = np.ascontiguousarray(digits)
+        prog._half_digits.setflags(write=False)
+        PROGRAM_CACHE.put(prog, qkey, pkey)
+        return prog
 
 
 def compile_packed(
@@ -707,17 +711,18 @@ def compile_packed(
     prog = PROGRAM_CACHE.get(pkey)
     if prog is not None:
         return prog
-    _bump("bank_compiles")
-    # own (and freeze) a copy, never the caller's buffer
-    packed = packed.copy()
-    half = int(taps) // 2
-    halves = csd_decode(np.swapaxes(unpack_trits(packed, half + 1), 1, 2))
-    qbank = np.ascontiguousarray(
-        np.concatenate([halves, halves[:, :-1][:, ::-1]], axis=1)
-    )
-    spec = CompileSpec(sample_bits=sample_bits, n_layers=packed.shape[1])
-    prog = _from_arrays(
-        qbank, np.zeros(qbank.shape[0], np.int64), packed, spec
-    )
-    PROGRAM_CACHE.put(prog, pkey, _qbank_key(qbank, spec))
-    return prog
+    with span("build.program"):
+        _bump("bank_compiles")
+        # own (and freeze) a copy, never the caller's buffer
+        packed = packed.copy()
+        half = int(taps) // 2
+        halves = csd_decode(np.swapaxes(unpack_trits(packed, half + 1), 1, 2))
+        qbank = np.ascontiguousarray(
+            np.concatenate([halves, halves[:, :-1][:, ::-1]], axis=1)
+        )
+        spec = CompileSpec(sample_bits=sample_bits, n_layers=packed.shape[1])
+        prog = _from_arrays(
+            qbank, np.zeros(qbank.shape[0], np.int64), packed, spec
+        )
+        PROGRAM_CACHE.put(prog, pkey, _qbank_key(qbank, spec))
+        return prog

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.csd import occupancy_signatures
+from ..tracing import spanned
 from .cache import _bump
 
 __all__ = [
@@ -136,6 +137,7 @@ class BankSchedule:
         ]
 
 
+@spanned("build.schedule")
 def plan_bank_schedule(
     packed: np.ndarray,
     bank_tile: int | None = None,

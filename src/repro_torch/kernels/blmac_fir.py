@@ -54,10 +54,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..compiler.cache import STATS
 from ..compiler.program import compile_packed
 from ..compiler.schedule import (BankSchedule, MERGE_DEFAULT,
                                  plan_bank_schedule)
 from ..core.csd import csd_digits, pack_trits, unpack_trits
+from ..tracing import span, spanned
 
 __all__ = [
     "BankTerms",
@@ -479,15 +481,18 @@ class SpecializedProgram:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """(T,) or (C, T) samples on this program's device → (F, T − taps
         + 1) or (F, C, T − taps + 1) int32."""
-        xb = x.to(torch.int32)
-        frames, n_out = frame_signal_batch(xb[None] if x.ndim == 1 else xb,
-                                           self.taps, self.tile)
+        with span("frame"):
+            xb = x.to(torch.int32)
+            frames, n_out = frame_signal_batch(
+                xb[None] if x.ndim == 1 else xb, self.taps, self.tile)
         y = specialized_call(frames, self)
-        y = y.reshape(y.shape[0], y.shape[1], -1)[:, :, :n_out]
-        return y[:, 0] if x.ndim == 1 else y
+        with span("frame"):  # the tiles back to n_out outputs
+            y = y.reshape(y.shape[0], y.shape[1], -1)[:, :, :n_out]
+            return y[:, 0] if x.ndim == 1 else y
 
 
 @functools.lru_cache(maxsize=1024)
+@spanned("build.specialized")
 def specialized_program(pulses, taps: int, tile: int, device: str):
     """The compiled program for one pulse schedule on one device.
 
@@ -497,6 +502,7 @@ def specialized_program(pulses, taps: int, tile: int, device: str):
     return SpecializedProgram((pulses,), taps, tile, torch.device(device))
 
 
+@spanned("launch.k2")
 def specialized_call(frames: torch.Tensor, prog: SpecializedProgram):
     """Run every filter of a `SpecializedProgram` over (C, n_tiles,
     frame_len) int32 frames → (F, C, n_tiles, tile) int32 (2-D frames:
@@ -539,6 +545,7 @@ def specialized_call(frames: torch.Tensor, prog: SpecializedProgram):
 
 
 @functools.lru_cache(maxsize=1)
+@spanned("build.library")
 def _specialized_library():
     """K2's C library, built and loaded at the first launch."""
     from .build import library
@@ -781,16 +788,20 @@ def bank_terms(schedule: BankSchedule, taps: int, device) -> BankTerms:
     key = (id(schedule), int(taps), str(dev))
     hit = _TERMS_CACHE.get(key)
     if hit is not None and hit[0]() is schedule:
+        STATS["terms"].hit()
         return hit[1]
-    b_pad = sum(g.packed.shape[0] for g in schedule.groups)
-    dest = np.full(b_pad, -1, np.int64)
-    dest[:schedule.n_filters] = schedule.perm
-    parts, row = [], 0
-    for g in schedule.groups:
-        rows = g.packed.shape[0]
-        parts.append((g.packed, g.schedule, g.tail_shift, dest[row:row + rows]))
-        row += rows
-    terms = BankTerms(parts, schedule.n_filters, taps, dev)
+    STATS["terms"].miss()
+    with span("build.terms"):
+        b_pad = sum(g.packed.shape[0] for g in schedule.groups)
+        dest = np.full(b_pad, -1, np.int64)
+        dest[:schedule.n_filters] = schedule.perm
+        parts, row = [], 0
+        for g in schedule.groups:
+            rows = g.packed.shape[0]
+            parts.append((g.packed, g.schedule, g.tail_shift,
+                          dest[row:row + rows]))
+            row += rows
+        terms = BankTerms(parts, schedule.n_filters, taps, dev)
     _TERMS_CACHE[key] = (weakref.ref(schedule), terms)
     while len(_TERMS_CACHE) > TERMS_CACHE_MAX:
         del _TERMS_CACHE[next(iter(_TERMS_CACHE))]
@@ -930,6 +941,7 @@ def _row_strided(out: torch.Tensor, shape: tuple, device) -> bool:
             and out.stride(0) == shape[1] * out.stride(1))
 
 
+@spanned("launch.k1")
 def bank_apply(
     frames: torch.Tensor,
     terms: BankTerms,
@@ -981,6 +993,7 @@ bank_apply.launches = 0
 
 
 @functools.lru_cache(maxsize=1)
+@spanned("build.library")
 def _bank_library():
     """K1's C library, built and loaded at the first launch."""
     from .build import library
@@ -1387,6 +1400,7 @@ def combine_plain(y: torch.Tensor, combine, n_real: int) -> torch.Tensor:
                      + ((hi.to(torch.int64) & 0xFFFF) << 16))
 
 
+@spanned("launch.fold")
 def combine_fold(y: torch.Tensor, table: CombineTable) -> torch.Tensor:
     """Fold a CSE-optimized bank's shared rows into its real rows, in
     place: ``y`` is int32 (n_real + n_shared, C, n) with rows of unit
@@ -1428,6 +1442,7 @@ combine_fold.launches = 0
 
 
 @functools.lru_cache(maxsize=1)
+@spanned("build.library")
 def _combine_library():
     """The fold's C library, built and loaded at the first launch."""
     from .build import library
@@ -1487,20 +1502,22 @@ def bank_schedule_apply(
     table = _as_table(combine, n_real, dev)
     if dev.type != "cpu":
         if terms is None:
-            terms = bank_terms(schedule, taps, dev)
+            with span("plan"):
+                terms = bank_terms(schedule, taps, dev)
         y = bank_apply(frames, terms, tile, n_out)
         return y if table is None else combine_fold(y, table)
-    parts = []
-    for g in schedule.groups:
-        if g.sel_layers:
-            parts.append(bank_call_plain(
-                frames, _on_device(g.packed.view(np.int32), dev), taps,
-                g.schedule, g.tail_shift, tile))
-        else:  # all-zero tile group
-            parts.append(torch.zeros((g.packed.shape[0], n_chan, n_tiles,
-                                      tile), dtype=torch.int32))
-    y = torch.cat(parts).reshape(-1, n_chan, n_tiles * tile)
-    y = y.index_select(0, torch.as_tensor(schedule.inv))[:, :, :n_out]
+    with span("launch.k1"):
+        parts = []
+        for g in schedule.groups:
+            if g.sel_layers:
+                parts.append(bank_call_plain(
+                    frames, _on_device(g.packed.view(np.int32), dev), taps,
+                    g.schedule, g.tail_shift, tile))
+            else:  # all-zero tile group
+                parts.append(torch.zeros((g.packed.shape[0], n_chan, n_tiles,
+                                          tile), dtype=torch.int32))
+        y = torch.cat(parts).reshape(-1, n_chan, n_tiles * tile)
+        y = y.index_select(0, torch.as_tensor(schedule.inv))[:, :, :n_out]
     return y if table is None else combine_fold(y, table)
 
 
@@ -1531,18 +1548,25 @@ def blmac_fir_bank(
         x = x[None, :]
     packed = np.asarray(packed)
     n_filters = packed.shape[0]
-    xi = x.to(torch.int32)
     if (fast_path and schedule is None and combine is None
             and n_filters <= FAST_PATH_MAX):
-        y = torch.stack([  # one launch per filter, all channels
-            blmac_fir_specialized(xi, pulses_from_packed(packed[b], taps),
-                                  taps, tile)
-            for b in range(n_filters)
-        ])
+        with span("plan"):
+            progs = [specialized_program(pulses_from_packed(packed[b], taps),
+                                         taps, tile, str(x.device))
+                     for b in range(n_filters)]
+        ys = [prog(x) for prog in progs]  # one launch a filter
+        with span("stack"):
+            y = torch.stack([yb[0] for yb in ys])
         return y[:, 0, :] if squeeze else y
     if schedule is None:
-        schedule = plan_bank_schedule(packed, bank_tile, merge)
-    frames, n_out = frame_signal_batch(xi, taps, tile)
+        with span("plan"):
+            schedule = plan_bank_schedule(packed, bank_tile, merge)
+    # framed before `bank_schedule_apply` first uploads K1's tables: with
+    # two outputs of a large bank in flight the card is nearly full, and
+    # in the other order the frames' cached block is later taken, so the
+    # frames split a freed output's and the next output does not fit
+    with span("frame"):
+        frames, n_out = frame_signal_batch(x.to(torch.int32), taps, tile)
     y = bank_schedule_apply(frames, schedule, taps, tile, n_out,
                             combine=combine, n_real=n_real)
     return y[:, 0] if squeeze else y

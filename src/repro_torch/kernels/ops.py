@@ -11,6 +11,7 @@ import torch
 
 from ..compiler import compile_bank
 from ..core.csd import require_type1
+from ..tracing import span
 from .blmac_fir import (FAST_PATH_MAX, MERGE_DEFAULT, blmac_fir_specialized,
                         blmac_fir_bank as _bank_kernel)
 from .blmac_matmul import (GROUP, pulse_dequantize, pulse_matmul,
@@ -57,18 +58,23 @@ def blmac_fir_bank(
     the sparsity-scheduled bank kernel; B = 1 takes the pulse-specialized
     kernel.  The bank is compiled once (content-addressed) and its
     memoized schedule reused.  Returns int32 (B, C, T − taps + 1), or
-    (B, T − taps + 1) for 1-D ``x``, on the device."""
-    x = as_device_tensor(x, resolve_device(device))
-    prog = compile_bank(qbank)
-    if prog.n_filters <= FAST_PATH_MAX:
-        return _bank_kernel(
-            x, prog.packed, prog.taps, tile, bank_tile,
-            merge=MERGE_DEFAULT if merge is None else merge,
-        )
-    return _bank_kernel(
-        x, prog.packed, prog.taps, tile, fast_path=False,
-        schedule=prog.schedule(bank_tile, merge),
-    )
+    (B, T − taps + 1) for 1-D ``x``, on the device.
+
+    Under a profiler the call is a ``repro_torch.blmac_fir_bank`` span
+    holding ``compile.lookup``, ``plan``, ``frame`` and ``launch.*``
+    (`repro_torch.tracing`)."""
+    with span("blmac_fir_bank"):
+        x = as_device_tensor(x, resolve_device(device))
+        prog = compile_bank(qbank)
+        if prog.n_filters <= FAST_PATH_MAX:
+            return _bank_kernel(
+                x, prog.packed, prog.taps, tile, bank_tile,
+                merge=MERGE_DEFAULT if merge is None else merge,
+            )
+        with span("plan"):
+            schedule = prog.schedule(bank_tile, merge)
+        return _bank_kernel(x, prog.packed, prog.taps, tile, fast_path=False,
+                            schedule=schedule)
 
 
 def pulse_matmul_op(

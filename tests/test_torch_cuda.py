@@ -1496,3 +1496,52 @@ def test_dry_run_equals_a_real_step_on_card_slots(cuda, arch):
     assert raw["reduce-scatter"]["operand_bytes"] == \
         rep["traffic"]["reduce_scatter_bytes"] > 0
     assert raw["all-reduce"] == rep["collectives"]["all-reduce"]
+
+
+# -- the entry's spans on the card ---------------------------------------------
+
+@pytest.mark.parametrize("n_filters, span, kernel",
+                         [(40, "repro_torch.launch.k1", "blmac_bank_kernel"),
+                          (1, "repro_torch.launch.k2",
+                           "blmac_specialized_kernel")], ids=["k1", "k2"])
+def test_each_launch_span_holds_its_one_kernel(cuda, tmp_path, n_filters,
+                                               span, kernel):
+    """Under `torch.profiler` with CUDA activity, every launch span of
+    `blmac_fir_bank` holds the host call of exactly one kernel launch,
+    and that kernel is K1 (K2 for a one-filter bank); on K1's path the
+    table cache answers each warm call with one hit."""
+    import json
+
+    from repro_torch.compiler import cache_stats
+
+    q = _random_bank(40, 31, 1)[:n_filters]
+    x = torch.randint(-128, 128, (3, 4000), dtype=torch.int32, device=cuda)
+    want = blmac_fir_bank(x, q)  # cold: compiled, planned, tables built
+    calls = 3
+    before = cache_stats()["terms"]["hits"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ys = [blmac_fir_bank(x, q) for _ in range(calls)]
+        torch.cuda.synchronize()
+    if n_filters > 1:
+        assert cache_stats()["terms"]["hits"] == before + calls
+    assert all(torch.equal(y, want) for y in ys)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    kernels = {e["args"]["correlation"]: e["name"] for e in events
+               if e.get("cat") == "kernel" and "correlation" in e.get(
+                   "args", {})}
+    host = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                  "cuda_driver")]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == span]
+    assert len(spans) == calls
+    for s in spans:
+        inside = [kernels[h["args"]["correlation"]] for h in host
+                  if s["ts"] <= h["ts"] and h["ts"] + h["dur"]
+                  <= s["ts"] + s["dur"]
+                  and h.get("args", {}).get("correlation") in kernels]
+        assert len(inside) == 1 and kernel in inside[0], inside
