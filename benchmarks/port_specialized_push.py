@@ -2,7 +2,7 @@
 """Time the port's pulse-specialized kernel (K2) at the specialized leg's
 shapes on a GPU.
 
-    python3 benchmarks/port_specialized_push.py [--src DIR]
+    python3 benchmarks/port_specialized_push.py [--src DIR] [--designs]
 
 The shapes of `chip_smoke.py`'s specialized leg, all on 127-tap filters of
 the paper's §3.1 sweep bank (16-bit po2 quantization) over 8-bit samples:
@@ -19,8 +19,13 @@ around back-to-back calls (``ms``, the host's time a call included when
 it is the longer) and events around calls queued behind a GPU spin
 (``device_us``, the device alone).  ``--src`` picks the `src` directory
 the port is imported from, so that two trees are timed by the same script
-in one run.  Prints one JSON object with the times and the card's name and
-power limit.
+in one run.  ``--designs`` times every case on both of K2's designs (the
+CUDA-core walk and the tensor cores, `specialized_route` overridden for
+the timing, each checked against the plain version), adds one filter
+over one channel of 2**12 … 2**20 outputs and the benchmark's
+fir127.array64 block (64 channels × 2**20 samples), and gives each
+case's own route.  Prints one JSON object with the times and the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -80,6 +85,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(here, "src"),
                     help="the src directory to import repro_torch from")
+    ap.add_argument("--designs", action="store_true",
+                    help="time each case on both K2 designs, and more cases")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import numpy as np
@@ -103,6 +110,11 @@ def main() -> int:
         "push_1x2": (one, CHANNELS, PUSH + TAPS - 1, 512),
         "push_8x2": (eight, CHANNELS, PUSH + TAPS - 1, 512),
     }
+    if args.designs:
+        cases.update({f"one_2^{k}": (one, 1, (1 << k) + TAPS - 1, 512)
+                      for k in range(12, 21)})
+        cases["array64"] = (one, 64, FIR_SAMPLES, 1024)
+    route, rule = bf.specialized_route, bf._route
     rows = {}
     for name, (bank, chans, n, tile) in cases.items():
         scheds = compile_bank(bank).pulse_schedules()
@@ -112,16 +124,26 @@ def main() -> int:
         frames, _ = bf.frame_signal_batch(
             torch.nn.functional.pad(x, (0, n_pad - n)), TAPS, tile)
         prog = bf.SpecializedProgram(scheds, TAPS, tile, dev)
-        got = bf.specialized_call(frames, prog)
         want = torch.stack([bf.specialized_plain(frames, p, TAPS, tile)
                             for p in scheds])
-        if not torch.equal(got, want):
-            raise RuntimeError(f"{name}: K2 differs from its plain version")
         rows[name] = {"filters": len(scheds), "channels": chans,
                       "samples": n, "tile": tile,
-                      "ms": cuda_ms(lambda: bf.specialized_call(frames, prog)),
-                      "device_us": queued_us(
-                          lambda: bf.specialized_call(frames, prog))}
+                      "route": route(len(scheds), chans, frames.shape[1],
+                                     tile, bf.sm_count(dev), TAPS)}
+        for design in ("walk", "wgmma") if args.designs else (None,):
+            if design is not None:  # the launch's rule, overridden
+                bf._route = lambda outs, taps, d=design: d
+            try:
+                got = bf.specialized_call(frames, prog)
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"{name}: K2 ({design or 'route'}) "
+                                       f"differs from its plain version")
+                t = {"ms": cuda_ms(lambda: bf.specialized_call(frames, prog)),
+                     "device_us": queued_us(
+                         lambda: bf.specialized_call(frames, prog))}
+            finally:
+                bf._route = rule
+            rows[name].update(t if design is None else {design: t})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -356,6 +356,7 @@ SWEEP_TAPS, SWEEP_SAMPLES, SWEEP_CHECK_ROWS = 127, 16384, 64
 SWEEP_ENDS_SAMPLES, SWEEP_ENDS_WORKERS = 4096, 2  # the sweep_taps phase
 SPEC_SAMPLES = 1 << 20
 SPEC_CHUNK, SPEC_PUSHES, SPEC_CHANNELS = 4096, 8, 2
+SPEC_ARRAY_CHANNELS = 64  # the benchmark's fir127.array64 block: 64 x 2**20
 OPS_TILE = 1024  # blmac_fir / blmac_fir_bank default signal tile
 
 # one qwen2.5-3b decoder layer (src/repro/configs/qwen2_5_3b.py) as x @ W
@@ -4132,6 +4133,7 @@ def main() -> int:
                 push_s.append(time.perf_counter() - t0)
             per_push[name].append(bf.specialized_call.launches - before)
     spec_launches = bf.specialized_call.launches
+    wgmma_launches = bf.specialized_call.wgmma_launches
     check(spec_launches > 0, "specialized leg never launched its kernel")
     check(fir_launches == 1, f"blmac_fir made {fir_launches} K2 launches")
     check(all(n == 1 for v in per_push.values() for n in v),
@@ -4154,8 +4156,34 @@ def main() -> int:
                                  SWEEP_TAPS, OPS_TILE)[0]
     check(np.array_equal(s_walk, s_plain.cpu().numpy()),
           "the table walk differs from the plain version")
+    before = bf.specialized_call.wgmma_launches
     spec_diff = max_abs_diff(bf.specialized_call(sframes, sprog)[0], s_plain)
     check(spec_diff == 0, f"specialized kernel differs by {spec_diff}")
+    # the design that ran, as its counter says
+    k2_design = ("wgmma" if bf.specialized_call.wgmma_launches > before
+                 else "walk")
+    # the benchmark's fir127.array64 block: the filter over 64 channels of
+    # 2**20 samples (8-bit and full-range int32), one launch on the tensor
+    # cores, 8,192 units whose blocks' ranges cross channels
+    array_gen = torch.Generator(dev).manual_seed(4950)
+    array_diffs, array_ms = {}, {}
+    for name, lo, hi in (("8bit", -128, 128), ("int32", -(1 << 31), 1 << 31)):
+        x_arr = torch.randint(lo, hi, (SPEC_ARRAY_CHANNELS, SPEC_SAMPLES),
+                              dtype=torch.int32, device=dev,
+                              generator=array_gen)
+        aframes, _ = bf.frame_signal_batch(x_arr, SWEEP_TAPS, OPS_TILE)
+        before = bf.specialized_call.wgmma_launches
+        y_arr = bf.specialized_call(aframes, sprog)
+        arr_wgmma = bf.specialized_call.wgmma_launches - before
+        check(arr_wgmma == 1, f"the {name} array block made {arr_wgmma} "
+                              f"tensor-core launches, want 1")
+        array_diffs[name] = max_abs_diff(y_arr[0], bf.specialized_plain(
+            aframes, spec_pulses, SWEEP_TAPS, OPS_TILE))
+        check(array_diffs[name] == 0, f"K2 differs from plain by "
+                                      f"{array_diffs[name]} on the {name} "
+                                      f"array block")
+        array_ms[name] = cuda_ms(lambda: bf.specialized_call(aframes, sprog))
+        del x_arr, y_arr, aframes
     threads, cols, tab_pad, k2_smem = sprog.geometry
     check(library("blmac_specialized").blmac_specialized_smem_bytes(
               tab_pad, threads, SWEEP_TAPS, bf.OUTS_PER_THREAD) == k2_smem,
@@ -4177,6 +4205,7 @@ def main() -> int:
           "engine_filters": len(bank8), "engine_channels": SPEC_CHANNELS,
           "pushes": SPEC_PUSHES, "chunk": SPEC_CHUNK,
           "specialized_launches": spec_launches,
+          "wgmma_launches": wgmma_launches,
           "blmac_fir_launches": fir_launches,
           "launches_per_push": per_push,
           "one_filter_engine_push_ms": [t * 1e3 for t in push_s],
@@ -4184,6 +4213,9 @@ def main() -> int:
           * 1e3,
           "max_abs_diff_vs_plain": spec_diff, "bit_exact_vs_oracle": True,
           "table_walk_bit_exact": True,
+          "array_block": {"shape": [SPEC_ARRAY_CHANNELS, SPEC_SAMPLES],
+                          "max_abs_diff_vs_plain": array_diffs,
+                          "ms": array_ms},
           "geometry": {"threads": threads, "columns": cols,
                        "table_words": sprog.table_len, "smem_bytes": k2_smem},
           "outputs_a_thread": {name: o for name, (o, _) in k2_outs.items()},
@@ -4282,12 +4314,16 @@ def main() -> int:
     }
 
     # K2's adds: one per pulse and one per fold (a tap other than the
-    # centre that carries pulses) per output, as IADD3 pairs (see
-    # INT32_ADDS_PER_S); bytes: the samples in and the outputs out, once
+    # centre that carries pulses) per output; bytes: the samples in and the
+    # outputs out, once.  The adds are taken at the rate of the design that
+    # ran (`k2_design`, from the launch counters): int8 tensor-core
+    # operations (as K1's), else IADD3 pairs (see INT32_ADDS_PER_S)
     k2_folds = len({j for _, j, _ in spec_pulses if j != half})
     k2_ops = (len(spec_pulses) + k2_folds) * n_spec
     k2_bytes = 4 * (SPEC_SAMPLES + n_spec)
-    k2_bound, k2_by = bound(k2_ops, k2_bytes, INT32_ADDS_PER_S)
+    k2_bound, k2_by = bound(k2_ops, k2_bytes,
+                            INT8_TC_OPS_PER_S if k2_design == "wgmma"
+                            else INT32_ADDS_PER_S)
     k2_ms = cuda_ms(lambda: bf.specialized_call(sframes, sprog))
     k2_device_us = queued_us(lambda: bf.specialized_call(sframes, sprog))
     k2_plain_ms = cuda_ms(lambda: bf.specialized_plain(
@@ -4335,6 +4371,8 @@ def main() -> int:
          "max_abs_err": spec_diff, "max_abs_diff": spec_diff,
          "ms": k2_ms, "kernel_ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib_ms,
+         "design": k2_design,
+         "cuda_core_iadd3_bound_ms": k2_ops / INT32_ADDS_PER_S * 1e3,
          "ops": k2_ops, "bytes": k2_bytes, "device_us": k2_device_us,
          "launches_by_call": {"blmac_fir": fir_launches, **per_push,
                               "machine": machine_launches["specialized_call"]}},

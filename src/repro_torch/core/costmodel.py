@@ -56,7 +56,7 @@ import importlib
 import json
 import os
 import time
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, fields
 
 import numpy as np
 
@@ -181,6 +181,9 @@ class BackendCalibration:
       small grid), per add (fold or pulse) of every output; ``sms``, the
       card's SMs, decides the outputs a thread and the segments
       (`repro_torch.kernels.blmac_fir.specialized_walk`);
+    * ``spec_tc_call_us`` / ``spec_tc_byte_us`` — K2 on the tensor cores
+      (where `specialized_route` takes them): per launch, per byte (4 in
+      and 4 out an output);
     * ``fold_call_us`` / ``fold_byte_us`` / ``fold_op_us`` — the combine
       fold: per launch, per byte it moves, per table entry an output
       (two multiply-adds: a pair of rows);
@@ -205,6 +208,8 @@ class BackendCalibration:
     fold_call_us: float = 0.0
     fold_byte_us: float = 0.0
     fold_op_us: float = 0.0
+    spec_tc_call_us: float = 0.0
+    spec_tc_byte_us: float = 0.0
     source: str = "reference"
     device_name: str = ""
 
@@ -259,15 +264,21 @@ def predict_specialized_us(
     """Modelled latency of the specialized path.  Reference lane: one
     dispatch per (filter, channel), each ~(folds + pulses + layer shifts)
     vector ops per signal tile.  ``"cuda"`` lane: K2's one launch for all
-    filters and channels, a fold per tap and an IMAD per pulse for each of
-    the ``n_tiles · tile`` outputs (no shifts: a pulse's shift is its
-    multiplier), plus one thread's walk over the longest filter
-    (``max_pulses``, default ``mean_pulses``) for its outputs, a segment
-    of it on a small grid (`repro_torch.kernels.blmac_fir.
-    specialized_walk`)."""
+    filters and channels.  On the CUDA-core walk, a fold per tap and an
+    IMAD per pulse for each of the ``n_tiles · tile`` outputs (no shifts:
+    a pulse's shift is its multiplier), plus one thread's walk over the
+    longest filter (``max_pulses``, default ``mean_pulses``) for its
+    outputs, a segment of it on a small grid (`repro_torch.kernels.
+    blmac_fir.specialized_walk`).  Where `specialized_route` takes the
+    tensor cores, the launch is priced by its bytes, 4 in and 4 out an
+    output, at that design's own fitted cost a byte."""
     c = _lane(cal)
     if c.lane == CUDA_LANE:
-        adds = n_filters * channels * n_tiles * tile * (taps // 2 + mean_pulses)
+        outputs = n_filters * channels * n_tiles * tile
+        if _kernels().specialized_route(n_filters, channels, n_tiles, tile,
+                                        c.sms, taps) == "wgmma":
+            return c.spec_tc_call_us + 8 * outputs * c.spec_tc_byte_us
+        adds = outputs * (taps // 2 + mean_pulses)
         walk = _kernels().specialized_walk(
             n_filters, channels, n_tiles, tile, c.sms, taps,
             mean_pulses if max_pulses is None else max_pulses)
@@ -526,10 +537,9 @@ def get_calibration(lane: str, device=None) -> BackendCalibration | None:
     entry = _load_table().get(lane, {}).get(_device_name(device))
     if entry is None:
         return None
-    try:
-        return BackendCalibration(**entry)
-    except TypeError:  # a file of another layout: fit again
-        return None
+    if set(entry) != {f.name for f in fields(BackendCalibration)}:
+        return None  # a file of another layout: fit again
+    return BackendCalibration(**entry)
 
 
 def ensure_calibration(lane: str, device=None) -> BackendCalibration:
@@ -604,12 +614,18 @@ def _split_us(fn, reps: int, batches: int = 3) -> tuple[float, float]:
 # probe shapes: (filters, taps, outputs) for K1 and K2; (real rows, shared
 # rows, nonzeros a row, outputs) for the fold.  They vary the launch's
 # fixed cost, the bytes and the operations independently, from one filter
-# to the sweep's sizes.
+# to the sweep's sizes.  K2's (`SPEC_PROBES`) stay on the CUDA-core walk
+# (at most 384 warps at 16 outputs a thread, under 4 an SM of 132), and
+# `SPEC_TC_PROBES` take its tensor-core design (`specialized_route`) at
+# tens of its units, up to the fir127 cell's one-channel share, so that
+# each design's constants are fitted on its own launches
 BANK_PROBES = ((1, 63, 4096), (1, 127, 4096), (32, 63, 4096),
                (256, 63, 4096), (256, 63, 16384), (1024, 127, 16384),
                (64, 255, 4096))
 SPEC_PROBES = ((1, 63, 4096), (1, 127, 4096), (32, 63, 4096),
-               (256, 63, 4096), (64, 127, 4096), (8, 127, 16384))
+               (96, 63, 2048), (48, 127, 4096), (8, 127, 16384))
+SPEC_TC_PROBES = ((1, 127, 1 << 19), (1, 127, 1 << 20), (1, 63, 1 << 21),
+                  (4, 127, 1 << 20), (1, 255, 1 << 20))
 # fold probes with clustered columns (the last field 1: rows drawn from a
 # few column sets, as a CSE pass's rows are) pair well, as real ones do
 FOLD_PROBES = ((256, 434, 45, 4096, 0), (256, 64, 4, 4096, 0),
@@ -674,6 +690,25 @@ def _probe_specialized(f: int, taps: int, n: int, device):
              float(f * n_tiles * tile * (taps // 2 + prog.mean_pulses))])
 
 
+def _probe_specialized_tc(f: int, taps: int, n: int, device):
+    """One tensor-core K2 launch over ``f`` spread-lowpass filters: (call,
+    [bytes, 8 an output])."""
+    import torch
+
+    from ..compiler import compile_bank
+    from ..filters.fir import spread_lowpass_qbank
+
+    bf = _kernels()
+    prog = compile_bank(spread_lowpass_qbank(f, taps))
+    tile = 512
+    sp = bf.SpecializedProgram(prog.pulse_schedules(), taps, tile, device)
+    x = torch.randint(-128, 128, (1, n + taps - 1), dtype=torch.int32,
+                      device=device)
+    frames, _ = bf.frame_signal_batch(x, taps, tile)
+    return (lambda: bf.specialized_call(frames, sp),
+            [8.0 * f * frames.shape[1] * tile])
+
+
 def _probe_fold(n_real: int, n_shared: int, per_row: int, n: int,
                 clustered: int, device):
     """One combine-fold launch over a random sparse combine matrix, its
@@ -728,7 +763,8 @@ def calibrate_backend(lane: str = CUDA_LANE, device=None, reps: int = 50,
     """Fit the ``"cuda"`` lane's constants on ``device`` and persist them
     in `calibration_path()` under the card's name.
 
-    Probes (a few seconds): K1 at `BANK_PROBES`, K2 at `SPEC_PROBES`, the
+    Probes (a few seconds): K1 at `BANK_PROBES`, K2 at `SPEC_PROBES` (its
+    CUDA-core walk) and `SPEC_TC_PROBES` (its tensor-core design), the
     combine fold at `FOLD_PROBES`, each run in batches of ``reps`` calls
     queued behind a GPU spin (`_batch_us`), all probes in turn for
     `CALIBRATION_ROUNDS` rounds, the least batch of each kept: the
@@ -751,6 +787,7 @@ def calibrate_backend(lane: str = CUDA_LANE, device=None, reps: int = 50,
                            f"device, not {dev}")
     kernels = (("bank", _probe_bank, BANK_PROBES),
                ("specialized", _probe_specialized, SPEC_PROBES),
+               ("specialized_tc", _probe_specialized_tc, SPEC_TC_PROBES),
                ("fold", _probe_fold, FOLD_PROBES))
     with torch.cuda.device(dev):
         probes = [(name, shape, *probe(*shape, dev))
@@ -771,12 +808,14 @@ def calibrate_backend(lane: str = CUDA_LANE, device=None, reps: int = 50,
                                  [device[i] for i in idx])
     if report is not None:
         report.update({name: rows for name, (_, rows) in fits.items()})
-    k1, k2, kf = (fits[name][0] for name in ("bank", "specialized", "fold"))
+    k1, k2, k2tc, kf = (fits[name][0] for name in
+                        ("bank", "specialized", "specialized_tc", "fold"))
     cal = BackendCalibration(
         lane=CUDA_LANE, spec_call_us=k2[0], spec_walk_us=k2[1],
         spec_op_us=k2[2], call_us=k1[0], walk_us=k1[1], byte_us=k1[2],
         mac_us=k1[3], step_us=0.0, unpack_us=0.0, fold_call_us=kf[0],
-        fold_byte_us=kf[1], fold_op_us=kf[2], sms=_sm_count(dev),
+        fold_byte_us=kf[1], fold_op_us=kf[2], spec_tc_call_us=k2tc[0],
+        spec_tc_byte_us=k2tc[1], sms=_sm_count(dev),
         source="fitted", device_name=_device_name(dev),
     )
     table = _load_table()

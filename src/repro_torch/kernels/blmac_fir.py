@@ -13,12 +13,17 @@ it:
     (`bank_terms`); `bank_term_walk` is their arithmetic in numpy and
     `bank_call_plain` the plain version of one group.  Replaces the TPU
     kernel `_fir_kernel_bank`.
-  * **specialized** (`specialized_call`, kernel
-    ``csrc/blmac_specialized.cu``) — the filters' CSD pulse lists as
-    tap-major device tables (`pulse_table`), one launch for every filter
-    and channel of a call, 16 outputs a thread (4 on a grid too small to
-    fill the card, `specialized_outs`, each filter's walk then split into
-    segments of taps, `pulse_segments`); one filter's table is cached in the
+  * **specialized** (`specialized_call`, kernels
+    ``csrc/blmac_specialized.cu``) — one launch for every filter and
+    channel of a call, of one of two designs that `specialized_route`
+    picks by the launch's shape: on a grid that fills the card (up to 255
+    taps), the int8 tensor cores over each run of the filter's CSD digits
+    as a Toeplitz matrix (`toeplitz_tables`; `specialized_toeplitz_walk`
+    is its arithmetic in numpy); elsewhere a CUDA-core walk of the pulse
+    lists as tap-major device tables (`pulse_table`), 4 outputs a thread
+    on a grid too small to fill the card (`specialized_outs`, each
+    filter's walk then split into segments of taps, `pulse_segments`), 16
+    past 255 taps.  One filter's tables are cached in the
     `specialized_program` LRU.  Replaces `_fir_kernel_specialized`.
   * **combine fold** (`combine_fold`, kernel ``csrc/blmac_combine.cu``) —
     a CSE-optimized bank's shared rows folded into its real rows in place,
@@ -99,14 +104,22 @@ __all__ = [
     "reset_launch_counts",
     "sample_planes",
     "schedule_layers",
+    "specialized_bank",
     "specialized_call",
     "specialized_geometry",
     "specialized_outs",
     "specialized_plain",
     "specialized_program",
+    "specialized_route",
     "specialized_segments",
+    "specialized_toeplitz_walk",
     "specialized_walk",
     "term_table",
+    "toeplitz_image",
+    "toeplitz_k",
+    "toeplitz_rows",
+    "toeplitz_runs",
+    "toeplitz_tables",
 ]
 
 LANE = 128
@@ -446,11 +459,189 @@ def specialized_plain(
     return acc
 
 
+# K2's tensor-core design (``blmac_specialized_kernel_wgmma`` in the .cu
+# source): outputs in windows of TOEPLITZ_PHASES (the wgmma's N), a block's
+# unit TOEPLITZ_UNIT outputs (two chains of 64 windows), each run's B tile
+# 64 phase rows of K bytes in column blocks of TOEPLITZ_CHUNK bytes (64 rows
+# of 128)
+TOEPLITZ_PHASES = 64
+TOEPLITZ_UNIT = 8192
+TOEPLITZ_CHUNK = 8192
+
+
+def toeplitz_k(taps: int) -> int:
+    """The tensor-core K2's contraction depth: the samples a window of 64
+    outputs reads, ``64 + taps − 1``, padded to a multiple of 64."""
+    return _pad_to(TOEPLITZ_PHASES + taps - 1, 64)
+
+
+def toeplitz_runs(pulses, taps: int) -> tuple[np.ndarray, list[int]]:
+    """A filter's unfolded coefficients as digit runs: (R, taps) int8
+    ``d`` and the runs' lowest layers, ``q[k] == Σ_r d[r, k] · 2**lo_r``
+    modulo 2**32.  The coefficients (each pulse at tap ``j`` and its mirror
+    ``taps − 1 − j``, the centre ``taps // 2`` once, as `specialized_plain`
+    reads them) are reduced modulo 2**32, recoded in CSD, and their layers
+    split MSB first into runs of span ≤ 7 (K1's `digit_runs`), so every
+    digit fits s8."""
+    half = taps // 2
+    coeff = [0] * taps
+    for layer, j, sign in pulses:
+        v = int(sign) << int(layer)
+        coeff[j] += v
+        if j != half:
+            coeff[taps - 1 - j] += v
+    q = np.asarray([(v + (1 << 31)) % (1 << 32) - (1 << 31) for v in coeff],
+                   np.int64)
+    digits = csd_digits(q).astype(np.int16)  # (taps, n) LSB first
+    layers = [lay for lay in range(min(digits.shape[1], 32))
+              if digits[:, lay].any()]
+    runs = digit_runs(layers)
+    lows = [min(layers[i] for i in run) for run in runs]
+    d = np.zeros((len(runs), taps), np.int16)
+    for r, (run, lo) in enumerate(zip(runs, lows)):
+        for i in run:
+            d[r] += digits[:, layers[i]] << (layers[i] - lo)
+    return d.astype(np.int8), lows
+
+
+def toeplitz_image(d: np.ndarray, k: int) -> np.ndarray:
+    """The B tiles of one filter's runs ``d`` (R, taps) as the kernel holds
+    them in shared memory: int8 (n_chunks · 8192,), each run a (64 phase, K)
+    Toeplitz matrix, row ``i`` = the run shifted by ``i`` (``B[i, m] =
+    d[m − i]``), the runs side by side along K, cut into column blocks of
+    128 bytes (`TOEPLITZ_CHUNK` each: 64 rows of 128 bytes, 128-byte
+    swizzle: 16-byte chunk ``c`` of row ``i`` at ``c ^ (i % 8)``)."""
+    n_runs, taps = d.shape
+    padded = np.zeros((n_runs, TOEPLITZ_PHASES + k), np.int8)
+    padded[:, TOEPLITZ_PHASES:TOEPLITZ_PHASES + taps] = d
+    rows = padded[:, TOEPLITZ_PHASES + np.arange(k)[None, :]
+                  - np.arange(TOEPLITZ_PHASES)[:, None]]  # (R, 64, K)
+    n_chunks = -(-n_runs * k // 128)
+    flat = np.zeros((TOEPLITZ_PHASES, n_chunks * 128), np.int8)
+    flat[:, :n_runs * k] = rows.transpose(1, 0, 2).reshape(TOEPLITZ_PHASES, -1)
+    v = _swizzled(flat.reshape(TOEPLITZ_PHASES, n_chunks, 8, 16))
+    return np.ascontiguousarray(v.transpose(1, 0, 2, 3)).reshape(-1)
+
+
+def _swizzled(v: np.ndarray) -> np.ndarray:
+    """(64, chunks, 8, 16) phase rows with each row's 16-byte chunks
+    permuted by the 128-byte swizzle, chunk ``c`` of row ``i`` to ``c ^
+    (i % 8)`` (its own inverse)."""
+    i = np.arange(TOEPLITZ_PHASES)[:, None, None]
+    return v[i, np.arange(v.shape[1])[None, :, None],
+             np.arange(8)[None, None, :] ^ (i % 8)]
+
+
+def toeplitz_rows(image: np.ndarray, n_runs: int, k: int) -> np.ndarray:
+    """Inverse of `toeplitz_image`: (R, 64, K) int8, run ``r``'s phase rows."""
+    v = np.asarray(image, np.int8).reshape(-1, TOEPLITZ_PHASES, 8, 16)
+    flat = _swizzled(v.transpose(1, 0, 2, 3))  # (phase, chunk, 16 B, byte)
+    flat = flat.reshape(TOEPLITZ_PHASES, -1)[:, :n_runs * k]
+    return np.ascontiguousarray(
+        flat.reshape(TOEPLITZ_PHASES, n_runs, k).transpose(1, 0, 2))
+
+
+def toeplitz_tables(schedules, taps: int):
+    """The tensor-core K2's tables for several filters: ``(image, index,
+    terms, b_bytes)``.  ``image`` int8, every filter's `toeplitz_image`
+    concatenated; ``terms`` int32 (n, 4): for each filter, four lists of
+    its `term_table` rows (run, plane, shift, 0), shift high first — those
+    of planes below 1, 2, 3 and 4, the walk of a unit whose highest live
+    plane is 0, 1, 2 or 3; ``index`` int32 (F, 8): a filter's offset and
+    size in ``image`` in 16-byte units, its first term, the four lists'
+    lengths, 0; ``b_bytes`` the largest filter's tiles (at least one column
+    block)."""
+    k = toeplitz_k(taps)
+    images, index, terms = [], [], []
+    off = first = 0
+    for pulses in schedules:
+        d, lows = toeplitz_runs(pulses, taps)
+        img = toeplitz_image(d, k)
+        tab = term_table(lows)
+        lists = [tab[tab[:, 1] < n] for n in range(1, SAMPLE_PLANES + 1)]
+        images.append(img)
+        terms += lists
+        index.append((off // 16, img.size // 16, first,
+                      *[len(t) for t in lists], 0))
+        off += img.size
+        first += sum(len(t) for t in lists)
+    b_bytes = max([img.size for img in images] + [TOEPLITZ_CHUNK])
+    return (np.concatenate(images) if off else np.zeros(16, np.int8),
+            np.asarray(index, np.int32).reshape(-1, 8),
+            (np.concatenate(terms) if first else np.zeros((1, 4), np.int32)),
+            b_bytes)
+
+
+def specialized_toeplitz_walk(frames, image: np.ndarray, index: np.ndarray,
+                              terms: np.ndarray, taps: int,
+                              tile: int) -> np.ndarray:
+    """The tensor-core K2's arithmetic in numpy, from the tables
+    `toeplitz_tables` builds: (..., n_tiles, frame_len) int32 frames → (F,
+    ..., n_tiles, tile) int32.  Splits the samples into s8 planes
+    (`sample_planes`), cuts each frame's outputs into windows of 64, and for
+    each filter walks its terms as the kernel does — ``acc <<= previous
+    shift − shift; acc += S_plane · B_run`` modulo 2**32, B read back from
+    the image's swizzled rows, S the windows' Hankel rows of the plane —
+    in the list of the planes up to the highest that is not zero across
+    the samples (the kernel picks it per unit: the same sum)."""
+    x = np.asarray(frames, np.int32)
+    k = toeplitz_k(taps)
+    n_win = -(-tile // TOEPLITZ_PHASES)
+    need = TOEPLITZ_PHASES * (n_win - 1) + k
+    pad = max(0, need - x.shape[-1])
+    xp = np.pad(x[..., :need], [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+    planes = sample_planes(xp).astype(np.int64)
+    n_planes = max([p + 1 for p in range(SAMPLE_PLANES) if planes[p].any()],
+                   default=0)
+    at = (TOEPLITZ_PHASES * np.arange(n_win)[:, None]
+          + np.arange(k)[None, :])
+    mask = np.int64(0xFFFFFFFF)
+    out = []
+    for off, size, first, *counts, _ in np.asarray(index, np.int64):
+        n_runs = size * 16 // (k * TOEPLITZ_PHASES)
+        rows = toeplitz_rows(image[16 * off:16 * (off + size)], n_runs,
+                             k).astype(np.int64) if size else None
+        acc = np.zeros(x.shape[:-1] + (n_win, TOEPLITZ_PHASES), np.int64)
+        first += sum(counts[:max(n_planes - 1, 0)])
+        count = counts[n_planes - 1] if n_planes else 0
+        prev = None
+        for run, plane, shift, _ in terms[first:first + count]:
+            if prev is not None:
+                acc = (acc << (prev - shift)) & mask
+            acc = (acc + planes[plane][..., at] @ rows[run].T) & mask
+            prev = shift
+        if prev:
+            acc = (acc << prev) & mask
+        acc = acc.reshape(x.shape[:-1] + (-1,))[..., :tile]
+        out.append(acc.astype(np.uint32).view(np.int32))
+    return np.stack(out) if out else np.zeros(
+        (0,) + x.shape[:-1] + (tile,), np.int32)
+
+
+def specialized_route(n_filters: int, n_chan: int, n_tiles: int, tile: int,
+                      sms: int, taps: int) -> str:
+    """K2's design for one launch, by its shape alone: ``"wgmma"`` (the
+    int8 tensor cores) where the launch fills the card — `specialized_outs`
+    keeps `OUTS_PER_THREAD` outputs a thread — and the filter has at most
+    `BANK_MAX_TAPS` taps; ``"walk"`` (the CUDA-core walk, 4 outputs a
+    thread on a small grid, 16 past `BANK_MAX_TAPS`) everywhere else."""
+    return _route(specialized_outs(n_filters, n_chan, n_tiles, tile, sms),
+                  taps)
+
+
+def _route(outs: int, taps: int) -> str:
+    """`specialized_route` from the launch's outputs a thread."""
+    return ("wgmma" if outs == OUTS_PER_THREAD and taps <= BANK_MAX_TAPS
+            else "walk")
+
+
 class SpecializedProgram:
     """Compiled BLMAC programs of one or more filters for K2: their pulse
     tuples and, on a CUDA device, their concatenated tables (`pulse_tables`)
     resident there, so every call is one launch for all filters and
-    channels."""
+    channels.  Up to `BANK_MAX_TAPS` taps it also holds the tensor-core
+    design's tables (`toeplitz_tables`: ``toeplitz`` on the host,
+    ``toeplitz_tensors`` on a CUDA device), built here once."""
 
     def __init__(self, schedules, taps: int, tile: int, device: torch.device):
         self.schedules = tuple(schedules)
@@ -473,6 +664,12 @@ class SpecializedProgram:
                 pulse_segments(table, offsets, n_segs, outs), device)
         self.table = _on_device(table, device)
         self.offsets = _on_device(offsets, device)
+        self.toeplitz = self.toeplitz_tensors = None
+        if taps <= BANK_MAX_TAPS:
+            self.toeplitz = toeplitz_tables(self.schedules, taps)
+            if torch.device(device).type == "cuda":
+                self.toeplitz_tensors = tuple(
+                    _on_device(a, device) for a in self.toeplitz[:3])
 
     @property
     def n_filters(self) -> int:
@@ -507,7 +704,9 @@ def specialized_call(frames: torch.Tensor, prog: SpecializedProgram):
     """Run every filter of a `SpecializedProgram` over (C, n_tiles,
     frame_len) int32 frames → (F, C, n_tiles, tile) int32 (2-D frames:
     no channel axis in or out): the plain version for CPU frames, one
-    CUDA launch for CUDA frames."""
+    CUDA launch for CUDA frames, of the design `specialized_route` picks
+    (``.launches`` counts both, ``.wgmma_launches`` the tensor-core
+    one's)."""
     if frames.ndim not in (2, 3):
         raise ValueError(f"frames must have 2 or 3 dims, got "
                          f"{tuple(frames.shape)}")
@@ -527,19 +726,30 @@ def specialized_call(frames: torch.Tensor, prog: SpecializedProgram):
                       dtype=torch.int32, device=dev)
     if prog.n_filters:
         n_chan = lead[0] if len(lead) == 2 else 1
+        stride_c = frames.stride(0) if len(lead) == 2 else 0
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
         outs = specialized_outs(prog.n_filters, n_chan, lead[-1], prog.tile,
                                 sm_count(dev))
-        threads, _, tab_pad, _ = prog.geometries[outs]
-        segs = prog.segments[outs]
-        err = _specialized_library().blmac_specialized_launch(
-            frames.data_ptr(), frames.stride(0) if len(lead) == 2 else 0,
-            frames.stride(-2), prog.table.data_ptr(), prog.offsets.data_ptr(),
-            segs.data_ptr(), segs.shape[1], tab_pad, out.data_ptr(),
-            prog.n_filters, n_chan, lead[-1],
-            prog.tile, prog.taps, threads, outs,
-            torch._C._cuda_getCurrentRawStream(dev.index), dev.index,
-        )
-        _raise_on(err, "blmac_specialized_kernel")
+        if _route(outs, prog.taps) == "wgmma":
+            image, index, terms = prog.toeplitz_tensors
+            err = _specialized_library().blmac_specialized_wgmma_launch(
+                frames.data_ptr(), stride_c, frames.stride(-2),
+                image.data_ptr(), index.data_ptr(), terms.data_ptr(),
+                prog.toeplitz[3], out.data_ptr(), prog.n_filters, n_chan,
+                lead[-1], prog.tile, prog.taps, stream, dev.index)
+            _raise_on(err, "blmac_specialized_kernel_wgmma")
+            specialized_call.wgmma_launches += 1
+        else:
+            threads, _, tab_pad, _ = prog.geometries[outs]
+            segs = prog.segments[outs]
+            err = _specialized_library().blmac_specialized_launch(
+                frames.data_ptr(), stride_c, frames.stride(-2),
+                prog.table.data_ptr(), prog.offsets.data_ptr(),
+                segs.data_ptr(), segs.shape[1], tab_pad, out.data_ptr(),
+                prog.n_filters, n_chan, lead[-1],
+                prog.tile, prog.taps, threads, outs, stream, dev.index,
+            )
+            _raise_on(err, "blmac_specialized_kernel")
         specialized_call.launches += 1
     return out
 
@@ -554,6 +764,7 @@ def _specialized_library():
 
 
 specialized_call.launches = 0
+specialized_call.wgmma_launches = 0
 
 
 def blmac_fir_specialized(
@@ -564,6 +775,20 @@ def blmac_fir_specialized(
     launch; the program is built at most once per distinct (pulse
     schedule, taps, tile, device)."""
     return specialized_program(tuple(pulses), taps, tile, str(x.device))(x)[0]
+
+
+def specialized_bank(x: torch.Tensor, pulses, taps: int,
+                     tile: int = 1024) -> torch.Tensor:
+    """A few filters' pulse tuples over (T,) or (C, T) samples on ``x``'s
+    device → int32 (B, T − taps + 1) or (B, C, T − taps + 1): one K2
+    launch a filter, each filter's program looked up in (or built into)
+    the `specialized_program` LRU, the results stacked."""
+    with span("plan"):
+        progs = [specialized_program(tuple(p), taps, tile, str(x.device))
+                 for p in pulses]
+    ys = [prog(x) for prog in progs]  # one launch a filter
+    with span("stack"):
+        return torch.stack([yb[0] for yb in ys])
 
 
 # ---------------------------------------------------------------------------
@@ -1451,9 +1676,11 @@ def _combine_library():
 
 
 def reset_launch_counts() -> None:
-    """Zero the FIR kernels' launch counters (K1, K2, the fold)."""
+    """Zero the FIR kernels' launch counters (K1, K2 and its tensor-core
+    route, the fold)."""
     bank_apply.launches = 0
     specialized_call.launches = 0
+    specialized_call.wgmma_launches = 0
     combine_fold.launches = 0
 
 
@@ -1538,7 +1765,8 @@ def blmac_fir_bank(
 
     Returns int32 (B, C, T − taps + 1), or (B, T − taps + 1) for 1-D
     ``x``; bit-exact against `fir_bit_layers_batch`.  ``fast_path``
-    routes banks of ≤ `FAST_PATH_MAX` filters to the specialized kernel.
+    routes banks of ≤ `FAST_PATH_MAX` filters to the specialized kernel
+    (`specialized_bank`, the pulse tuples unpacked from ``packed``).
     Pass a precomputed ``schedule`` to skip planning on the hot path (a
     program's memoized schedule also reuses its kernel tables).
     ``combine``/``n_real`` run a CSE-optimized shared-row bank (see
@@ -1551,12 +1779,9 @@ def blmac_fir_bank(
     if (fast_path and schedule is None and combine is None
             and n_filters <= FAST_PATH_MAX):
         with span("plan"):
-            progs = [specialized_program(pulses_from_packed(packed[b], taps),
-                                         taps, tile, str(x.device))
-                     for b in range(n_filters)]
-        ys = [prog(x) for prog in progs]  # one launch a filter
-        with span("stack"):
-            y = torch.stack([yb[0] for yb in ys])
+            pulses = [pulses_from_packed(packed[b], taps)
+                      for b in range(n_filters)]
+        y = specialized_bank(x, pulses, taps, tile)
         return y[:, 0, :] if squeeze else y
     if schedule is None:
         with span("plan"):

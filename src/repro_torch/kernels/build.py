@@ -54,6 +54,10 @@ SOURCES = {
                                      _I, _I, _I, _I, _I, _I, _P, _I],
         # tab_pad, threads, taps, outs
         "blmac_specialized_smem_bytes": [_I, _I, _I, _I],
+        # frames, stride_c, stride_tile, image, index, terms, b_bytes, out,
+        # n_filters, n_chan, n_tiles, tile, taps, stream, device
+        "blmac_specialized_wgmma_launch": [_P, _L, _L, _P, _P, _P, _I, _P,
+                                           _I, _I, _I, _I, _I, _P, _I],
     }),
     "blmac_combine": ("blmac_combine.cu", {
         # y, stride_row, stride_chan, n_real, n_chan, n_out, n_groups,
@@ -89,12 +93,13 @@ class BuildInfo:
     def resources(self) -> dict:
         """Registers, static shared memory (bytes) and spill bytes per
         kernel, parsed from the ``ptxas -v`` report.  The kernels take
-        only dynamic shared memory, sized per launch
+        dynamic shared memory, sized per launch
         (``blmac_bank_smem_bytes(taps)``, ``blmac_specialized_smem_bytes(
-        tab_pad, threads, taps, outs)``; the combine fold 128 bytes a
-        staged shared row, `CombineLayout.max_union`), and so does the
-        pulse matmul (``blmac_pulse_matmul_smem_bytes(bm, planes, group,
-        stages)``)."""
+        tab_pad, threads, taps, outs)``; K2's tensor-core design from its
+        taps and filter tables, in its launch, beside 24 static bytes for
+        its barriers and walk; the combine fold 128 bytes a staged shared
+        row, `CombineLayout.max_union`), and so does the pulse matmul
+        (``blmac_pulse_matmul_smem_bytes(bm, planes, group, stages)``)."""
         out: dict = {}
         kernel = None
         for line in self.ptxas.splitlines():
@@ -118,8 +123,9 @@ class BuildInfo:
 
 
 def _demangled(symbol: str) -> str:
-    for name in ("blmac_bank_kernel", "blmac_specialized_kernel",
-                 "blmac_combine_kernel", "blmac_pulse_matmul_kernel"):
+    for name in ("blmac_bank_kernel", "blmac_specialized_kernel_wgmma",
+                 "blmac_specialized_kernel", "blmac_combine_kernel",
+                 "blmac_pulse_matmul_kernel"):
         if name in symbol:
             # a template instance: its int and bool arguments, mangled as
             # Li<value>E and Lb<0 or 1>E

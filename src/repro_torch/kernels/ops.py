@@ -12,8 +12,8 @@ import torch
 from ..compiler import compile_bank
 from ..core.csd import require_type1
 from ..tracing import span
-from .blmac_fir import (FAST_PATH_MAX, MERGE_DEFAULT, blmac_fir_specialized,
-                        blmac_fir_bank as _bank_kernel)
+from .blmac_fir import (FAST_PATH_MAX, blmac_fir_specialized,
+                        blmac_fir_bank as _bank_kernel, specialized_bank)
 from .blmac_matmul import (GROUP, pulse_dequantize, pulse_matmul,
                            pulse_quantize)
 from .runtime import as_device_tensor, resolve_device
@@ -66,11 +66,9 @@ def blmac_fir_bank(
     with span("blmac_fir_bank"):
         x = as_device_tensor(x, resolve_device(device))
         prog = compile_bank(qbank)
-        if prog.n_filters <= FAST_PATH_MAX:
-            return _bank_kernel(
-                x, prog.packed, prog.taps, tile, bank_tile,
-                merge=MERGE_DEFAULT if merge is None else merge,
-            )
+        if prog.n_filters <= FAST_PATH_MAX:  # the program's memoized tuples
+            return specialized_bank(x, prog.pulse_schedules(), prog.taps,
+                                    tile)
         with span("plan"):
             schedule = prog.schedule(bank_tile, merge)
         return _bank_kernel(x, prog.packed, prog.taps, tile, fast_path=False,

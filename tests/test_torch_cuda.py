@@ -53,7 +53,8 @@ from repro_torch.kernels.blmac_fir import (SpecializedProgram, bank_apply,
                                            specialized_call,
                                            specialized_geometry,
                                            specialized_plain,
-                                           specialized_program)
+                                           specialized_program,
+                                           specialized_route)
 
 pytestmark = pytest.mark.cuda
 
@@ -410,14 +411,16 @@ def test_specialized_kernel_many_filters_and_channels(cuda, taps, tile,
 def test_specialized_kernel_both_thread_widths(cuda, monkeypatch, outs):
     """K2 keeps 16 outputs a thread, or 4 on a grid too small to fill the
     card: each width forced on the same banks, tiles and samples (the
-    tap loop unrolled by the width, the register rings modulo it)."""
+    tap loop unrolled by the width, the register rings modulo it).  A grid
+    at 16 outputs a thread takes the tensor cores up to 255 taps, so the
+    16-wide walk runs the 257-tap bank."""
     import importlib
 
     bfm = importlib.import_module("repro_torch.kernels.blmac_fir")
     monkeypatch.setattr(bfm, "SMALL_GRID_WARPS_PER_SM",
                         10 ** 9 if outs == 4 else 0)
     for taps, samples in ((7, "int32"), (63, "8bit"), (127, "20bit"),
-                          (255, "int32")):
+                          (255, "int32"), (257, "int32")):
         q = _special_bank(taps, taps + 1)
         scheds = compile_bank(q).pulse_schedules()
         x = _samples(2 * 1024 + 333, samples, taps, channels=2)
@@ -426,7 +429,10 @@ def test_specialized_kernel_both_thread_widths(cuda, monkeypatch, outs):
             prog = SpecializedProgram(scheds, taps, tile, cuda)
             assert bfm.specialized_outs(len(scheds), 2, frames.shape[1], tile,
                                         bfm.sm_count(cuda)) == outs
+            reset_launch_counts()
             got = specialized_call(frames.to(cuda), prog)
+            assert specialized_call.wgmma_launches == (
+                outs == 16 and taps <= 255)
             want = torch.stack([specialized_plain(frames, p, taps, tile)
                                 for p in scheds])
             torch.cuda.synchronize()
@@ -487,6 +493,108 @@ def test_specialized_kernel_reads_strided_frames(cuda):
                             for p in scheds])
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), tuple(v.stride())
+
+
+@pytest.mark.parametrize("n_filters", [1, 3])
+@pytest.mark.parametrize("samples", ["8bit", "int32", "x256"])
+def test_specialized_wgmma_matches_plain(cuda, n_filters, samples):
+    """The tensor-core K2 over 8 channels of 65,536 samples and of a
+    ragged length (its last unit part-full, outputs off a multiple of 64),
+    one and three filters at 7, 127 and 255 taps (dense, sparse, empty,
+    centre-only and low-layer filters), 8-bit, full-range and 8-bit × 256
+    samples (a dead plane 0 below plane 1), bit for bit the plain
+    version."""
+    tile = 1024
+    for taps in (7, 127, 255):
+        q = _special_bank(taps, taps + n_filters)
+        q = q[:1] if n_filters == 1 else q[[0, 2, 3]]  # dense, empty, centre
+        scheds = compile_bank(q).pulse_schedules()
+        prog = SpecializedProgram(scheds, taps, tile, cuda)
+        for n in (65536, 65536 - 8192 + 4321):
+            x = _samples(n, "8bit" if samples == "x256" else samples,
+                         taps + n, channels=8)
+            if samples == "x256":
+                x *= 256
+            frames, n_out = frame_signal_batch(x.to(cuda), taps, tile)
+            assert specialized_route(len(q), 8, frames.shape[1], tile,
+                                     torch.cuda.get_device_properties(
+                                         cuda).multi_processor_count,
+                                     taps) == "wgmma"
+            reset_launch_counts()
+            got = specialized_call(frames, prog)
+            want = torch.stack([specialized_plain(frames, p, taps, tile)
+                                for p in scheds])
+            torch.cuda.synchronize()
+            assert specialized_call.wgmma_launches == 1
+            assert torch.equal(got, want), (taps, n)
+            oracle = fir_bit_layers_batch(x.numpy().astype(np.int64), q)
+            assert np.array_equal(
+                got.cpu().reshape(len(q), 8, -1)[:, :, :n_out].numpy(),
+                oracle.astype(np.int32)), (taps, n)
+
+
+def test_specialized_wgmma_counts_and_route(cuda):
+    """Each call on a full grid adds one to `.launches` and one to
+    `.wgmma_launches`; a short push (1 filter × 2 channels × 2,048
+    outputs) adds one to `.launches` and none to `.wgmma_launches`; the
+    fir127 cell's shape takes the tensor cores."""
+    q = _sweep_rows(127, 1, seed=3)
+    pulses = pulses_from_packed(compile_bank(q).packed[0], 127)
+    prog = specialized_program(pulses, 127, 1024, str(cuda))
+    x = torch.randint(-128, 128, (8, 1 << 16), dtype=torch.int32, device=cuda)
+    frames, _ = frame_signal_batch(x, 127, 1024)
+    reset_launch_counts()
+    for k in range(1, 4):
+        y = specialized_call(frames, prog)
+        assert specialized_call.launches == k
+        assert specialized_call.wgmma_launches == k
+    assert torch.equal(y[0], specialized_plain(frames, pulses, 127, 1024))
+    short, _ = frame_signal_batch(x[:2, :2048 + 126], 127, 1024)
+    y = specialized_call(short, prog)
+    assert specialized_call.launches == 4
+    assert specialized_call.wgmma_launches == 3
+    assert torch.equal(y[0], specialized_plain(short, pulses, 127, 1024))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert specialized_route(1, 64, 1024, 1024, sms, 127) == "wgmma"
+    reset_launch_counts()
+    y = blmac_fir_bank(x, q)
+    assert specialized_call.launches == 1
+    assert specialized_call.wgmma_launches == 1
+    assert np.array_equal(y.cpu().numpy(),
+                          fir_bit_layers_batch(x.cpu().numpy(), q))
+
+
+def test_specialized_wgmma_reads_strided_frames(cuda, monkeypatch):
+    """The tensor-core route over views with other strides (each frame
+    then its own stream): every other tile, every other channel, a
+    contiguous copy, one channel's 2-D frames, frames 1.5 tiles apart and
+    longer than tile + taps − 1; and a signal whose start is not on 16
+    bytes (the staged copy then starts below it)."""
+    import importlib
+
+    bfm = importlib.import_module("repro_torch.kernels.blmac_fir")
+    monkeypatch.setattr(bfm, "SMALL_GRID_WARPS_PER_SM", 0)
+    taps = 127
+    q = _special_bank(taps, 5)
+    scheds = compile_bank(q).pulse_schedules()
+    for tile in (512, 509):  # 509: streams whose outputs start off 16 bytes
+        prog = SpecializedProgram(scheds, taps, tile, cuda)
+        x = _samples(7 * tile + 300, "int32", 6, channels=4).to(cuda)
+        frames, _ = frame_signal_batch(x, taps, tile)
+        apart = torch.nn.functional.pad(x, (0, 2 * tile)).unfold(
+            -1, tile + taps + 5, 3 * tile // 2)
+        buf = torch.zeros(x.numel() + 8, dtype=torch.int32, device=cuda)
+        odd = buf[1:1 + x.numel()].view(x.shape).copy_(x)  # 4 bytes off 16
+        views = [frames[:, ::2], frames[::2], frames.contiguous(), frames[2],
+                 apart, odd.unfold(-1, tile + taps, tile)]
+        for v in views:
+            reset_launch_counts()
+            got = specialized_call(v, prog)
+            want = torch.stack([specialized_plain(v, p, taps, tile)
+                                for p in scheds])
+            torch.cuda.synchronize()
+            assert specialized_call.wgmma_launches == 1
+            assert torch.equal(got, want), (tile, tuple(v.stride()))
 
 
 def test_specialized_launches_once_a_call(cuda):
@@ -582,6 +690,7 @@ def test_build_reports_kernel_resources(cuda):
     res = {k: v for info in infos.values() for k, v in info.resources().items()}
     assert set(res) == {"blmac_specialized_kernel<16>",
                         "blmac_specialized_kernel<4>"} | {
+        f"blmac_specialized_kernel_wgmma<{ks}>" for ks in (2, 4, 6, 8, 10)} | {
         f"blmac_combine_kernel<{vec}, {wide}>" for vec in ("true", "false")
         for wide in ("true", "false")} | {
         f"blmac_bank_kernel<{ks}>" for ks in (1, 2, 3, 4)} | {
@@ -840,8 +949,9 @@ def test_cuda_calibration_is_written_and_keyed_on_the_card(cuda, tmp_path,
     assert list(table["cuda"]) == [name]
     assert cm.get_calibration("cuda", cuda) == cal
     assert cal.call_us > 0 and cal.spec_call_us > 0 and cal.fold_call_us > 0
+    assert cal.spec_tc_call_us > 0
     assert min(cal.byte_us, cal.mac_us, cal.spec_op_us, cal.fold_byte_us,
-               cal.fold_op_us) >= 0
+               cal.fold_op_us, cal.spec_tc_byte_us) >= 0
     monkeypatch.setattr(cm, "_probe_bank", _failing_probe)
     assert cm.ensure_calibration("cuda", cuda) == cal  # no second fit
 
@@ -851,7 +961,7 @@ def _failing_probe(*args, **kwargs):
 
 
 @pytest.mark.parametrize("probe", ["_probe_bank", "_probe_specialized",
-                                   "_probe_fold"])
+                                   "_probe_specialized_tc", "_probe_fold"])
 def test_a_failing_calibration_probe_raises(cuda, tmp_path, monkeypatch,
                                             probe):
     from repro_torch.compiler import clear_caches

@@ -155,6 +155,7 @@ CUDA_CAL = cm.BackendCalibration(
     sms=132,
     call_us=25.0, walk_us=0.05, step_us=0.0, mac_us=1e-9, unpack_us=0.0,
     byte_us=3e-7, fold_call_us=22.0, fold_byte_us=3e-7, fold_op_us=2e-7,
+    spec_tc_call_us=18.0, spec_tc_byte_us=2e-7,
     source="fitted", device_name="test card")
 
 
@@ -181,6 +182,30 @@ def test_the_cuda_sweep_keeps_one_merge_and_the_default_tile(monkeypatch):
     assert wide.n_filters > SPECIALIZE_BANK_MAX
     assert all(p.mode == "scheduled" for p, _ in
                rt.dispatch_candidates(wide, device="cpu"))
+
+
+def test_the_cuda_lane_prices_k2s_tensor_cores_by_bytes():
+    """Where `specialized_route` takes the tensor cores (the fir127
+    cell's 1 filter × 64 channels × 1,024 tiles), K2 is priced by its
+    bytes (4 in and 4 out an output) at that design's own constants; a
+    short push keeps the walk's formula; on a card of 132 SMs the
+    calibration's walk probes all take the walk and its tensor-core
+    probes the tensor cores."""
+    outs = 64 * 1024 * 1024
+    assert cm.predict_specialized_us(1, 64, 1024, 127, 263.0, cal=CUDA_CAL,
+                                     tile=1024) == \
+        pytest.approx(18.0 + 8 * outs * 2e-7)
+    walk = 4 * (127 // 2 + 263.0) / 2  # 4 outputs a thread, 2 segments
+    assert tk.specialized_walk(1, 2, 2, 1024, 132, 127, 263.0) == walk
+    assert cm.predict_specialized_us(1, 2, 2, 127, 263.0, cal=CUDA_CAL,
+                                     tile=1024) == pytest.approx(
+        20.0 + walk * 0.01 + 2 * 2048 * (127 // 2 + 263.0) * 1e-6)
+    for f, taps, n in cm.SPEC_PROBES:
+        assert tk.specialized_route(f, 1, -(-n // 512), 512, 132,
+                                    taps) == "walk"
+    for f, taps, n in cm.SPEC_TC_PROBES:
+        assert tk.specialized_route(f, 1, -(-n // 512), 512, 132,
+                                    taps) == "wgmma"
 
 
 def test_the_cuda_lane_prices_k1_by_its_terms_and_bytes():
@@ -273,6 +298,12 @@ def test_calibration_files_are_keyed_on_the_card(tmp_path, monkeypatch):
     assert cm.ensure_calibration("cuda") == CUDA_CAL
     monkeypatch.setattr(cm, "_device_name", lambda dev: "a third card")
     assert cm.get_calibration("cuda") is None
+    # an entry of another layout (a field missing) is fitted again
+    old = asdict(replace(CUDA_CAL, device_name="a third card"))
+    del old["spec_tc_byte_us"]
+    (tmp_path / "calibration.json").write_text(json.dumps(
+        {"cuda": {"a third card": old}}))
+    assert cm.get_calibration("cuda") is None
     with pytest.raises(ValueError):
         cm.get_calibration("mosaic")
 
@@ -280,6 +311,7 @@ def test_calibration_files_are_keyed_on_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("probe,args", [
     ("_probe_bank", (64, 63, 600)),
     ("_probe_specialized", (3, 31, 600)),
+    ("_probe_specialized_tc", (2, 31, 600)),
     ("_probe_fold", (16, 9, 4, 600, 0)),
     ("_probe_fold", (40, 30, 6, 600, 1)),  # clustered columns: pairs share
 ])
@@ -298,6 +330,9 @@ def test_calibration_probes_run_their_kernels(probe, args):
         assert tuple(y.shape) == (n_real, 1, n)
         # the work is the kernel's table entries (pairs of rows) a sample
         assert work[1] % n == 0 and work[1] // n >= n_real * per_row // 4
+    elif probe == "_probe_specialized_tc":  # 4 bytes in, 4 out an output
+        assert len(work) == 1 and work[0] == 8 * 2 * 1024
+        assert tuple(y.shape) == (2, 1, 2, 512)
     else:
         assert len(work) == 2 and y.shape[0] == args[0]
 

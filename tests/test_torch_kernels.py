@@ -19,8 +19,9 @@ from repro.kernels import blmac_fir as ref_blmac_fir
 from repro.kernels import blmac_fir_bank as ref_blmac_fir_bank
 from repro.kernels.ref import blmac_fir_ref as ref_blmac_fir_ref
 from repro.kernels.ref import fir_direct_ref as ref_fir_direct_ref
-from repro_torch.compiler import compile_bank
-from repro_torch.filters import fir_bit_layers_batch
+from repro_torch.compiler import cache_stats, clear_caches, compile_bank
+from repro_torch.core import po2_quantize_batch
+from repro_torch.filters import fir_bit_layers_batch, sweep_bank, sweep_specs
 from repro_torch.kernels import blmac_fir, blmac_fir_bank
 from repro_torch.kernels.ref import blmac_fir_ref, fir_direct_ref
 
@@ -221,3 +222,96 @@ def test_rejects_bad_operands():
                       out=torch.empty(1, dtype=torch.int32))
     with pytest.raises(ValueError):
         blmac_fir(np.zeros(50), np.arange(31), device=CPU)
+
+
+def _fir127():
+    """Row 4,950 of the 127-tap sweep at N = 100 (a bandpass, 263 pulses):
+    the benchmark's one-filter configuration."""
+    spec = sweep_specs(100)[4950]
+    return po2_quantize_batch(sweep_bank(127, 100, specs=[spec]), 16)[0][0]
+
+
+@pytest.mark.parametrize("taps,bank,samples,n_out", [
+    (55, "random", "8bit", 2 * 8192 + 37),
+    (55, "random", "int32", 1000),
+    (127, "fir127", "8bit", 8192 + 101),
+    (127, "fir127", "int32", 3 * 1024 + 7),
+    (127, "random", "8bit", 700),
+    (127, "random", "int32", 8192 + 64 + 1),
+    (255, "random", "8bit", 4099),
+    (255, "random", "int32", 8192 - 1),
+    (127, "random", "x256", 2 * 8192 + 3),
+])
+def test_specialized_toeplitz_walk_matches_plain_and_oracle(taps, bank,
+                                                            samples, n_out):
+    """The tensor-core K2's arithmetic (`specialized_toeplitz_walk`: s8
+    sample planes, windows of 64 outputs, each term a Hankel-by-Toeplitz
+    product in a Horner chain modulo 2**32) read from the very tables a
+    `SpecializedProgram` builds, against the plain version and the int64
+    oracle: the fir127 filter alone and three random 16-bit symmetric
+    filters, 8-bit and full-range int32 samples (outputs wrapping across
+    2**31) and 8-bit samples times 256 (plane 0 dead below a live plane 1),
+    output counts off multiples of 64 and 8,192."""
+    q = _fir127()[None] if bank == "fir127" else random_type1_bank(
+        3, taps, seed=taps)
+    scheds = compile_bank(q).pulse_schedules()
+    lim = 1 << 31 if samples == "int32" else 1 << 7
+    x = _x((2, n_out + taps - 1), taps + n_out, lim).astype(np.int32)
+    if samples == "x256":
+        x *= 256
+    tile = 1024
+    frames, got_n = tk.frame_signal_batch(torch.as_tensor(x), taps, tile)
+    assert got_n == n_out
+    prog = tk.SpecializedProgram(scheds, taps, tile, torch.device(CPU))
+    image, index, terms, b_bytes = prog.toeplitz
+    walk = tk.specialized_toeplitz_walk(frames.numpy(), image, index, terms,
+                                        taps, tile)
+    plain = torch.stack([tk.specialized_plain(frames, p, taps, tile)
+                         for p in scheds]).numpy()
+    assert np.array_equal(walk, plain)
+    oracle = fir_bit_layers_batch(x.astype(np.int64), q)
+    if samples == "int32":
+        assert np.abs(oracle).max() >= 1 << 31  # the outputs really wrap
+    assert np.array_equal(walk.reshape(len(q), 2, -1)[:, :, :n_out],
+                          oracle.astype(np.int32))
+    assert b_bytes == max(16 * index[:, 1].max(), tk.TOEPLITZ_CHUNK)
+    if bank == "fir127":  # 3 runs of span <= 7, one plane for 8-bit samples
+        assert len(scheds[0]) == 263
+        assert b_bytes == 5 * tk.TOEPLITZ_CHUNK
+        assert index[0, 3:].tolist() == [3, 6, 9, 11, 0]
+        assert terms[:3, 1].tolist() == [0, 0, 0]
+
+
+def test_specialized_route_by_shape_and_tables_built_once():
+    """The tensor-core design where a launch fills the card (the fir127
+    cell's 1 × 64 × 1,024 tiles; `blmac_fir`'s 1 × 2**20), the CUDA-core
+    walk on a short push and past 255 taps; the program's tables are
+    built once, and a second call of the same program builds nothing."""
+    sms = 132
+    assert tk.specialized_route(1, 64, 1024, 1024, sms, 127) == "wgmma"
+    assert tk.specialized_route(1, 1, 1024, 1024, sms, 127) == "wgmma"
+    assert tk.specialized_route(1, 2, 2, 1024, sms, 127) == "walk"
+    assert tk.specialized_route(1, 64, 1024, 1024, sms, 257) == "walk"
+    assert tk.specialized_route(1, 64, 1024, 1024, sms, 255) == "wgmma"
+    clear_caches()
+    q = _fir127()[None]
+    x = _x((2, 3000), 5)
+
+    def builds():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            y = blmac_fir_bank(x, q, device=CPU)
+        return y, [e.name for e in prof.events()
+                   if e.name.startswith("repro_torch.build.")]
+
+    y1, cold = builds()
+    y2, warm = builds()
+    assert "repro_torch.build.specialized" in cold and warm == []
+    assert torch.equal(y1, y2)
+    assert cache_stats()["specialized"]["misses"] == 1
+    assert cache_stats()["specialized"]["hits"] == 1
+    pulses = tk.pulses_msb_first(q[0])
+    prog = tk.specialized_program(pulses, 127, 1024, CPU)
+    assert prog.toeplitz is not None and prog.toeplitz_tensors is None
+    assert tk.specialized_program(pulses, 127, 1024, CPU).toeplitz \
+        is prog.toeplitz
